@@ -1,0 +1,82 @@
+"""ed25519 key types: the PubKey/PrivKey contracts for validator keys.
+
+Reference surface: crypto/crypto.go:22-54 (PubKey, PrivKey), with the
+ed25519 semantics of crypto/ed25519/ed25519.go — ZIP-215 verification,
+SHA-256[:20] addresses, and a 64-byte private key laid out as
+seed || pubkey (RFC 8032 / golang crypto/ed25519).
+
+Single signatures verify on the host with the pure-Python oracle; batches
+go to the device through crypto/batch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from . import ed25519_ref as ref
+from . import tmhash
+
+ED25519_KEY_TYPE = "ed25519"
+
+PUBKEY_SIZE = 32
+PRIVKEY_SIZE = 64  # seed || pubkey
+
+
+class Address(bytes):
+    """20-byte account/validator address (SHA-256 truncated)."""
+
+    def __str__(self) -> str:  # uppercase hex like the reference's HexBytes
+        return self.hex().upper()
+
+
+@dataclass(frozen=True, slots=True)
+class Ed25519PubKey:
+    data: bytes  # 32-byte compressed point
+
+    def __post_init__(self) -> None:
+        if len(self.data) != PUBKEY_SIZE:
+            raise ValueError("ed25519 pubkey must be 32 bytes")
+
+    @property
+    def type(self) -> str:
+        return ED25519_KEY_TYPE
+
+    def address(self) -> Address:
+        return Address(tmhash.sum_truncated(self.data))
+
+    def bytes(self) -> bytes:
+        return self.data
+
+    def verify_signature(self, msg: bytes, sig: bytes) -> bool:
+        """Single-signature ZIP-215 verification on the host."""
+        return ref.verify(self.data, msg, sig)
+
+
+@dataclass(frozen=True, slots=True)
+class Ed25519PrivKey:
+    data: bytes  # seed || pubkey (64 bytes)
+
+    def __post_init__(self) -> None:
+        if len(self.data) != PRIVKEY_SIZE:
+            raise ValueError("ed25519 privkey must be 64 bytes (seed||pub)")
+
+    @classmethod
+    def from_seed(cls, seed: bytes) -> "Ed25519PrivKey":
+        return cls(seed + ref.pubkey_from_seed(seed))
+
+    @property
+    def type(self) -> str:
+        return ED25519_KEY_TYPE
+
+    @property
+    def seed(self) -> bytes:
+        return self.data[:32]
+
+    def bytes(self) -> bytes:
+        return self.data
+
+    def sign(self, msg: bytes) -> bytes:
+        return ref.sign(self.seed, msg)
+
+    def pub_key(self) -> Ed25519PubKey:
+        return Ed25519PubKey(self.data[32:])

@@ -1,0 +1,57 @@
+// Shared by the three kernel sources: batched cofactored ed25519
+// verification for Hopper (sm_90a), one thread per signature lane. The
+// kernels share the field and point code of ed25519.cuh:
+//
+//   K1 k1_verify         replaces cometbft_tpu/ops/pallas_verify.py
+//                        _verify_block_kernel (wrapper verify_kernel):
+//                        decompress A and R, build A's 16-entry table,
+//                        64-window joint ladder, -R, x8, identity test.
+//   K2 k2_verify_cached  replaces _verify_block_kernel_cached (wrapper
+//                        verify_kernel_cached): A's table is read straight
+//                        from the pubkey arena by slot index, so only R
+//                        decompresses and no gathered table copy is made.
+//   X1 x1_build_tables   replaces the XLA builder that fills the arena
+//                        (ops/verify.py _builder_kernel ->
+//                        curve.build_pubkey_tables).
+//
+// What bounds them: int32 multiply-adds. K2 does ~2,020 field muls and
+// ~1,290 squarings per lane (K1 ~2,150 and ~1,550, X1 ~130 and ~260),
+// each a 20x20 schoolbook of 400 multiply-adds (210 for a squaring), so
+// ~2.2 M integer operations per lane against ~5.7 KB per lane (K2, table
+// rows included): far above the card's ops-per-byte line, so the kernels
+// are compute-bound. The bound is reckoned as operations (2 per
+// multiply-add; ops/cuda_verify.MULADDS_PER_LANE) over the int32
+// multiply-add rate (64 per clock per SM on sm_90, half the float32 FMA
+// rate), and bytes (each input read once, each output written once) over
+// the memory rate; the larger is the bound.
+//
+// Design: the Pallas kernels' one-hot multiply-accumulate selects become
+// plain indexed loads (the inputs are public, so constant time is not
+// required). The constant B table and d, 2d, sqrt(-1) sit in shared memory,
+// staged once per block; per-lane reads of it diverge, which constant
+// memory would serialise. K1's per-lane A table (5,120 B) lives in a
+// lane-minor (16, 4, 20, N) global scratch the wrapper allocates. Any N
+// is taken: the grid covers ceil(N / BLOCK) blocks and the ragged edge is
+// masked. 64 threads a block spread 10,000 lanes over 157 blocks on 132
+// SMs. Launches go on the caller's stream; nothing synchronises. Each
+// kernel is its own source so the three nvcc runs go in parallel.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "ed25519.cuh"
+
+namespace ed {
+
+constexpr int BLOCK = 64;
+
+__device__ __forceinline__ void stage_consts(int32_t* sm,
+                                             const int32_t* consts) {
+  for (int i = threadIdx.x; i < N_CONSTS; i += blockDim.x) sm[i] = consts[i];
+  __syncthreads();
+}
+
+inline int grid_for(int n) { return (n + BLOCK - 1) / BLOCK; }
+
+}  // namespace ed
+

@@ -1,0 +1,220 @@
+"""Wrappers of the hand-written CUDA verify kernels (csrc/*.cu).
+
+The counterpart of cometbft_tpu/ops/pallas_verify.py, with the same
+array contract at the wrappers (lane-minor ``(20, N)`` limbs, ``(64, N)``
+nibbles, ``(16, 4, 20, N)`` tables):
+
+* ``verify_kernel``        -> K1 ``k1_verify`` (csrc/verify_uncached.cu)
+* ``verify_kernel_cached`` -> K2 ``k2_verify_cached`` (csrc/verify_cached.cu)
+* ``build_pubkey_tables``  -> X1 ``x1_build_tables`` (csrc/build_tables.cu)
+
+A CPU tensor goes to the plain PyTorch version in ops/curve.py. A CUDA
+tensor launches the kernel on the current stream or raises: there is no
+fallback. Every input is checked for device, dtype, shape and contiguity,
+outputs are allocated here with ``torch.empty``, and ``LAUNCHES`` counts
+each kernel's launches (and nothing else).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from . import build, curve
+from .field import NLIMB
+
+TSIZE = curve.TSIZE
+WINDOWS = curve.WINDOWS
+
+LAUNCHES = {"verify_kernel": 0, "verify_kernel_cached": 0,
+            "build_pubkey_tables": 0}
+SOURCES = {"verify_kernel": "verify_uncached.cu",
+           "verify_kernel_cached": "verify_cached.cu",
+           "build_pubkey_tables": "build_tables.cu"}
+
+# (field multiplications, field squarings) per lane, counted from
+# csrc/ed25519.cuh: a decompression is 19 and 255 (251 squarings in the
+# sqrt chain; the sqrt(-1) fix-up multiply that about half the lanes take
+# is left out), the ladder 2,004 and 1,036 (64 windows of four doublings
+# at 4 + 4, a Niels add at 8 and an affine add at 7; then -R and three
+# doublings), a table build 111 and 4. A multiplication is a 20x20
+# schoolbook of 400 int32 multiply-adds, a squaring 210; the carries are
+# not counted. Multiply-adds and bytes per lane feed chip_smoke's bound.
+_DECOMPRESS, _LADDER, _TABLE = (19, 255), (2004, 1036), (111, 4)
+
+
+def _muladds(*parts) -> int:
+    return sum(NLIMB * NLIMB * m + NLIMB * (NLIMB + 1) // 2 * s
+               for m, s in parts)
+
+
+MULADDS_PER_LANE = {
+    "verify_kernel": _muladds(_DECOMPRESS, _DECOMPRESS, _TABLE, _LADDER),
+    "verify_kernel_cached": _muladds(_DECOMPRESS, _LADDER),
+    "build_pubkey_tables": _muladds(_DECOMPRESS, _TABLE),
+}
+# bytes each lane must move: inputs read once, outputs written once
+BYTES_PER_LANE = {
+    # y_a, sign_a, y_r, sign_r, s_nibs, kneg_nibs (int32), verdict (1 B)
+    "verify_kernel": 4 * (2 * NLIMB + 2 + 2 * WINDOWS) + 1,
+    # + A's table rows (16*4*20 int32), its ok byte, a uint16 slot
+    "verify_kernel_cached": 4 * (NLIMB + 1 + 2 * WINDOWS)
+    + 4 * TSIZE * 4 * NLIMB + 1 + 2 + 1,
+    # y_a, sign_a in; table and ok byte out
+    "build_pubkey_tables": 4 * (NLIMB + 1) + 4 * TSIZE * 4 * NLIMB + 1,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(name, t, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _cuda_device(device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}: cpu or cuda only")
+
+
+@lru_cache(maxsize=None)
+def _consts(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(curve.kernel_consts()).to(device)
+
+
+_PTR = ctypes.c_void_p
+
+
+@lru_cache(maxsize=None)
+def _entries():
+    """The C entry of each kernel, from the built libraries."""
+    libs = {k: build.load_all()[v[:-3]] for k, v in SOURCES.items()}
+    k1 = libs["verify_kernel"].ed25519_verify
+    k1.argtypes = [_PTR] * 9 + [ctypes.c_int, _PTR]
+    k2 = libs["verify_kernel_cached"].ed25519_verify_cached
+    k2.argtypes = [_PTR] * 3 + [ctypes.c_int] + [_PTR] * 6 + [ctypes.c_int, _PTR]
+    x1 = libs["build_pubkey_tables"].ed25519_build_tables
+    x1.argtypes = [_PTR] * 5 + [ctypes.c_int, _PTR]
+    for fn in (k1, k2, x1):
+        fn.restype = ctypes.c_int
+    return {"verify_kernel": k1, "verify_kernel_cached": k2,
+            "build_pubkey_tables": x1}
+
+
+def _launch(kernel: str, device: torch.device, *args) -> None:
+    """Call one kernel's C entry on the current stream; raise on a launch
+    error."""
+    fn = _entries()[kernel]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[kernel] += 1
+
+
+def _p(t: torch.Tensor):
+    return t.data_ptr()
+
+
+def _check_rsk(y_r, sign_r, s_nibs, kneg_nibs, n, device) -> None:
+    _check("y_r", y_r, torch.int32, (NLIMB, n), device)
+    _check("sign_r", sign_r, torch.int32, (n,), device)
+    _check("s_nibs", s_nibs, torch.int32, (WINDOWS, n), device)
+    _check("kneg_nibs", kneg_nibs, torch.int32, (WINDOWS, n), device)
+
+
+def verify_kernel(y_a, sign_a, y_r, sign_r, s_nibs, kneg_nibs):
+    """K1: (N,) bool, [8]([S]B + [-k]A - R) == O and A, R decoded.
+
+    Same contract as ops.curve.verify_kernel (pallas_verify.verify_kernel):
+    y_a, y_r (20, N) int32; sign_a, sign_r (N,) int32; s_nibs, kneg_nibs
+    (64, N) int32 MSB-first 4-bit windows.
+    """
+    device = y_a.device
+    n = y_a.shape[-1]
+    _check("y_a", y_a, torch.int32, (NLIMB, n), device)
+    _check("sign_a", sign_a, torch.int32, (n,), device)
+    _check_rsk(y_r, sign_r, s_nibs, kneg_nibs, n, device)
+    if device.type == "cpu":
+        return curve.verify_kernel(y_a, sign_a, y_r, sign_r, s_nibs, kneg_nibs)
+    _cuda_device(device)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    if n == 0:
+        return out
+    scratch = torch.empty((TSIZE, 4, NLIMB, n), dtype=torch.int32,
+                          device=device)
+    _launch(
+        "verify_kernel", device,
+        _p(y_a), _p(sign_a), _p(y_r), _p(sign_r), _p(s_nibs), _p(kneg_nibs),
+        _p(_consts(device)), _p(scratch), _p(out), n,
+    )
+    return out
+
+
+def verify_kernel_cached(arena, arena_ok, y_r, sign_r, s_nibs, kneg_nibs, *,
+                         idxs):
+    """K2: the ladder with a pre-expanded pubkey table, ANDed with its ok
+    bit.
+
+    ``arena`` is a (16, 4, 20, S) int32 pubkey arena and ``arena_ok`` its
+    (S,) ok bits; ``idxs`` (N,) int16 holds uint16 slot numbers, and lane i
+    reads slot idxs[i] in place: no gathered copy. A slot >= S verifies
+    False. The plain version is ops.curve.verify_kernel_slots.
+    """
+    device = y_r.device
+    n = y_r.shape[-1]
+    _check_rsk(y_r, sign_r, s_nibs, kneg_nibs, n, device)
+    slots = arena.shape[-1]
+    _check("arena", arena, torch.int32, (TSIZE, 4, NLIMB, slots), device)
+    _check("arena_ok", arena_ok, torch.bool, (slots,), device)
+    _check("idxs", idxs, torch.int16, (n,), device)
+    if device.type == "cpu":
+        return curve.verify_kernel_slots(arena, arena_ok, idxs, y_r, sign_r,
+                                         s_nibs, kneg_nibs)
+    _cuda_device(device)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    if n == 0:
+        return out
+    _launch(
+        "verify_kernel_cached", device,
+        _p(arena), _p(arena_ok), _p(idxs), slots,
+        _p(y_r), _p(sign_r), _p(s_nibs), _p(kneg_nibs), _p(_consts(device)),
+        _p(out), n,
+    )
+    return out
+
+
+def build_pubkey_tables(y_a, sign_a):
+    """X1: (table (16, 4, 20, M) int32, ok (M,) bool) for M pubkeys,
+    the contract of ops.curve.build_pubkey_tables."""
+    device = y_a.device
+    m = y_a.shape[-1]
+    _check("y_a", y_a, torch.int32, (NLIMB, m), device)
+    _check("sign_a", sign_a, torch.int32, (m,), device)
+    if device.type == "cpu":
+        return curve.build_pubkey_tables(y_a, sign_a)
+    _cuda_device(device)
+    table = torch.empty((TSIZE, 4, NLIMB, m), dtype=torch.int32,
+                        device=device)
+    ok = torch.empty(m, dtype=torch.bool, device=device)
+    if m == 0:
+        return table, ok
+    _launch(
+        "build_pubkey_tables", device,
+        _p(y_a), _p(sign_a), _p(_consts(device)), _p(table), _p(ok), m,
+    )
+    return table, ok

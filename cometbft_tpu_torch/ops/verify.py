@@ -1,0 +1,418 @@
+"""Host <-> device glue for batched ed25519 verification.
+
+Split of labor:
+
+* Host (numpy + hashlib): length checks, the SHA-512 challenge
+  k = SHA512(R || A || M) mod L, the canonicality check S < L, and the
+  compact wire rows (128 B per lane: A | R | S | -k mod L).
+* Device (torch + the kernels of ops/cuda_verify.py): byte unpacking
+  into limbs, sign bits and nibbles, point decompression, the windowed
+  double-scalar ladder, and the bit-packed verdicts (bucket/8 bytes back).
+
+Steady state goes through the :class:`PubkeyTableCache`: a validator's
+decompressed key and 16-entry table live in a device arena, a commit ships
+96 B per lane plus a uint16 slot, and K2 reads the table in place.
+
+Entry points take ``device=`` and default to ``"cuda"``; without a GPU
+they raise instead of running on the CPU. ``device="cpu"`` runs the plain
+PyTorch versions of the kernels (the tests' path).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ..crypto import ed25519_ref
+from . import cuda_verify, curve, field
+
+L = curve.L
+_MIN_BUCKET = 8
+# Largest lane count per launch: bigger batches split into _CHUNK-lane
+# launches, which also bounds K1's (16, 4, 20, N) scratch to 84 MB.
+_CHUNK = 16384
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for ``device``; raises for CUDA without a usable GPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA device requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain versions"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def bucket_size(n: int) -> int:
+    """Smallest wire bucket holding n (8 <= bucket <= _CHUNK): powers of
+    two plus the 3*2^k midpoints that are multiples of 512 (1536, 3072,
+    6144, 12288). The bit-packed verdicts travel at this size; the wire
+    rows and the kernels take only the n real lanes."""
+    assert n <= _CHUNK, n
+    b = _MIN_BUCKET
+    while b < n:
+        mid = b + b // 2
+        if mid >= n and mid % 512 == 0:
+            return mid
+        b *= 2
+    return b
+
+
+def pack_bytes(pubkeys, msgs, sigs) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side packing to the compact device wire format.
+
+    Returns (buf (128, n) uint8, host_ok (n,) bool). Rows 0-31 pubkey,
+    32-63 R, 64-95 S, 96-127 (-k mod L), all little-endian bytes.
+    Malformed inputs (wrong lengths, non-canonical S >= L) get
+    host_ok=False and zeroed rows.
+    """
+    n = len(pubkeys)
+    host_ok = np.ones(n, bool)
+    pk_buf = bytearray(32 * n)
+    rr_buf = bytearray(32 * n)
+    ss_buf = bytearray(32 * n)
+    kneg_buf = bytearray(32 * n)
+    challenge = ed25519_ref.challenge_scalar
+    for i in range(n):
+        p_i, s_i = pubkeys[i], sigs[i]
+        if len(p_i) != 32 or len(s_i) != 64:
+            host_ok[i] = False
+            continue
+        s_int = int.from_bytes(s_i[32:], "little")
+        if s_int >= L:  # S must be canonical even under ZIP-215
+            host_ok[i] = False
+            continue
+        k = challenge(s_i[:32], p_i, msgs[i])
+        o = 32 * i
+        pk_buf[o : o + 32] = p_i
+        rr_buf[o : o + 32] = s_i[:32]
+        ss_buf[o : o + 32] = s_i[32:]
+        kneg_buf[o : o + 32] = ((L - k) % L).to_bytes(32, "little")
+
+    rows = [
+        np.frombuffer(bytes(b), np.uint8).reshape(n, 32).T
+        for b in (pk_buf, rr_buf, ss_buf, kneg_buf)
+    ]
+    return np.ascontiguousarray(np.concatenate(rows, axis=0)), host_ok
+
+
+# -- device-side byte unpacking (shared by the uncached, cached and
+# builder paths, so the three cannot diverge) --
+
+
+def _dev_le_bits(rows: torch.Tensor) -> torch.Tensor:
+    """(32, N) int32 bytes -> (256, N) bits, little-endian."""
+    shifts = torch.arange(8, dtype=torch.int32, device=rows.device)
+    bits = (rows[:, None, :] >> shifts.reshape(1, 8, 1)) & 1
+    return bits.reshape(256, rows.shape[-1])
+
+
+def _dev_y_limbs(bits: torch.Tensor) -> torch.Tensor:
+    """(256, N) bits -> (20, N) 13-bit limbs of bits 0..254 (bit 255 is
+    the sign). y >= p stays unreduced: ZIP-215 accepts it."""
+    n = bits.shape[-1]
+    padded = torch.cat(
+        [bits[:255], torch.zeros((5, n), dtype=torch.int32,
+                                 device=bits.device)]
+    )
+    w = (1 << torch.arange(field.BITS, dtype=torch.int32,
+                           device=bits.device)).reshape(1, -1, 1)
+    return torch.sum(
+        padded.reshape(field.NLIMB, field.BITS, n) * w, dim=1,
+        dtype=torch.int32,
+    )
+
+
+def _dev_msb_nibbles(rows: torch.Tensor) -> torch.Tensor:
+    """(32, N) little-endian scalar bytes -> (64, N) windows, MSB first."""
+    nibs = torch.stack([rows & 15, rows >> 4], dim=1).reshape(
+        64, rows.shape[-1]
+    )
+    return nibs.flip(0)
+
+
+def unpack_on_device(buf: torch.Tensor) -> dict:
+    """(128, N) uint8 wire rows -> verify_kernel arrays, on buf's device.
+    Bytes widen to int32 before any shift."""
+    b = buf.to(torch.int32)
+    pk_bits = _dev_le_bits(b[0:32])
+    rr_bits = _dev_le_bits(b[32:64])
+    return {
+        "y_a": _dev_y_limbs(pk_bits),
+        "sign_a": pk_bits[255].contiguous(),
+        "y_r": _dev_y_limbs(rr_bits),
+        "sign_r": rr_bits[255].contiguous(),
+        "s_nibs": _dev_msb_nibbles(b[64:96]),
+        "kneg_nibs": _dev_msb_nibbles(b[96:128]),
+    }
+
+
+def _unpack_rsk_on_device(buf: torch.Tensor) -> dict:
+    """(96, N) uint8 rows R|S|kneg -> cached-kernel arrays."""
+    b = buf.to(torch.int32)
+    rr_bits = _dev_le_bits(b[0:32])
+    return {
+        "y_r": _dev_y_limbs(rr_bits),
+        "sign_r": rr_bits[255].contiguous(),
+        "s_nibs": _dev_msb_nibbles(b[32:64]),
+        "kneg_nibs": _dev_msb_nibbles(b[64:96]),
+    }
+
+
+# -- verdict bit-packing: the verdicts are the only payload read back,
+# eight lanes to a byte. Every wire size is a bucket, so N % 8 == 0. --
+
+_OK_BIT_WEIGHTS = np.array([1, 2, 4, 8, 16, 32, 64, 128], np.int32)
+
+
+def _pack_ok_bits(ok: torch.Tensor) -> torch.Tensor:
+    """(N,) bool -> (N//8,) uint8, little-endian bit order."""
+    bits = ok.to(torch.int32).reshape(-1, 8)
+    w = torch.from_numpy(_OK_BIT_WEIGHTS).to(ok.device)
+    return torch.sum(bits * w, dim=1, dtype=torch.int32).to(torch.uint8)
+
+
+def unpack_ok_bits(packed: np.ndarray, n: int) -> np.ndarray:
+    """Host inverse of :func:`_pack_ok_bits`: (n,) bool validity."""
+    return np.unpackbits(
+        np.ascontiguousarray(packed, np.uint8), bitorder="little"
+    )[:n].astype(bool)
+
+
+def _readback(ok: torch.Tensor, size: int):
+    """Pad n verdicts to the wire bucket, bit-pack them on the device and
+    return the closure that reads them back: (n,) bool."""
+    n = ok.shape[0]
+    full = torch.zeros(size, dtype=torch.bool, device=ok.device)
+    full[:n] = ok
+    packed = _pack_ok_bits(full)
+    return lambda: unpack_ok_bits(packed.cpu().numpy(), size)[:n]
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+# ------------------------------------------------------------------ cache
+# Device-resident expanded-pubkey cache. The reference keeps a 4096-entry
+# LRU of expanded keys because validators recur every round
+# (crypto/ed25519/ed25519.go:31,56); here each key's 16-entry Niels table
+# lives in a device arena, so a steady-state commit skips A's
+# decompression (the ~254-squaring sqrt chain) and table build.
+
+
+class PubkeyTableCache:
+    """LRU arena of expanded pubkey tables resident on one device.
+
+    The arena is ``(16, 4, 20, capacity + 1)`` int32 plus ``(capacity + 1,)``
+    ok bits. The last slot is never assigned: the reference keeps it as
+    scratch, and an arena carries over between the two shape for shape.
+    Thread-safe. An update writes a NEW arena tensor (copy, then scatter),
+    so a verify launched against the arena a lookup handed out keeps
+    reading the tables it was given.
+    """
+
+    # One full _CHUNK of distinct signers stays cacheable: ~84 MB.
+    CAPACITY = 16384
+
+    def __init__(self, device="cuda", capacity: int = CAPACITY):
+        if not 0 < capacity < 1 << 16:
+            raise ValueError("capacity must be in [1, 65535]: uint16 slots")
+        self.device = resolve_device(device)
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._slots: OrderedDict[bytes, int] = OrderedDict()
+        self._arena = torch.zeros(
+            (curve.TSIZE, 4, field.NLIMB, capacity + 1), dtype=torch.int32,
+            device=self.device,
+        )
+        self._arena_ok = torch.zeros(
+            capacity + 1, dtype=torch.bool, device=self.device
+        )
+        self.hits = 0
+        self.misses = 0
+        self.builds = 0  # builder launches
+
+    def arena(self) -> tuple[torch.Tensor, torch.Tensor]:
+        with self._lock:
+            return self._arena, self._arena_ok
+
+    def _build(self, keys: list[bytes]):
+        """Decompress and expand ``keys`` on the device (X1):
+        (tables (16, 4, 20, m), ok (m,)). Malformed keys build from zero
+        bytes and get ok False."""
+        m = len(keys)
+        buf = np.zeros((32, m), np.uint8)
+        wellformed = np.array([len(pk) == 32 for pk in keys], bool)
+        for j, pk in enumerate(keys):
+            if wellformed[j]:
+                buf[:, j] = np.frombuffer(pk, np.uint8)
+        bits = _dev_le_bits(_to_device(buf, self.device).to(torch.int32))
+        tables, oks = cuda_verify.build_pubkey_tables(
+            _dev_y_limbs(bits), bits[255].contiguous()
+        )
+        return tables, oks & _to_device(wellformed, self.device)
+
+    def lookup(self, pubkeys):
+        """Per-pubkey uint16 slots into the arena, building misses.
+
+        Returns (idxs (N,) uint16, arena, arena_ok), or None when the
+        call's unique keys exceed the arena. Keys used by this call are
+        pinned: eviction never frees a slot this call reads. The builder
+        launch runs outside the lock; slot assignment, the scatter and the
+        (idxs, arena, arena_ok) capture happen under one lock hold.
+        Tables are a pure function of the key, so two threads racing to
+        build one key scatter identical values.
+        """
+        keys = [bytes(pk) for pk in pubkeys]
+        in_use = set(keys)
+        if len(in_use) > self.capacity:
+            return None
+        built: list[tuple[list[bytes], torch.Tensor, torch.Tensor]] = []
+        built_keys: set[bytes] = set()
+        # Bounded: under sustained churn (concurrent callers with disjoint
+        # key sets larger than the arena) give up after three builds.
+        for attempt in range(4):
+            with self._lock:
+                to_build = [
+                    pk for pk in dict.fromkeys(keys)
+                    if pk not in self._slots and pk not in built_keys
+                ]
+                if not to_build:
+                    for batch_keys, tables, oks in built:
+                        self._scatter(batch_keys, tables, oks, in_use)
+                    idxs = np.empty(len(keys), np.uint16)
+                    for i, pk in enumerate(keys):
+                        idxs[i] = self._slots[pk]
+                        self._slots.move_to_end(pk)
+                        if pk in built_keys:
+                            self.misses += 1
+                        else:
+                            self.hits += 1
+                    return idxs, self._arena, self._arena_ok
+            if attempt == 3:
+                break
+            self.builds += 1
+            tables, oks = self._build(to_build)
+            built.append((to_build, tables, oks))
+            built_keys.update(to_build)
+        return None
+
+    def _scatter(self, batch_keys, tables, oks, in_use) -> None:
+        """Assign slots to ``batch_keys`` and write their tables into a
+        new arena (X2). Caller holds the lock."""
+        slots = np.empty(len(batch_keys), np.int64)
+        for j, pk in enumerate(batch_keys):
+            slot = self._slots.get(pk)
+            if slot is None:
+                if len(self._slots) >= self.capacity:
+                    # evict the oldest key this call does not use
+                    old = next(k for k in self._slots if k not in in_use)
+                    slot = self._slots.pop(old)
+                else:
+                    slot = len(self._slots)
+                self._slots[pk] = slot
+            slots[j] = slot
+        idx = _to_device(slots, self.device)
+        self._arena = self._arena.index_copy(3, idx, tables)
+        self._arena_ok = self._arena_ok.index_copy(0, idx, oks)
+
+    def load(self, slots: dict[bytes, int], arena: torch.Tensor,
+             arena_ok: torch.Tensor) -> None:
+        """Adopt an arena and its slot map (convert.py carries one over)."""
+        shape = (curve.TSIZE, 4, field.NLIMB, self.capacity + 1)
+        if tuple(arena.shape) != shape or tuple(arena_ok.shape) != shape[-1:]:
+            raise ValueError(f"arena must be {shape}, ok ({shape[-1]},)")
+        # slots fill 0, 1, 2, ... in order (see _scatter)
+        if sorted(slots.values()) != list(range(len(slots))) or len(
+            slots
+        ) > self.capacity:
+            raise ValueError("slots must be 0..k-1 with k <= capacity")
+        with self._lock:
+            self._arena = arena.to(self.device, torch.int32).contiguous()
+            self._arena_ok = arena_ok.to(self.device, torch.bool).contiguous()
+            self._slots = OrderedDict(
+                sorted(slots.items(), key=lambda kv: kv[1])
+            )
+
+
+# ---------------------------------------------------------------- launches
+
+
+def verify_bytes_async(buf: np.ndarray, n: int, device="cuda"):
+    """Launch the uncached kernel (K1) on packed (128, n) wire rows.
+
+    Returns a zero-arg closure that reads back the (n,) validity bitmap,
+    so host work can overlap the kernel. Batches past _CHUNK split into
+    _CHUNK-lane launches.
+    """
+    dev = resolve_device(device)
+    if n > _CHUNK:
+        finals = [
+            verify_bytes_async(buf[:, lo : min(lo + _CHUNK, n)],
+                               min(lo + _CHUNK, n) - lo, dev)
+            for lo in range(0, n, _CHUNK)
+        ]
+        return lambda: np.concatenate([f() for f in finals])
+    ok = cuda_verify.verify_kernel(**unpack_on_device(_to_device(buf, dev)))
+    return _readback(ok, bucket_size(n))
+
+
+def verify_rsk_async(buf: np.ndarray, idxs: np.ndarray, arena, arena_ok,
+                     n: int):
+    """Launch the cached kernel (K2): (96, n) R|S|kneg rows plus uint16
+    arena slots. Same async contract as :func:`verify_bytes_async`;
+    ``n`` must be <= _CHUNK."""
+    dev = arena.device
+    # uint16 slots travel as int16 (2 B/lane); the kernel reads uint16
+    slot_dev = _to_device(np.asarray(idxs, np.uint16).view(np.int16), dev)
+    ok = cuda_verify.verify_kernel_cached(
+        arena, arena_ok, **_unpack_rsk_on_device(_to_device(buf, dev)),
+        idxs=slot_dev,
+    )
+    return _readback(ok, bucket_size(n))
+
+
+def verify_batch(pubkeys, msgs, sigs, *, device="cuda",
+                 cache: PubkeyTableCache | None = None):
+    """Verify a batch of ed25519 signatures on ``device``.
+
+    Returns (all_valid, per-signature validity (n,) bool): the contract of
+    crypto.BatchVerifier.Verify (crypto/crypto.go:45-54) with per-lane
+    results. With ``cache`` the steady state ships (R, S, -k) plus a slot
+    per lane and runs K2; without it, or when the call's keys overflow
+    the arena, the full wire rows go to K1. Every verdict is ANDed with
+    the host checks: a zeroed malformed lane decodes to a small-order
+    point the cofactored equation would accept.
+    """
+    dev = resolve_device(device)
+    if cache is not None and cache.device != dev:
+        raise ValueError(f"cache lives on {cache.device}, not {dev}")
+    n = len(pubkeys)
+    if n == 0:
+        return True, np.zeros(0, bool)
+    finals, host_oks = [], []
+    for lo in range(0, n, _CHUNK):
+        hi = min(lo + _CHUNK, n)
+        buf, hok = pack_bytes(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi])
+        hit = cache.lookup(pubkeys[lo:hi]) if cache is not None else None
+        if hit is not None:
+            idxs, arena, arena_ok = hit
+            finals.append(
+                verify_rsk_async(buf[32:], idxs, arena, arena_ok, hi - lo)
+            )
+        else:
+            finals.append(verify_bytes_async(buf, hi - lo, dev))
+        host_oks.append(hok)
+    device_ok = np.concatenate([f() for f in finals])
+    valid = device_ok & np.concatenate(host_oks)
+    return bool(valid.all()), valid

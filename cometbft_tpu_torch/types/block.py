@@ -1,0 +1,152 @@
+"""Commit, CommitSig, BlockID, PartSetHeader (reference: types/block.go).
+
+Time is integer nanoseconds since the Unix epoch throughout (Go's
+time.Time has ns precision; Python datetime does not).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field as dc_field
+
+from ..crypto import merkle, tmhash
+from . import canonical, proto
+
+# BlockIDFlag (types/block.go:574-583)
+BLOCK_ID_FLAG_ABSENT = 1
+BLOCK_ID_FLAG_COMMIT = 2
+BLOCK_ID_FLAG_NIL = 3
+
+
+@dataclass(frozen=True, slots=True)
+class PartSetHeader:
+    total: int = 0
+    hash: bytes = b""
+
+    def is_zero(self) -> bool:
+        return self.total == 0 and not self.hash
+
+    def encode(self) -> bytes:
+        return proto.field_varint(1, self.total) + proto.field_bytes(
+            2, self.hash
+        )
+
+    def validate_basic(self) -> None:
+        if self.total < 0:
+            raise ValueError("negative part-set total")
+        if self.hash and len(self.hash) != tmhash.SIZE:
+            raise ValueError("part-set hash must be 32 bytes")
+
+
+@dataclass(frozen=True, slots=True)
+class BlockID:
+    hash: bytes = b""
+    part_set_header: PartSetHeader = dc_field(default_factory=PartSetHeader)
+
+    def is_nil(self) -> bool:
+        return not self.hash and self.part_set_header.is_zero()
+
+    def encode(self) -> bytes:
+        """BlockID proto body; part_set_header is nullable=false."""
+        return proto.field_bytes(1, self.hash) + proto.field_message(
+            2, self.part_set_header.encode(), always=True
+        )
+
+    def validate_basic(self) -> None:
+        if self.hash and len(self.hash) != tmhash.SIZE:
+            raise ValueError("block-id hash must be 32 bytes")
+        self.part_set_header.validate_basic()
+
+
+NIL_BLOCK_ID = BlockID()
+
+
+@dataclass(frozen=True, slots=True)
+class CommitSig:
+    """One validator's slot in a commit (types/block.go:592-606)."""
+
+    block_id_flag: int = BLOCK_ID_FLAG_ABSENT
+    validator_address: bytes = b""
+    timestamp_ns: int = proto.ZERO_TIME_NS
+    signature: bytes = b""
+
+    @classmethod
+    def absent(cls) -> "CommitSig":
+        return cls()
+
+    def block_id(self, commit_block_id: BlockID) -> BlockID:
+        """The BlockID this sig voted for (types/block.go:632-644)."""
+        if self.block_id_flag == BLOCK_ID_FLAG_ABSENT:
+            return NIL_BLOCK_ID
+        if self.block_id_flag == BLOCK_ID_FLAG_COMMIT:
+            return commit_block_id
+        if self.block_id_flag == BLOCK_ID_FLAG_NIL:
+            return NIL_BLOCK_ID
+        raise ValueError(f"unknown BlockIDFlag {self.block_id_flag}")
+
+    def encode(self) -> bytes:
+        return (
+            proto.field_varint(1, self.block_id_flag)
+            + proto.field_bytes(2, self.validator_address)
+            + proto.field_message(
+                3, proto.timestamp(self.timestamp_ns), always=True
+            )
+            + proto.field_bytes(4, self.signature)
+        )
+
+    def validate_basic(self) -> None:
+        if self.block_id_flag not in (
+            BLOCK_ID_FLAG_ABSENT,
+            BLOCK_ID_FLAG_COMMIT,
+            BLOCK_ID_FLAG_NIL,
+        ):
+            raise ValueError("unknown block-id flag")
+        if self.block_id_flag == BLOCK_ID_FLAG_ABSENT:
+            if self.validator_address or self.signature:
+                raise ValueError("absent commit sig must be empty")
+        else:
+            if len(self.validator_address) != tmhash.TRUNCATED_SIZE:
+                raise ValueError("validator address must be 20 bytes")
+            if not self.signature or len(self.signature) > 64:
+                raise ValueError("bad signature length")
+
+
+@dataclass(slots=True)
+class Commit:
+    """+2/3 precommits for a block (types/block.go:715+)."""
+
+    height: int
+    round: int
+    block_id: BlockID
+    signatures: list[CommitSig]
+
+    def vote_sign_bytes(self, chain_id: str, val_idx: int) -> bytes:
+        """Sign bytes of validator ``val_idx``'s precommit in this commit
+        (types/block.go:871-883 — only the timestamp differs per validator).
+        """
+        cs = self.signatures[val_idx]
+        return canonical.vote_sign_bytes(
+            chain_id,
+            canonical.PRECOMMIT_TYPE,
+            self.height,
+            self.round,
+            cs.block_id(self.block_id),
+            cs.timestamp_ns,
+        )
+
+    def hash(self) -> bytes:
+        return merkle.hash_from_byte_slices(
+            [cs.encode() for cs in self.signatures]
+        )
+
+    def validate_basic(self) -> None:
+        if self.height < 0:
+            raise ValueError("negative height")
+        if self.round < 0:
+            raise ValueError("negative round")
+        if self.height >= 1:
+            if self.block_id.is_nil():
+                raise ValueError("commit cannot be for nil block")
+            if not self.signatures:
+                raise ValueError("no signatures in commit")
+            for cs in self.signatures:
+                cs.validate_basic()

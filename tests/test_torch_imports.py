@@ -1,0 +1,143 @@
+"""Import boundary and device discipline of the PyTorch/CUDA port.
+
+* No file of cometbft_tpu_torch/, and not chip_smoke.py, imports jax or
+  the JAX package cometbft_tpu (the exact package: cometbft_tpu_torch is
+  the port itself).
+* Entry points default to the GPU and raise without one: they never run
+  on the CPU unless asked.
+* On CPU tensors the kernel wrappers take the plain path and leave their
+  launch counters at 0; on bad inputs they raise.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cometbft_tpu_torch.crypto import ed25519_ref as ref
+from cometbft_tpu_torch.ops import cuda_verify
+from cometbft_tpu_torch.ops import verify as tverify
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "cometbft_tpu"}
+
+
+def _port_files():
+    files = sorted((ROOT / "cometbft_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "id", getattr(node.func, "attr", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = {
+        f"{f.relative_to(ROOT)}: {mod}"
+        for f in files
+        for mod in _imported_roots(f)
+        if mod in FORBIDDEN
+    }
+    assert not bad, sorted(bad)
+
+
+def test_import_scan_catches_the_reference_package(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import cometbft_tpu_torch\nfrom cometbft_tpu.ops import curve\n"
+        "import jax.numpy as jnp\n"
+    )
+    assert set(_imported_roots(probe)) == {
+        "cometbft_tpu_torch", "cometbft_tpu", "jax"
+    }
+
+
+def _one_signature():
+    seed = bytes(range(32))
+    msg = b"default-device probe"
+    return [ref.pubkey_from_seed(seed)], [msg], [ref.sign(seed, msg)]
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    pks, msgs, sigs = _one_signature()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tverify.verify_batch(pks, msgs, sigs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tverify.PubkeyTableCache()
+    buf, _ = tverify.pack_bytes(pks, msgs, sigs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tverify.verify_bytes_async(buf, 1)
+
+
+def test_cpu_wrappers_take_plain_path_and_count_nothing():
+    cuda_verify.reset_launches()
+    pks, msgs, sigs = _one_signature()
+    buf, _ = tverify.pack_bytes(pks, msgs, sigs)
+    arrays = tverify.unpack_on_device(torch.from_numpy(buf))
+    assert cuda_verify.verify_kernel(**arrays).tolist() == [True]
+    table, ok = cuda_verify.build_pubkey_tables(
+        arrays["y_a"], arrays["sign_a"]
+    )
+    rsk = {k: arrays[k] for k in ("y_r", "sign_r", "s_nibs", "kneg_nibs")}
+    slot = torch.zeros(1, dtype=torch.int16)
+    assert cuda_verify.verify_kernel_cached(
+        table, ok, **rsk, idxs=slot
+    ).tolist() == [True]
+    assert cuda_verify.LAUNCHES == {
+        "verify_kernel": 0, "verify_kernel_cached": 0,
+        "build_pubkey_tables": 0,
+    }
+
+
+def test_wrappers_reject_bad_inputs():
+    y = torch.zeros((20, 4), dtype=torch.int32)
+    s = torch.zeros(4, dtype=torch.int32)
+    nib = torch.zeros((64, 4), dtype=torch.int32)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_verify.verify_kernel(y.to(torch.int64), s, y, s, nib, nib)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_verify.verify_kernel(y, s, y[:, :3], s, nib, nib)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_verify.build_pubkey_tables(
+            torch.zeros((4, 20), dtype=torch.int32).T, s
+        )
+    table = torch.zeros((16, 4, 20, 9), dtype=torch.int32)
+    with pytest.raises(TypeError, match="idxs"):
+        cuda_verify.verify_kernel_cached(
+            table, torch.zeros(9, dtype=torch.bool), y, s, nib, nib,
+            idxs=torch.zeros(4, dtype=torch.int32),
+        )
+    assert cuda_verify.LAUNCHES["verify_kernel"] == 0
+
+
+def test_cache_rejects_oversized_arena_and_mismatched_device():
+    with pytest.raises(ValueError, match="uint16"):
+        tverify.PubkeyTableCache(device="cpu", capacity=1 << 16)
+    cache = tverify.PubkeyTableCache(device="cpu", capacity=4)
+    with pytest.raises(ValueError, match="arena"):
+        cache.load({}, torch.zeros((16, 4, 20, 3), dtype=torch.int32),
+                    torch.zeros(3, dtype=torch.bool))
+    # five distinct keys cannot fit four slots: the caller runs uncached
+    assert cache.lookup([bytes([i]) * 32 for i in range(5)]) is None
+    assert np.array_equal(cache.arena()[1].numpy(), np.zeros(5, bool))
