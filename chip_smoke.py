@@ -9,14 +9,16 @@ each printing one JSON line:
 1. device  — the card's name and power limit (nvidia-smi) and torch's view.
 2. build   — parallel nvcc builds of cometbft_tpu_torch/ops/csrc/*.cu,
              registers and spills per kernel (-Xptxas -v).
-3. kernels — K1, K2 and X1 against their plain PyTorch versions on the card,
-             on 4,096 seeded lanes, a ragged 1,000, and the main path's
-             10,000 and 6,667 (the lanes tiled), valid lanes mixed with
-             ZIP-215 edge lanes; K2 reads a pubkey arena of the cache's
-             16,385 slots. Verdicts must be bit-identical (tables limb for
-             limb), and a sample must agree with the ed25519 oracle. Then
-             each is timed at 10,000 lanes (CUDA events, median of 5 runs
-             after warm-up) beside its plain version and its bound.
+3. kernels — K1, K2, X1, K3 and K4 against their plain PyTorch versions on
+             the card, on 4,096 seeded lanes, a ragged 1,000, and the main
+             paths' 10,000, 6,667 and 3,334 (the lanes tiled), valid lanes
+             mixed with ZIP-215 edge lanes; K2 and K4 read a pubkey arena of the
+             cache's 16,385 slots. Verdicts must be bit-identical (tables
+             limb for limb), the 8-bit kernels' equal to the 4-bit ones',
+             and a sample must agree with the ed25519 oracle. Then each is
+             timed at 10,000 lanes (CUDA events, median of 5 runs after
+             warm-up) beside its plain version and its bound, and K1/K3 and
+             K2/K4 once more in turns (kernels.ab).
 4. slice   — a seeded 10,000-validator ed25519 set with equal power signs a
              precommit Commit; verify_commit runs with the pubkey cache off
              (K1), cold and warm with it on (X1, then K2), verify_commit_light
@@ -24,13 +26,29 @@ each printing one JSON line:
              Every kernel's launch counter must rise in this phase. Then one
              warm call's steps are timed on their own (slice.breakdown), and
              one warm call runs under torch.profiler for the card's idle
-             share (slice.trace).
+             share (slice.trace). This path runs the 4-bit flavor.
+5. light   — a light-client replay over 10,000-validator sets in the 8-bit
+             flavor: four seeded key groups A-D of 5,000 (power 100 each);
+             the trusted block 1000 has A+B, the provider serves 1009 (B+C,
+             whose next set is C+D) and 1010 (C+D). light.Client (trust
+             level 1/3) runs verify_light_block_at_height(1010): 1000 ->
+             1010 cannot be trusted (none of 1000's validators signed), the
+             pivot 1009 passes verify_non_adjacent, 1009 -> 1010 passes
+             verify_adjacent. The replay runs with the pubkey cache on (X1,
+             K4), off (K3), on the slice phase's cache (whose 10,000 other
+             keys make the arena evict), and with a tampered signature in
+             1010's commit, which must fail 1009 -> 1010. K3, K4 and X1 must
+             each launch in this phase, K1 and K2 not at all.
+
+In the slice and light phases K1-K4 must run only at lane counts the
+kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3 checks).
 
 Then one line {"kernels": [...]}, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 nonzero and prints no last line. Without CUDA it exits 2.
 """
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -47,8 +65,16 @@ N_LANES = 4096
 N_RAGGED = 1000
 N_TIMED = 10_000
 N_LIGHT = 2 * N_VALIDATORS // 3 + 1  # verify_commit_light's lanes
+N_TRUST = N_VALIDATORS // 3 + 1  # verify_commit_light_trusting's, at 1/3
+# the lane counts the kernels are held against their plain versions at;
+# K1-K4 run at no other count on the main paths
+COMPARED_LANES = (N_LANES, N_RAGGED, N_TIMED, N_LIGHT, N_TRUST)
 RUNS = 5
 TAMPERED = 4321
+LIGHT_GROUP = 5_000  # validators in each of the four key groups
+LIGHT_HEIGHTS = (1000, 1009, 1010)
+LIGHT_T0_NS = 1_760_000_000 * 10**9
+LIGHT_PERIOD_NS = 3 * 3600 * 10**9  # trusting period
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, and the int32
 # multiply-add rate. The data sheet gives 67 TFLOP/s float32 outside the
 # tensor cores (128 FMA per clock per SM); on compute capability 9.0 an
@@ -57,6 +83,12 @@ TAMPERED = 4321
 # table). A multiply-add counts as two operations.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12 / 2
+# the kernels each main path must launch
+SLICE_KERNELS = ("verify_kernel", "verify_kernel_cached", "build_pubkey_tables")
+LIGHT_KERNELS = ("verify_kernel8", "verify_kernel8_cached",
+                 "build_pubkey_tables")
+VERIFY_KERNELS = ("verify_kernel", "verify_kernel_cached", "verify_kernel8",
+                  "verify_kernel8_cached")
 # signing workers: the cores this process may use, at most 8 (a one-card
 # machine may share a host whose os.cpu_count() is far larger)
 WORKERS = min(8, len(os.sched_getaffinity(0)))
@@ -82,6 +114,21 @@ def _pubkey_chunk(seeds):
     from cometbft_tpu_torch.crypto import ed25519_ref as ref
 
     return [ref.pubkey_from_seed(s) for s in seeds]
+
+
+def _expand_chunk(seeds):
+    """Worker: seeds -> [(scalar a, nonce prefix, pubkey)]."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+
+    return [ref.expand_seed(s) for s in seeds]
+
+
+def _sign_expanded_chunk(items):
+    """Worker: [((a, prefix, pubkey), msg)] -> [signature], each key
+    expanded once beforehand (more keys than a worker's expansion cache)."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+
+    return [ref.sign_expanded(*key, msg) for key, msg in items]
 
 
 def _pool_map(pool, fn, items):
@@ -184,12 +231,24 @@ def time_ms(torch, fn):
     return statistics.median(times), out
 
 
-def bound(cuda_verify, name: str, lanes: int):
+def bound(cuda_verify, name: str, lanes: int, extra_bytes: int = 0):
+    """(least ms, "operations" or "bytes"): the larger of the operations
+    over the int32 rate and the bytes (per lane, plus ``extra_bytes`` read
+    once per launch) over the memory rate."""
     ops_ms = 1e3 * 2 * cuda_verify.MULADDS_PER_LANE[name] * lanes / PEAK_OPS_PER_S
-    bytes_ms = 1e3 * cuda_verify.BYTES_PER_LANE[name] * lanes / PEAK_BYTES_PER_S
+    bytes_ms = 1e3 * (cuda_verify.BYTES_PER_LANE[name] * lanes
+                      + extra_bytes) / PEAK_BYTES_PER_S
     if ops_ms >= bytes_ms:
         return ops_ms, "operations"
     return bytes_ms, "bytes"
+
+
+def table8_bytes(torch, cuda_verify, s_bytes) -> int:
+    """Bytes of the 8-bit fixed-base table that these S bytes name: each
+    distinct (window, byte) entry read once."""
+    win = torch.arange(s_bytes.shape[0], device=s_bytes.device)[:, None]
+    entries = torch.unique(win * 256 + (s_bytes & 255)).numel()
+    return entries * cuda_verify.TABLE8_ENTRY_BYTES
 
 
 # ----------------------------------------------------------------- phases
@@ -207,25 +266,28 @@ def phase_kernels(torch, pool):
           "edge_lanes": len(expect), "seconds": time.perf_counter() - t0})
     buf, host_ok = ov.pack_bytes(pks, msgs, sigs)
     wire = torch.from_numpy(buf).to(dev)
-    # K2 reads an arena of PubkeyTableCache's CAPACITY + 1 slots. At the
-    # main path's sizes the slots are 0..n-1 in lane order, as a cold fill
-    # of the cache assigns them (and as K2 is timed); at the two smaller
-    # sizes they are scattered over the whole arena, as after evictions.
+    # K2 and K4 read an arena of PubkeyTableCache's CAPACITY + 1 slots. At
+    # the main paths' sizes the slots are 0..n-1 in lane order, as a cold
+    # fill of the cache assigns them (and as K2 and K4 are timed); at the
+    # two smaller sizes they are scattered over the whole arena, as after
+    # evictions.
     slots = ov.PubkeyTableCache.CAPACITY + 1
     oracle = {}  # lane -> ed25519_ref verdict; larger sizes tile the lanes
-    err = {"verify_kernel": 0, "verify_kernel_cached": 0,
-           "build_pubkey_tables": 0}
+    err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
     mismatches = dict(err)
-    for n in (N_LANES, N_RAGGED, N_TIMED, N_LIGHT):
+    for n in COMPARED_LANES:
         cols = torch.arange(n, device=dev) % N_LANES
         a = ov.unpack_on_device(wire[:, cols])
+        a8 = ov.unpack_on_device(wire[:, cols], "8")
         rsk = {k: a[k] for k in ("y_r", "sign_r", "s_nibs", "kneg_nibs")}
-        if n in (N_TIMED, N_LIGHT):
+        rsk8 = {k: a8[k] for k in ("y_r", "sign_r", "s_bytes", "kneg_nibs")}
+        if n in (N_TIMED, N_LIGHT, N_TRUST):
             slot = torch.arange(n, device=dev)
         else:
             gen = torch.Generator().manual_seed(n)
             slot = torch.randperm(slots - 1, generator=gen)[:n].to(dev)
         k1 = cuda_verify.verify_kernel(**a)
+        k3 = cuda_verify.verify_kernel8(**a8)
         table, tab_ok = cuda_verify.build_pubkey_tables(a["y_a"], a["sign_a"])
         arena = torch.zeros((16, 4, 20, slots), dtype=torch.int32, device=dev)
         arena[..., slot] = table
@@ -234,6 +296,8 @@ def phase_kernels(torch, pool):
         idxs = slot.to(torch.int16)
         k2 = cuda_verify.verify_kernel_cached(arena, arena_ok, **rsk,
                                               idxs=idxs)
+        k4 = cuda_verify.verify_kernel8_cached(arena, arena_ok, **rsk8,
+                                               idxs=idxs)
         table_plain, tab_ok_plain = curve.build_pubkey_tables(
             a["y_a"], a["sign_a"]
         )
@@ -244,6 +308,9 @@ def phase_kernels(torch, pool):
              curve.verify_kernel_slots(arena, arena_ok, idxs, **rsk)),
             ("build_pubkey_tables", table, table_plain),
             ("build_pubkey_tables", tab_ok, tab_ok_plain),
+            ("verify_kernel8", k3, curve.verify_kernel8(**a8)),
+            ("verify_kernel8_cached", k4,
+             curve.verify_kernel8_slots(arena, arena_ok, idxs, **rsk8)),
         ):
             diff = (got.to(torch.int64) - plain.to(torch.int64)).abs()
             err[name] = max(err[name], int(diff.max()))
@@ -259,17 +326,21 @@ def phase_kernels(torch, pool):
             check(bool(valid[i]) == oracle[j],
                   f"lane {i} disagrees with the oracle (n={n})")
         check(bool((k2 == k1).all()), f"K2 and K1 verdicts differ (n={n})")
+        check(bool((k3 == k1).all()), f"K3 and K1 verdicts differ (n={n})")
+        check(bool((k4 == k2).all()), f"K4 and K2 verdicts differ (n={n})")
         emit({"phase": "kernels.compare", "lanes": n, "arena_slots": slots,
-              "slots_scattered": n not in (N_TIMED, N_LIGHT),
+              "slots_scattered": n not in (N_TIMED, N_LIGHT, N_TRUST),
               "mismatches": dict(mismatches), "oracle_lanes":
               len(expect) + len(sample), "valid_lanes": int(valid.sum())})
         if n == N_TIMED:
-            timed_inputs = (a, rsk, arena, arena_ok, idxs, k1, k2, table)
+            timed_inputs = (a, rsk, a8, rsk8, arena, arena_ok, idxs,
+                            k1, k2, table, k3, k4)
     check(not any(mismatches.values()), f"kernel != plain: {mismatches}")
 
     # timing at 10,000 lanes, on the inputs compared above; each timed
     # kernel's last output must equal the one compared
-    a, rsk, arena, arena_ok, idxs, k1, k2, table = timed_inputs
+    a, rsk, a8, rsk8, arena, arena_ok, idxs, k1, k2, table, k3, k4 = (
+        timed_inputs)
     runs = {
         "verify_kernel": (
             lambda: cuda_verify.verify_kernel(**a),
@@ -287,18 +358,41 @@ def phase_kernels(torch, pool):
             lambda: curve.build_pubkey_tables(a["y_a"], a["sign_a"]),
             table,
         ),
+        "verify_kernel8": (
+            lambda: cuda_verify.verify_kernel8(**a8),
+            lambda: curve.verify_kernel8(**a8),
+            k3,
+        ),
+        "verify_kernel8_cached": (
+            lambda: cuda_verify.verify_kernel8_cached(
+                arena, arena_ok, **rsk8, idxs=idxs),
+            lambda: curve.verify_kernel8_slots(arena, arena_ok, idxs, **rsk8),
+            k4,
+        ),
     }
+    tab8 = table8_bytes(torch, cuda_verify, a8["s_bytes"])
     timed = {}
     for name, (kernel, plain, compared) in runs.items():
         ms, out = time_ms(torch, kernel)
         check(torch.equal(out, compared), f"{name}: timed output changed")
         plain_ms, _ = time_ms(torch, plain)
-        bound_ms, bound_by = bound(cuda_verify, name, N_TIMED)
+        bound_ms, bound_by = bound(cuda_verify, name, N_TIMED,
+                                   tab8 if "8" in name else 0)
         timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "max_abs_err": err[name],
                        "mismatches": mismatches[name]}
         emit({"phase": "kernels.time", "kernel": name, "lanes": N_TIMED,
               **timed[name]})
+    # each 8-bit kernel beside its 4-bit sibling once more, in turns
+    # (4-bit, 8-bit, 8-bit, 4-bit), on the same card and inputs
+    for four, eight in (("verify_kernel", "verify_kernel8"),
+                        ("verify_kernel_cached", "verify_kernel8_cached")):
+        order = (four, eight, eight, four)
+        ms = [time_ms(torch, runs[name][0])[0] for name in order]
+        emit({"phase": "kernels.ab", "lanes": N_TIMED, "order": order,
+              "ms": ms, four: (ms[0] + ms[3]) / 2, eight: (ms[1] + ms[2]) / 2,
+              "ratio": (ms[1] + ms[2]) / (ms[0] + ms[3]),
+              "table8_bytes": tab8})
     return timed
 
 
@@ -374,7 +468,7 @@ def phase_slice(torch, pool, card):
         error = None
         try:
             fn(CHAIN_ID, vals, block_id, HEIGHT, c, device="cuda",
-               pubkey_cache=pubkey_cache)
+               pubkey_cache=pubkey_cache, flavor="4")
         except validation.VerificationError as e:
             error = str(e)
         seconds = time.perf_counter() - t
@@ -392,16 +486,18 @@ def phase_slice(torch, pool, card):
               "signatures": sigs, "launches": launches, "error": error,
               "card": card})
     launches = dict(cuda_verify.LAUNCHES)  # read just after the main path
+    lanes = check_lanes(cuda_verify, "slice")
     check(per_call[0]["verify_kernel"] >= 1, "cache-off call launched no K1")
     check(per_call[1]["build_pubkey_tables"] >= 1, "cold call built nothing")
     check(per_call[2]["verify_kernel_cached"] >= 1
           and per_call[2]["build_pubkey_tables"] == 0,
           "warm call did not run K2 alone")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
-    emit({"phase": "slice", "launches": launches,
-          "cache": {"hits": cache.hits, "misses": cache.misses,
-                    "builds": cache.builds}})
+    for name in SLICE_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the main path")
+    for name in set(launches) - set(SLICE_KERNELS):
+        check(launches[name] == 0, f"{name} launched on the 4-bit path")
+    emit({"phase": "slice", "launches": launches, "lanes": lanes,
+          "cache": cache_stats(cache)})
 
     # where a warm verify_commit's time goes, each step on its own (host
     # clock; "device" is h2d + unpack + K2 + bit-pack + readback)
@@ -420,7 +516,8 @@ def phase_slice(torch, pool, card):
     steps["cache_lookup_ms"] = 1e3 * (time.perf_counter() - t)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    ok = ov.verify_rsk_async(buf[32:], idxs, arena, arena_ok, len(pubs))()
+    ok = ov.verify_rsk_async(buf[32:], idxs, arena, arena_ok, len(pubs),
+                             flavor="4")()
     steps["device_ms"] = 1e3 * (time.perf_counter() - t)
     check(bool(ok.all()), "breakdown verify rejected the commit")
     emit({"phase": "slice.breakdown", "signatures": len(pubs), **steps,
@@ -431,13 +528,279 @@ def phase_slice(torch, pool, card):
     host_ms, busy_ms, events = device_busy_ms(
         torch, lambda: validation.verify_commit(
             CHAIN_ID, vals, block_id, HEIGHT, commit, device="cuda",
-            pubkey_cache=cache))
+            pubkey_cache=cache, flavor="4"))
     emit({"phase": "slice.trace", "call": "verify_commit", "mode":
           "cache warm, profiled", "host_ms": host_ms,
           "device_busy_ms": busy_ms, "device_events": events,
           "idle_share": 1 - busy_ms / host_ms if events else None,
           "card": card})
+    return launches, cache
+
+
+def make_light_chain(pool):
+    """Light blocks 1000 (A+B), 1009 (B+C, next C+D) and 1010 (C+D), each
+    commit signed by all 10,000 validators of its set."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.types import block
+    from cometbft_tpu_torch.types.light_block import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    def sha(tag: bytes) -> bytes:
+        return hashlib.sha256(tag).digest()
+
+    seeds = [_seed(b"light-validator", i) for i in range(4 * LIGHT_GROUP)]
+    keys = _pool_map(pool, _expand_chunk, seeds)
+    pubs = [Ed25519PubKey(k[2]) for k in keys]
+    key_of = {p.address(): k for p, k in zip(pubs, keys)}
+
+    def valset(*groups):
+        return ValidatorSet([
+            Validator(p, 100) for g in groups
+            for p in pubs[g * LIGHT_GROUP : (g + 1) * LIGHT_GROUP]
+        ])
+
+    sets = {1000: valset(0, 1), 1009: valset(1, 2), 1010: valset(2, 3)}
+    next_sets = {1000: sets[1000], 1009: sets[1010], 1010: sets[1010]}
+    headers, commits = {}, {}
+    last_id = block.BlockID(sha(b"block 999"),
+                            block.PartSetHeader(1, sha(b"parts 999")))
+    for h in LIGHT_HEIGHTS:
+        vals = sets[h]
+        t = LIGHT_T0_NS + h * 10**9
+        headers[h] = block.Header(
+            version=block.Version(11, 1), chain_id=CHAIN_ID, height=h,
+            time_ns=t, last_block_id=last_id,
+            last_commit_hash=sha(b"last commit %d" % h),
+            data_hash=sha(b"data %d" % h), validators_hash=vals.hash(),
+            next_validators_hash=next_sets[h].hash(),
+            consensus_hash=sha(b"consensus"), app_hash=sha(b"app %d" % h),
+            last_results_hash=sha(b"results %d" % h),
+            evidence_hash=sha(b"evidence"),
+            proposer_address=vals.get_proposer().address,
+        )
+        last_id = block.BlockID(headers[h].hash(),
+                                block.PartSetHeader(1, sha(b"parts %d" % h)))
+        commits[h] = block.Commit(h, 0, last_id, [
+            block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, v.address,
+                            t + 1_000_000 + 7919 * i)
+            for i, v in enumerate(vals.validators)
+        ])
+    items = [
+        (key_of[cs.validator_address], commits[h].vote_sign_bytes(CHAIN_ID, i))
+        for h in LIGHT_HEIGHTS
+        for i, cs in enumerate(commits[h].signatures)
+    ]
+    signed = iter(_pool_map(pool, _sign_expanded_chunk, items))
+    for h in LIGHT_HEIGHTS:
+        commits[h].signatures = [
+            dataclasses.replace(cs, signature=next(signed))
+            for cs in commits[h].signatures
+        ]
+    return {h: LightBlock(SignedHeader(headers[h], commits[h]), sets[h])
+            for h in LIGHT_HEIGHTS}, items
+
+
+def _with_tampered_signature(lb, idx):
+    """``lb`` with one byte of commit signature ``idx`` flipped."""
+    commit = lb.signed_header.commit
+    sigs = list(commit.signatures)
+    cs = sigs[idx]
+    sigs[idx] = dataclasses.replace(
+        cs, signature=cs.signature[:40] + bytes([cs.signature[40] ^ 1])
+        + cs.signature[41:])
+    return dataclasses.replace(lb, signed_header=dataclasses.replace(
+        lb.signed_header, commit=dataclasses.replace(commit, signatures=sigs)))
+
+
+def phase_light(torch, pool, card, slice_cache):
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.ops import cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+
+    t0 = time.perf_counter()
+    blocks, items = make_light_chain(pool)
+    per_commit = 2 * LIGHT_GROUP
+    for j in range(0, len(items), max(1, len(items) // 12)):
+        h, i = LIGHT_HEIGHTS[j // per_commit], j % per_commit
+        cs = blocks[h].signed_header.commit.signatures[i]
+        pub = blocks[h].validator_set.validators[i].pub_key.data
+        check(ref.verify(pub, items[j][1], cs.signature),
+              f"signer: {h}/{i}")
+    emit({"phase": "light.chain", "heights": list(LIGHT_HEIGHTS),
+          "validators": [len(blocks[h].validator_set) for h in LIGHT_HEIGHTS],
+          "signatures": len(items), "keys": 4 * LIGHT_GROUP,
+          "seconds": time.perf_counter() - t0})
+
+    class ChainProvider(light.Provider):
+        def __init__(self, chain):
+            self.chain = chain
+            self.fetched = []
+
+        def chain_id(self):
+            return CHAIN_ID
+
+        def light_block(self, height):
+            self.fetched.append(height)
+            if height not in self.chain:
+                raise light.LightBlockNotFoundError(height)
+            return self.chain[height]
+
+    class TimedVerifier(light.CommitVerifier):
+        """The commit checks, each timed on the host clock (the verdicts
+        are read back inside the call) with its launches and arena use."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.calls = []
+
+        def _timed(self, check_name, height, fn, *args):
+            before = dict(cuda_verify.LAUNCHES)
+            c = self.pubkey_cache
+            stats0 = cache_stats(c) if c is not None else {}
+            t = time.perf_counter()
+            error = None
+            try:
+                fn(*args)
+            except Exception as e:
+                error = f"{type(e).__name__}: {e}"
+                raise
+            finally:
+                self.calls.append({
+                    "check": check_name, "height": height,
+                    "ms": 1e3 * (time.perf_counter() - t),
+                    "launches": {k: v - before[k] for k, v
+                                 in cuda_verify.LAUNCHES.items()
+                                 if v != before[k]},
+                    "arena": {k: v - stats0[k] for k, v
+                              in cache_stats(c).items()} if c else None,
+                    "error": error and error[:160],
+                })
+
+        def verify_commit_light(self, chain_id, vals, block_id, height,
+                                commit):
+            self._timed("light", height, super().verify_commit_light,
+                        chain_id, vals, block_id, height, commit)
+
+        def verify_commit_light_trusting(self, chain_id, vals, commit,
+                                         trust_level):
+            self._timed("trusting", commit.height,
+                        super().verify_commit_light_trusting, chain_id, vals,
+                        commit, trust_level)
+
+    now_ns = LIGHT_T0_NS + LIGHT_HEIGHTS[-1] * 10**9 + 10**9
+    trust = light.TrustOptions(LIGHT_PERIOD_NS, 1000, blocks[1000].hash())
+
+    def replay(mode, chain, cache):
+        provider = ChainProvider(chain)
+        cv = TimedVerifier(device="cuda", flavor="8", pubkey_cache=cache)
+        before = dict(cuda_verify.LAUNCHES)
+        t = time.perf_counter()
+        client = light.Client(CHAIN_ID, trust, provider, commit_verifier=cv)
+        error = None
+        try:
+            lb = client.verify_light_block_at_height(1010, now_ns)
+            check(lb.height == 1010, f"{mode}: got height {lb.height}")
+        except light.VerificationFailedError as e:
+            error = e
+        seconds = time.perf_counter() - t
+        trace = [b.height for b in client.latest_trace] if error is None \
+            else None
+        for call in cv.calls:
+            emit({"phase": "light.call", "mode": mode, **call, "card": card})
+        emit({"phase": "light.replay", "mode": mode, "ms": 1e3 * seconds,
+              "trace": trace, "fetched": provider.fetched,
+              "launches": {k: v - before[k] for k, v
+                           in cuda_verify.LAUNCHES.items()},
+              "arena": cache_stats(cache) if cache is not None else None,
+              "error": None if error is None else {
+                  "type": type(error).__name__,
+                  "from_height": error.from_height,
+                  "to_height": error.to_height,
+                  "reason": f"{type(error.reason).__name__}: "
+                            f"{error.reason}"[:200]},
+              "card": card})
+        return trace, provider.fetched, cv.calls, error
+
+    expected_calls = [("light", 1000), ("trusting", 1010), ("trusting", 1009),
+                      ("light", 1009), ("light", 1010)]
+    fresh = ov.PubkeyTableCache(device="cuda")
+    torch.cuda.synchronize()
+    cuda_verify.reset_launches()  # the light path starts here
+    for mode, cache in (("cache on", fresh), ("cache off", None),
+                        ("cache shared with the slice phase", slice_cache)):
+        evictions0 = cache.evictions if cache is not None else 0
+        trace, fetched, calls, error = replay(mode, blocks, cache)
+        check(error is None, f"{mode}: replay failed: {error}")
+        check(trace == [1000, 1009, 1010], f"{mode}: trace {trace}")
+        check(fetched == [1000, 1010, 1009], f"{mode}: fetched {fetched}")
+        check([(c["check"], c["height"]) for c in calls] == expected_calls,
+              f"{mode}: checks {calls}")
+        check("got 0," in (calls[1]["error"] or ""),
+              f"{mode}: 1000 -> 1010 found trusted power: {calls[1]}")
+        for c in calls[:1] + calls[2:]:
+            check(c["error"] is None, f"{mode}: {c}")
+        if cache is slice_cache:
+            check(cache.evictions > evictions0,
+                  "the shared arena did not evict")
+    tampered = dict(blocks)
+    tampered[1010] = _with_tampered_signature(blocks[1010], TAMPERED)
+    _, _, _, error = replay("tampered, cache on", tampered, fresh)
+    check(error is not None and (error.from_height, error.to_height)
+          == (1009, 1010) and f"(#{TAMPERED})" in str(error.reason),
+          f"tampered replay: {error!r}")
+    launches = dict(cuda_verify.LAUNCHES)  # read just after the light path
+    lanes = check_lanes(cuda_verify, "light")
+    for name in LIGHT_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the light path")
+    for name in set(launches) - set(LIGHT_KERNELS):
+        check(launches[name] == 0, f"{name} launched on the 8-bit path")
+    emit({"phase": "light", "launches": launches, "lanes": lanes,
+          "fresh_cache": cache_stats(fresh),
+          "shared_cache": cache_stats(slice_cache)})
+
+    # where a replay's host time goes outside its commit checks: the block
+    # checks hash 10,000-validator sets and walk 10,000-signature commits
+    # (host clock, one call each)
+    lb = blocks[1010]
+    steps = {}
+    for step, fn in (
+        ("validator_set_hash_ms", lb.validator_set.hash),
+        ("header_hash_ms", lb.signed_header.header.hash),
+        ("commit_validate_basic_ms", lb.signed_header.commit.validate_basic),
+        ("light_block_validate_basic_ms",
+         lambda: lb.validate_basic(CHAIN_ID)),
+    ):
+        t = time.perf_counter()
+        fn()
+        steps[step] = 1e3 * (time.perf_counter() - t)
+    emit({"phase": "light.breakdown", "validators": len(lb.validator_set),
+          **steps, "card": card})
+    # the card's busy and idle share of one warm replay (cache on)
+    host_ms, busy_ms, events = device_busy_ms(
+        torch, lambda: replay("cache on, warm, profiled", blocks, fresh))
+    emit({"phase": "light.trace", "mode": "cache on, warm, profiled",
+          "host_ms": host_ms, "device_busy_ms": busy_ms,
+          "device_events": events,
+          "idle_share": 1 - busy_ms / host_ms if events else None,
+          "card": card})
     return launches
+
+
+def check_lanes(cuda_verify, path):
+    """{kernel: sorted lane counts} of K1-K4's launches on ``path`` since
+    the last reset; each count must be one the kernels phase compared."""
+    lanes = {k: sorted(cuda_verify.LAUNCH_LANES[k]) for k in VERIFY_KERNELS}
+    for name, counts in lanes.items():
+        check(set(counts) <= set(COMPARED_LANES),
+              f"{path}: {name} ran at {counts} lanes, compared at "
+              f"{COMPARED_LANES} only")
+    return lanes
+
+
+def cache_stats(cache):
+    return {"hits": cache.hits, "misses": cache.misses,
+            "builds": cache.builds, "evictions": cache.evictions}
 
 
 def device_busy_ms(torch, fn):
@@ -492,7 +855,8 @@ def main() -> int:
 
     with get_context("spawn").Pool(WORKERS) as pool:
         timed = phase_kernels(torch, pool)
-        launches = phase_slice(torch, pool, smi)
+        slice_launches, slice_cache = phase_slice(torch, pool, smi)
+        light_launches = phase_light(torch, pool, smi, slice_cache)
         pool.close()
         pool.join()
 
@@ -500,14 +864,22 @@ def main() -> int:
         "verify_kernel": "cometbft_tpu/ops/pallas_verify.py:922",
         "verify_kernel_cached": "cometbft_tpu/ops/pallas_verify.py:858",
         "build_pubkey_tables": "cometbft_tpu/ops/verify.py:442",
+        "verify_kernel8": "cometbft_tpu/ops/pallas_verify.py:745",
+        "verify_kernel8_cached": "cometbft_tpu/ops/pallas_verify.py:801",
     }
+    # launches: on the path that runs the kernel (the slice phase for the
+    # 4-bit kernels, the light phase for the 8-bit ones; X1 runs on both)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "cometbft_tpu_torch/ops/csrc/" + cuda_verify.SOURCES[name],
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": replaces[name],
+         "launches": slice_launches[name] + light_launches[name],
+         "launches_by_path": {"slice": slice_launches[name],
+                              "light": light_launches[name]},
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",
-                     "build_pubkey_tables")
+                     "build_pubkey_tables", "verify_kernel8_cached",
+                     "verify_kernel8")
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

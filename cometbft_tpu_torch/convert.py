@@ -10,6 +10,11 @@ imports nothing of the JAX package. From the JAX side::
     arena, arena_ok = np.asarray(cache._arena), np.asarray(cache._arena_ok)
     slots = dict(cache._slots)
     pairs = [(v.pub_key.data, v.voting_power) for v in vals.validators]
+
+A light-client chain (the reference's ``LightBlock`` objects: headers,
+commits, validator sets) is carried across by reading its fields:
+:func:`light_block_from` takes any object with the reference's attribute
+names and builds this package's types from its bytes and ints.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch
 
 from .crypto.keys import Ed25519PubKey
 from .ops.verify import PubkeyTableCache
+from .types import block
+from .types.light_block import LightBlock, SignedHeader
 from .types.validator_set import Validator, ValidatorSet
 
 
@@ -43,3 +50,64 @@ def validator_set_from_pairs(pairs) -> ValidatorSet:
     return ValidatorSet(
         [Validator(Ed25519PubKey(bytes(pk)), int(power)) for pk, power in pairs]
     )
+
+
+def _block_id(bid) -> block.BlockID:
+    psh = bid.part_set_header
+    return block.BlockID(
+        bytes(bid.hash), block.PartSetHeader(int(psh.total), bytes(psh.hash))
+    )
+
+
+def header_from(h) -> block.Header:
+    """This package's Header with the fields of ``h``."""
+    return block.Header(
+        version=block.Version(int(h.version.block), int(h.version.app)),
+        chain_id=str(h.chain_id),
+        height=int(h.height),
+        time_ns=int(h.time_ns),
+        last_block_id=_block_id(h.last_block_id),
+        last_commit_hash=bytes(h.last_commit_hash),
+        data_hash=bytes(h.data_hash),
+        validators_hash=bytes(h.validators_hash),
+        next_validators_hash=bytes(h.next_validators_hash),
+        consensus_hash=bytes(h.consensus_hash),
+        app_hash=bytes(h.app_hash),
+        last_results_hash=bytes(h.last_results_hash),
+        evidence_hash=bytes(h.evidence_hash),
+        proposer_address=bytes(h.proposer_address),
+    )
+
+
+def commit_from(c) -> block.Commit:
+    """This package's Commit with the fields of ``c``."""
+    return block.Commit(
+        height=int(c.height),
+        round=int(c.round),
+        block_id=_block_id(c.block_id),
+        signatures=[
+            block.CommitSig(int(cs.block_id_flag),
+                            bytes(cs.validator_address),
+                            int(cs.timestamp_ns), bytes(cs.signature))
+            for cs in c.signatures
+        ],
+    )
+
+
+def light_block_from(lb) -> LightBlock:
+    """This package's LightBlock with the header, commit and validator set
+    of ``lb`` (ed25519 keys)."""
+    sh = lb.signed_header
+    return LightBlock(
+        signed_header=SignedHeader(header_from(sh.header),
+                                   commit_from(sh.commit)),
+        validator_set=validator_set_from_pairs(
+            (v.pub_key.data, v.voting_power)
+            for v in lb.validator_set.validators
+        ),
+    )
+
+
+def light_chain_from(blocks: dict) -> dict[int, LightBlock]:
+    """{height: LightBlock} carried across block by block."""
+    return {int(h): light_block_from(lb) for h, lb in blocks.items()}

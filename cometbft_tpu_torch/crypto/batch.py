@@ -38,11 +38,14 @@ class Ed25519BatchVerifier(BatchVerifier):
 
     ``pubkey_cache`` (an ops.verify.PubkeyTableCache on the same device)
     routes the batch through the cached kernel; None runs the uncached one.
+    ``flavor`` picks the kernels' flavor (ops.verify.kernel_flavor: "4",
+    "8", or None for COMETBFT_TPU_KERNEL read when the batch verifies).
     """
 
-    def __init__(self, device="cuda", pubkey_cache=None) -> None:
+    def __init__(self, device="cuda", pubkey_cache=None, flavor=None) -> None:
         self.device = device
         self.pubkey_cache = pubkey_cache
+        self.flavor = flavor
         self._pubkeys: list[bytes] = []
         self._msgs: list[bytes] = []
         self._sigs: list[bytes] = []
@@ -62,7 +65,7 @@ class Ed25519BatchVerifier(BatchVerifier):
 
         ok_all, bitmap = ov.verify_batch(
             self._pubkeys, self._msgs, self._sigs,
-            device=self.device, cache=self.pubkey_cache,
+            device=self.device, cache=self.pubkey_cache, flavor=self.flavor,
         )
         return ok_all, list(np.asarray(bitmap, bool))
 
@@ -82,8 +85,8 @@ def supports_commit_batch(validator_set) -> bool:
     return bool(vals) and all(supports_batch_verifier(v.pub_key) for v in vals)
 
 
-def create_batch_verifier(pub_key, device="cuda",
-                          pubkey_cache=None) -> BatchVerifier:
+def create_batch_verifier(pub_key, device="cuda", pubkey_cache=None,
+                          flavor=None) -> BatchVerifier:
     """The batch backend for ``pub_key``'s type; ValueError for types
     without one (callers verify singly, types/validation.go:170-176)."""
     backend = _BATCH_BACKENDS.get(getattr(pub_key, "type", None))
@@ -92,11 +95,13 @@ def create_batch_verifier(pub_key, device="cuda",
             f"batch verification unsupported for key type "
             f"{getattr(pub_key, 'type', None)!r}"
         )
-    return backend(device=device, pubkey_cache=pubkey_cache)
+    return backend(device=device, pubkey_cache=pubkey_cache,
+                   flavor=flavor)
 
 
 def create_commit_batch_verifier(validator_set, device="cuda",
-                                 pubkey_cache=None) -> BatchVerifier:
+                                 pubkey_cache=None,
+                                 flavor=None) -> BatchVerifier:
     """Batch verifier for a validator set whose keys share one type."""
     types = {
         getattr(v.pub_key, "type", None)
@@ -107,4 +112,5 @@ def create_commit_batch_verifier(validator_set, device="cuda",
         raise ValueError(
             f"batch verification unsupported for key types {sorted(types)!r}"
         )
-    return backend(device=device, pubkey_cache=pubkey_cache)
+    return backend(device=device, pubkey_cache=pubkey_cache,
+                   flavor=flavor)

@@ -163,13 +163,13 @@ def _clamp(a: bytes) -> int:
 
 
 def pubkey_from_seed(seed: bytes) -> bytes:
-    return _expand_seed(seed)[2]
+    return expand_seed(seed)[2]
 
 
 _EXPANDED_CACHE: dict[bytes, tuple[int, bytes, bytes]] = {}
 
 
-def _expand_seed(seed: bytes) -> tuple[int, bytes, bytes]:
+def expand_seed(seed: bytes) -> tuple[int, bytes, bytes]:
     """seed -> (clamped scalar a, prefix, compressed pubkey A), cached.
 
     Mirrors the reference engine's expanded-pubkey cache
@@ -196,7 +196,12 @@ def sign(seed: bytes, msg: bytes) -> bytes:
     and big-int timing). It is the correctness oracle and test signer; the
     production privval signing path delegates to a constant-time backend.
     """
-    a, prefix, A = _expand_seed(seed)
+    return sign_expanded(*expand_seed(seed), msg)
+
+
+def sign_expanded(a: int, prefix: bytes, A: bytes, msg: bytes) -> bytes:
+    """:func:`sign` with the key already expanded: (a, prefix, A) as
+    :func:`expand_seed` returns them."""
     r = int.from_bytes(_sha512(prefix, msg), "little") % L
     R = compress(scalar_mult(r, BASE))
     k = int.from_bytes(_sha512(R, A, msg), "little") % L

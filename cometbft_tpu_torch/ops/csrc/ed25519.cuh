@@ -402,6 +402,22 @@ __device__ __forceinline__ void build_table(const ge& a, const int32_t* sm,
   }
 }
 
+// acc - R, three doublings, and the identity test: the tail every
+// verify kernel shares (subtract R as the affine-Niels form of -R).
+__device__ __forceinline__ bool minus_r_is_small(ge acc, const ge& r,
+                                                 const int32_t* sm) {
+  const fe d2 = fe_const(sm + C_D2);
+  const fe nrx = fe_neg(r.x);
+  gan rn;
+  rn.ypx = fe_add(r.y, nrx);
+  rn.ymx = fe_sub(r.y, nrx);
+  rn.t2d = fe_mul(fe_neg(r.t), d2);
+  acc = ge_add_affine(acc, rn);
+#pragma unroll 1
+  for (int d = 0; d < 3; ++d) acc = ge_double(acc);
+  return fe_is_zero(acc.x) && fe_is_zero(fe_sub(acc.y, acc.z));
+}
+
 // [8]([S]B + [-k]A - R) == O: the joint 4-bit ladder over A's table
 // (column `col` of a (16, 4, 20, tstride) table) and the shared-memory
 // B table, then -R, three doublings and the identity test.
@@ -419,16 +435,92 @@ __device__ __forceinline__ bool ladder_check(
     acc = ge_add_niels(acc, load_niels(tab, tstride, col, kn));
     acc = ge_add_affine(acc, load_base(sm, sn));
   }
-  const fe d2 = fe_const(sm + C_D2);
-  const fe nrx = fe_neg(r.x);
-  gan rn;
-  rn.ypx = fe_add(r.y, nrx);
-  rn.ymx = fe_sub(r.y, nrx);
-  rn.t2d = fe_mul(fe_neg(r.t), d2);
-  acc = ge_add_affine(acc, rn);
+  return minus_r_is_small(acc, r, sm);
+}
+
+// ------------------------------------------------------- 8-bit flavor
+// [S]B from 32 fixed-base windows of 8 bits (curve.fixed_base_sum8):
+// entry (j, v) of the (32, 256, 3, 20) int32 table is [v * 2^(8j)]B in
+// affine-Niels form, 60 limbs = 240 contiguous bytes, read as 15 16-byte
+// loads. The table (1,966,080 B) fits neither shared nor constant memory;
+// it stays in global memory, resident in L2. S arrives as (32, N)
+// little-endian bytes: byte j is the window of weight 2^(8j).
+
+constexpr int WINDOWS8 = 32;
+constexpr int TSIZE8 = 256;
+constexpr int ENTRY8 = 3 * NL;
+
+// Complete extended + extended addition (curve.point_add): 9 muls.
+__device__ __forceinline__ ge ge_add_full(const ge& p, const ge& q,
+                                          const fe& d2) {
+  fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
+  fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
+  fe c = fe_mul(fe_mul(p.t, d2), q.t);
+  fe d = fe_dbl2(fe_mul(p.z, q.z));
+  fe e = fe_sub(b, a);
+  fe f = fe_sub(d, c);
+  fe g = fe_add(d, c);
+  fe h = fe_add(b, a);
+  ge r;
+  r.x = fe_mul(e, f);
+  r.y = fe_mul(g, h);
+  r.z = fe_mul(f, g);
+  r.t = fe_mul(e, h);
+  return r;
+}
+
+__device__ __forceinline__ gan load_base8(const int32_t* __restrict__ tab8,
+                                          int j, int v) {
+  const int4* p = reinterpret_cast<const int4*>(
+      tab8 + ((size_t)j * TSIZE8 + v) * ENTRY8);
+  int32_t w[ENTRY8];
+#pragma unroll
+  for (int i = 0; i < ENTRY8 / 4; ++i) {
+    const int4 q = __ldg(p + i);
+    w[4 * i] = q.x;
+    w[4 * i + 1] = q.y;
+    w[4 * i + 2] = q.z;
+    w[4 * i + 3] = q.w;
+  }
+  gan r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    r.ypx.v[i] = w[i];
+    r.ymx.v[i] = w[NL + i];
+    r.t2d.v[i] = w[2 * NL + i];
+  }
+  return r;
+}
+
+// 32 affine adds from the identity, no doublings. A byte is read modulo
+// 256, as the plain version reads it.
+__device__ __forceinline__ ge fixed_base_sum8(const int32_t* tab8,
+                                              const int32_t* s_bytes,
+                                              size_t n, size_t lane) {
+  ge acc = ge_identity();
 #pragma unroll 1
-  for (int d = 0; d < 3; ++d) acc = ge_double(acc);
-  return fe_is_zero(acc.x) && fe_is_zero(fe_sub(acc.y, acc.z));
+  for (int j = 0; j < WINDOWS8; ++j) {
+    const int v = s_bytes[(size_t)j * n + lane] & (TSIZE8 - 1);
+    acc = ge_add_affine(acc, load_base8(tab8, j, v));
+  }
+  return acc;
+}
+
+// The joint ladder minus its B part (curve._ladder_a_only): [-k]A from
+// A's table, 64 windows of four doublings and one Niels add.
+__device__ __forceinline__ ge ladder_a_only(const int32_t* tab,
+                                            size_t tstride, size_t col,
+                                            const int32_t* kneg_nibs,
+                                            size_t n, size_t lane) {
+  ge acc = ge_identity();
+#pragma unroll 1
+  for (int j = 0; j < WINDOWS; ++j) {
+#pragma unroll 1
+    for (int d = 0; d < WBITS; ++d) acc = ge_double(acc);
+    const int kn = kneg_nibs[(size_t)j * n + lane] & (TSIZE - 1);
+    acc = ge_add_niels(acc, load_niels(tab, tstride, col, kn));
+  }
+  return acc;
 }
 
 }  // namespace ed

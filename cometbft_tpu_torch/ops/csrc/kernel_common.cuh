@@ -1,4 +1,4 @@
-// Shared by the three kernel sources: batched cofactored ed25519
+// Shared by the kernel sources: batched cofactored ed25519
 // verification for Hopper (sm_90a), one thread per signature lane. The
 // kernels share the field and point code of ed25519.cuh:
 //
@@ -13,6 +13,12 @@
 //   X1 x1_build_tables   replaces the XLA builder that fills the arena
 //                        (ops/verify.py _builder_kernel ->
 //                        curve.build_pubkey_tables).
+//   K3 k3_verify8        replaces _verify_block_kernel8 (wrapper
+//                        verify_kernel8): K1 with [S]B taken from 32
+//                        fixed-base 8-bit windows instead of inside the
+//                        joint ladder, joined by one complete add.
+//   K4 k4_verify8_cached replaces _verify_block_kernel8_cached (wrapper
+//                        verify_kernel8_cached): K3 with K2's arena read.
 //
 // What bounds them: int32 multiply-adds. K2 does ~2,020 field muls and
 // ~1,290 squarings per lane (K1 ~2,150 and ~1,550, X1 ~130 and ~260),
@@ -34,7 +40,12 @@
 // is taken: the grid covers ceil(N / BLOCK) blocks and the ragged edge is
 // masked. 64 threads a block spread 10,000 lanes over 157 blocks on 132
 // SMs. Launches go on the caller's stream; nothing synchronises. Each
-// kernel is its own source so the three nvcc runs go in parallel.
+// kernel is its own source so the nvcc runs go in parallel.
+//
+// K3/K4 compute the fixed-base sum [S]B first and park it in shared
+// memory (80 int32 a thread, 20 KB a block) while the A ladder runs, so
+// the ladder has the registers of K1/K2's and the two points meet only at
+// the final complete add.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,6 +63,39 @@ __device__ __forceinline__ void stage_consts(int32_t* sm,
 }
 
 inline int grid_for(int n) { return (n + BLOCK - 1) / BLOCK; }
+
+// A point parked in shared memory, one column a thread: element
+// (coordinate, limb) of thread t at [(c * NL + limb) * BLOCK + t], so a
+// warp's accesses fall in distinct banks.
+constexpr int STASH = 4 * NL * BLOCK;
+
+__device__ __forceinline__ void fe_stash(int32_t* p, const fe& a) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) p[i * BLOCK + threadIdx.x] = a.v[i];
+}
+
+__device__ __forceinline__ fe fe_unstash(const int32_t* p) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = p[i * BLOCK + threadIdx.x];
+  return r;
+}
+
+__device__ __forceinline__ void ge_stash(int32_t* st, const ge& p) {
+  fe_stash(st, p.x);
+  fe_stash(st + NL * BLOCK, p.y);
+  fe_stash(st + 2 * NL * BLOCK, p.z);
+  fe_stash(st + 3 * NL * BLOCK, p.t);
+}
+
+__device__ __forceinline__ ge ge_unstash(const int32_t* st) {
+  ge r;
+  r.x = fe_unstash(st);
+  r.y = fe_unstash(st + NL * BLOCK);
+  r.z = fe_unstash(st + 2 * NL * BLOCK);
+  r.t = fe_unstash(st + 3 * NL * BLOCK);
+  return r;
+}
 
 }  // namespace ed
 

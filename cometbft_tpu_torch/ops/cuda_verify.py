@@ -7,12 +7,19 @@ nibbles, ``(16, 4, 20, N)`` tables):
 * ``verify_kernel``        -> K1 ``k1_verify`` (csrc/verify_uncached.cu)
 * ``verify_kernel_cached`` -> K2 ``k2_verify_cached`` (csrc/verify_cached.cu)
 * ``build_pubkey_tables``  -> X1 ``x1_build_tables`` (csrc/build_tables.cu)
+* ``verify_kernel8``       -> K3 ``k3_verify8`` (csrc/verify8_uncached.cu)
+* ``verify_kernel8_cached`` -> K4 ``k4_verify8_cached`` (csrc/verify8_cached.cu)
+
+K3 and K4 are the 8-bit flavor: S arrives as ``(32, N)`` little-endian
+bytes and [S]B comes from the constant ``(32, 256, 3, 20)`` table of
+ops.curve.base_table8, built once per device at first use and kept.
 
 A CPU tensor goes to the plain PyTorch version in ops/curve.py. A CUDA
 tensor launches the kernel on the current stream or raises: there is no
 fallback. Every input is checked for device, dtype, shape and contiguity,
-outputs are allocated here with ``torch.empty``, and ``LAUNCHES`` counts
-each kernel's launches (and nothing else).
+outputs are allocated here with ``torch.empty``, ``LAUNCHES`` counts
+each kernel's launches (and nothing else) and ``LAUNCH_LANES`` keeps the
+lane counts they ran at.
 """
 
 from __future__ import annotations
@@ -27,22 +34,31 @@ from .field import NLIMB
 
 TSIZE = curve.TSIZE
 WINDOWS = curve.WINDOWS
+WINDOWS8 = curve.WINDOWS8
 
 LAUNCHES = {"verify_kernel": 0, "verify_kernel_cached": 0,
-            "build_pubkey_tables": 0}
+            "build_pubkey_tables": 0, "verify_kernel8": 0,
+            "verify_kernel8_cached": 0}
 SOURCES = {"verify_kernel": "verify_uncached.cu",
            "verify_kernel_cached": "verify_cached.cu",
-           "build_pubkey_tables": "build_tables.cu"}
+           "build_pubkey_tables": "build_tables.cu",
+           "verify_kernel8": "verify8_uncached.cu",
+           "verify_kernel8_cached": "verify8_cached.cu"}
 
 # (field multiplications, field squarings) per lane, counted from
 # csrc/ed25519.cuh: a decompression is 19 and 255 (251 squarings in the
 # sqrt chain; the sqrt(-1) fix-up multiply that about half the lanes take
 # is left out), the ladder 2,004 and 1,036 (64 windows of four doublings
 # at 4 + 4, a Niels add at 8 and an affine add at 7; then -R and three
-# doublings), a table build 111 and 4. A multiplication is a 20x20
-# schoolbook of 400 int32 multiply-adds, a squaring 210; the carries are
-# not counted. Multiply-adds and bytes per lane feed chip_smoke's bound.
+# doublings), a table build 111 and 4. The 8-bit ladder is 1,789 and
+# 1,036: the same 64 windows of four doublings and one Niels add (the B
+# add leaves the window), 32 affine adds of the fixed-base sum, one
+# complete add at 9, then -R and three doublings. A multiplication is a
+# 20x20 schoolbook of 400 int32 multiply-adds, a squaring 210; the carries
+# are not counted. Multiply-adds and bytes per lane feed chip_smoke's
+# bound.
 _DECOMPRESS, _LADDER, _TABLE = (19, 255), (2004, 1036), (111, 4)
+_LADDER8 = (64 * (4 * 4 + 8) + 32 * 7 + 9 + 8 + 3 * 4, 64 * 4 * 4 + 3 * 4)
 
 
 def _muladds(*parts) -> int:
@@ -54,6 +70,8 @@ MULADDS_PER_LANE = {
     "verify_kernel": _muladds(_DECOMPRESS, _DECOMPRESS, _TABLE, _LADDER),
     "verify_kernel_cached": _muladds(_DECOMPRESS, _LADDER),
     "build_pubkey_tables": _muladds(_DECOMPRESS, _TABLE),
+    "verify_kernel8": _muladds(_DECOMPRESS, _DECOMPRESS, _TABLE, _LADDER8),
+    "verify_kernel8_cached": _muladds(_DECOMPRESS, _LADDER8),
 }
 # bytes each lane must move: inputs read once, outputs written once
 BYTES_PER_LANE = {
@@ -64,12 +82,24 @@ BYTES_PER_LANE = {
     + 4 * TSIZE * 4 * NLIMB + 1 + 2 + 1,
     # y_a, sign_a in; table and ok byte out
     "build_pubkey_tables": 4 * (NLIMB + 1) + 4 * TSIZE * 4 * NLIMB + 1,
+    # K1's with s_bytes (32 int32) for s_nibs
+    "verify_kernel8": 4 * (2 * NLIMB + 2 + WINDOWS8 + WINDOWS) + 1,
+    "verify_kernel8_cached": 4 * (NLIMB + 1 + WINDOWS8 + WINDOWS)
+    + 4 * TSIZE * 4 * NLIMB + 1 + 2 + 1,
 }
+# K3/K4 also read the entries of the fixed-base table that their S bytes
+# name, 240 B each, once per launch (at most the whole 1,966,080 B).
+TABLE8_ENTRY_BYTES = 4 * 3 * NLIMB
+
+
+# the lane counts each kernel was launched at since the last reset
+LAUNCH_LANES: dict[str, set[int]] = {k: set() for k in LAUNCHES}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_LANES[k].clear()
 
 
 def _check(name, t, dtype, shape, device) -> None:
@@ -108,15 +138,22 @@ def _entries():
     k2.argtypes = [_PTR] * 3 + [ctypes.c_int] + [_PTR] * 6 + [ctypes.c_int, _PTR]
     x1 = libs["build_pubkey_tables"].ed25519_build_tables
     x1.argtypes = [_PTR] * 5 + [ctypes.c_int, _PTR]
-    for fn in (k1, k2, x1):
+    k3 = libs["verify_kernel8"].ed25519_verify8
+    k3.argtypes = [_PTR] * 10 + [ctypes.c_int, _PTR]
+    k4 = libs["verify_kernel8_cached"].ed25519_verify8_cached
+    k4.argtypes = [_PTR] * 3 + [ctypes.c_int] + [_PTR] * 7 + [ctypes.c_int,
+                                                              _PTR]
+    for fn in (k1, k2, x1, k3, k4):
         fn.restype = ctypes.c_int
     return {"verify_kernel": k1, "verify_kernel_cached": k2,
-            "build_pubkey_tables": x1}
+            "build_pubkey_tables": x1, "verify_kernel8": k3,
+            "verify_kernel8_cached": k4}
 
 
 def _launch(kernel: str, device: torch.device, *args) -> None:
     """Call one kernel's C entry on the current stream; raise on a launch
-    error."""
+    error. Every entry's last argument before the stream is its lane
+    count."""
     fn = _entries()[kernel]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -124,17 +161,27 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")
     LAUNCHES[kernel] += 1
+    LAUNCH_LANES[kernel].add(args[-1])
 
 
 def _p(t: torch.Tensor):
     return t.data_ptr()
 
 
-def _check_rsk(y_r, sign_r, s_nibs, kneg_nibs, n, device) -> None:
+def _check_rsk(y_r, sign_r, s, kneg_nibs, n, device, s_name="s_nibs",
+               s_rows=WINDOWS) -> None:
     _check("y_r", y_r, torch.int32, (NLIMB, n), device)
     _check("sign_r", sign_r, torch.int32, (n,), device)
-    _check("s_nibs", s_nibs, torch.int32, (WINDOWS, n), device)
+    _check(s_name, s, torch.int32, (s_rows, n), device)
     _check("kneg_nibs", kneg_nibs, torch.int32, (WINDOWS, n), device)
+
+
+def _arena_check(arena, arena_ok, idxs, n, device) -> int:
+    slots = arena.shape[-1]
+    _check("arena", arena, torch.int32, (TSIZE, 4, NLIMB, slots), device)
+    _check("arena_ok", arena_ok, torch.bool, (slots,), device)
+    _check("idxs", idxs, torch.int16, (n,), device)
+    return slots
 
 
 def verify_kernel(y_a, sign_a, y_r, sign_r, s_nibs, kneg_nibs):
@@ -178,10 +225,7 @@ def verify_kernel_cached(arena, arena_ok, y_r, sign_r, s_nibs, kneg_nibs, *,
     device = y_r.device
     n = y_r.shape[-1]
     _check_rsk(y_r, sign_r, s_nibs, kneg_nibs, n, device)
-    slots = arena.shape[-1]
-    _check("arena", arena, torch.int32, (TSIZE, 4, NLIMB, slots), device)
-    _check("arena_ok", arena_ok, torch.bool, (slots,), device)
-    _check("idxs", idxs, torch.int16, (n,), device)
+    slots = _arena_check(arena, arena_ok, idxs, n, device)
     if device.type == "cpu":
         return curve.verify_kernel_slots(arena, arena_ok, idxs, y_r, sign_r,
                                          s_nibs, kneg_nibs)
@@ -218,3 +262,63 @@ def build_pubkey_tables(y_a, sign_a):
         _p(y_a), _p(sign_a), _p(_consts(device)), _p(table), _p(ok), m,
     )
     return table, ok
+
+
+def verify_kernel8(y_a, sign_a, y_r, sign_r, s_bytes, kneg_nibs):
+    """K3: :func:`verify_kernel` with [S]B on 8-bit fixed-base windows.
+
+    The contract of ops.curve.verify_kernel8 (pallas_verify.verify_kernel8):
+    ``s_bytes`` (32, N) int32 holds S's little-endian bytes, byte j the
+    window of weight 2^(8j); ``kneg_nibs`` stays (64, N) MSB-first 4-bit
+    windows.
+    """
+    device = y_a.device
+    n = y_a.shape[-1]
+    _check("y_a", y_a, torch.int32, (NLIMB, n), device)
+    _check("sign_a", sign_a, torch.int32, (n,), device)
+    _check_rsk(y_r, sign_r, s_bytes, kneg_nibs, n, device, "s_bytes",
+               WINDOWS8)
+    if device.type == "cpu":
+        return curve.verify_kernel8(y_a, sign_a, y_r, sign_r, s_bytes,
+                                    kneg_nibs)
+    _cuda_device(device)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    if n == 0:
+        return out
+    scratch = torch.empty((TSIZE, 4, NLIMB, n), dtype=torch.int32,
+                          device=device)
+    _launch(
+        "verify_kernel8", device,
+        _p(y_a), _p(sign_a), _p(y_r), _p(sign_r), _p(s_bytes),
+        _p(kneg_nibs), _p(_consts(device)), _p(curve.base_table8(device)),
+        _p(scratch), _p(out), n,
+    )
+    return out
+
+
+def verify_kernel8_cached(arena, arena_ok, y_r, sign_r, s_bytes, kneg_nibs,
+                          *, idxs):
+    """K4: :func:`verify_kernel_cached`'s arena-and-slot contract with the
+    8-bit [S]B of :func:`verify_kernel8`. Lane i reads slot idxs[i] of the
+    (16, 4, 20, S) arena in place; a slot >= S verifies False. The plain
+    version is ops.curve.verify_kernel8_slots.
+    """
+    device = y_r.device
+    n = y_r.shape[-1]
+    _check_rsk(y_r, sign_r, s_bytes, kneg_nibs, n, device, "s_bytes",
+               WINDOWS8)
+    slots = _arena_check(arena, arena_ok, idxs, n, device)
+    if device.type == "cpu":
+        return curve.verify_kernel8_slots(arena, arena_ok, idxs, y_r, sign_r,
+                                          s_bytes, kneg_nibs)
+    _cuda_device(device)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    if n == 0:
+        return out
+    _launch(
+        "verify_kernel8_cached", device,
+        _p(arena), _p(arena_ok), _p(idxs), slots,
+        _p(y_r), _p(sign_r), _p(s_bytes), _p(kneg_nibs), _p(_consts(device)),
+        _p(curve.base_table8(device)), _p(out), n,
+    )
+    return out

@@ -21,9 +21,17 @@ against on the card.
   add from a constant 16-entry table of B multiples, both kept in Niels
   form (Y+X, Y-X, 2Z, 2dT) so a table add costs 8 field muls (7 when the
   entry is affine).
+* The 8-bit flavor (K3/K4, COMETBFT_TPU_KERNEL=pallas8|xla8) keeps the
+  4-bit ladder for [k']A alone and takes [S]B from 32 fixed-base windows
+  of 8 bits: 32 affine adds of entries [v * 2^(8j)]B from a constant
+  (32, 256, 3, 20) table, joined to the ladder by one complete add. On
+  the TPU the 256-entry select was a one-hot matmul for the MXU; here it
+  is an indexed gather.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -41,6 +49,8 @@ _BY = (4 * pow(5, P - 2, P)) % P
 WINDOWS = 64  # 4-bit windows over 256-bit scalars
 WBITS = 4
 TSIZE = 1 << WBITS
+WINDOWS8 = 32  # 8-bit fixed-base windows of S, little-endian bytes
+TSIZE8 = 256
 NLIMB = field.NLIMB
 
 
@@ -62,20 +72,21 @@ IDENTITY_INT = (0, 1, 1, 0)
 BASE_INT = (_BX, _BY, 1, _BX * _BY % P)
 
 
+def _ext_add_int(p, q):
+    """Complete extended addition on Python-int coordinates (host)."""
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    a = (y1 - x1) * (y2 - x2) % P
+    b = (y1 + x1) * (y2 + x2) % P
+    c = t1 * D2_INT % P * t2 % P
+    d = 2 * z1 * z2 % P
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+
 def _base_table_host() -> np.ndarray:
     """(16, 3, 20) int32: v*B for v in [0,16) in affine-Niels form
     (y+x, y-x, 2d*x*y), computed exactly on the host with Python ints."""
-
-    def ext_add(p, q):
-        x1, y1, z1, t1 = p
-        x2, y2, z2, t2 = q
-        a = (y1 - x1) * (y2 - x2) % P
-        b = (y1 + x1) * (y2 + x2) % P
-        c = t1 * D2_INT % P * t2 % P
-        d = 2 * z1 * z2 % P
-        e, f, g, h = b - a, d - c, d + c, b + a
-        return (e * f % P, g * h % P, f * g % P, e * h % P)
-
     rows = []
     pt = IDENTITY_INT
     for _ in range(TSIZE):
@@ -89,7 +100,7 @@ def _base_table_host() -> np.ndarray:
                 field.to_limbs(2 * D_INT * xa % P * ya % P),
             ]
         )
-        pt = ext_add(pt, BASE_INT)
+        pt = _ext_add_int(pt, BASE_INT)
     return np.stack([np.stack(r) for r in rows])
 
 
@@ -110,11 +121,67 @@ def kernel_consts() -> np.ndarray:
     ).astype(np.int32)
 
 
+def _base_table8_host() -> np.ndarray:
+    """(32, 256, 3, 20) int32: [v * 2^(8j)]B in affine-Niels form
+    (y+x, y-x, 2d*x*y), entry j, v. Exact Python-int arithmetic with one
+    Montgomery batch inversion of the 8,192 Z coordinates."""
+    pts = []
+    g = BASE_INT
+    for _j in range(WINDOWS8):
+        row = IDENTITY_INT
+        for _v in range(TSIZE8):
+            pts.append(row)
+            row = _ext_add_int(row, g)
+        for _ in range(8):  # g <- [2^8] g for the next window
+            g = _ext_add_int(g, g)
+
+    prefix = [1]
+    for p in pts:
+        prefix.append(prefix[-1] * p[2] % P)
+    inv_acc = pow(prefix[-1], P - 2, P)
+    zinvs = [0] * len(pts)
+    for i in range(len(pts) - 1, -1, -1):
+        zinvs[i] = prefix[i] * inv_acc % P
+        inv_acc = inv_acc * pts[i][2] % P
+
+    out = np.empty((WINDOWS8 * TSIZE8, 3, NLIMB), np.int32)
+    for i, (p, zi) in enumerate(zip(pts, zinvs)):
+        xa, ya = p[0] * zi % P, p[1] * zi % P
+        out[i, 0] = field.to_limbs((ya + xa) % P)
+        out[i, 1] = field.to_limbs((ya - xa) % P)
+        out[i, 2] = field.to_limbs(2 * D_INT * xa % P * ya % P)
+    return out.reshape(WINDOWS8, TSIZE8, 3, NLIMB)
+
+
+@lru_cache(maxsize=None)
+def base_table8(device: torch.device) -> torch.Tensor:
+    """The 8-bit fixed-base table on ``device``, built at first use and
+    kept: (32, 256, 3, 20) int32, entry-major, so one entry is 240
+    contiguous bytes (1,966,080 B in all). K3/K4 read it from global
+    memory, where it stays resident in L2."""
+    return torch.from_numpy(_base_table8_host()).to(device)
+
+
 def _const_point(coords, batch_shape, device) -> torch.Tensor:
     pt = torch.tensor(
         np.stack([field.to_limbs(c) for c in coords]), device=device
     ).reshape((4, NLIMB) + (1,) * len(batch_shape))
     return pt.expand((4, NLIMB) + tuple(batch_shape))
+
+
+def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Complete addition of two extended points (9 field muls)."""
+    x1, y1, z1, t1 = p[0], p[1], p[2], p[3]
+    x2, y2, z2, t2 = q[0], q[1], q[2], q[3]
+    a = mul(sub(y1, x1), sub(y2, x2))
+    b = mul(add(y1, x1), add(y2, x2))
+    c = mul(mul(t1, field.const(D2_INT, t1)), t2)
+    d = dbl2(mul(z1, z2))
+    e = sub(b, a)
+    f = sub(d, c)
+    g = add(d, c)
+    h = add(b, a)
+    return torch.stack([mul(e, f), mul(g, h), mul(f, g), mul(e, h)])
 
 
 def point_double(p: torch.Tensor) -> torch.Tensor:
@@ -293,6 +360,17 @@ def verify_kernel_cached(
     return _ladder(table_a, r_pt, s_nibs, kneg_nibs) & ok_r
 
 
+def _slot_tables(arena, arena_ok, idxs):
+    """Each lane's table from a (16, 4, 20, S) arena by its uint16 slot
+    (``idxs`` (N,) int16), and the slot's ok bit; a slot >= S reads slot 0
+    and gets ok False."""
+    slots = arena.shape[-1]
+    sel = idxs.to(torch.int64) & 0xFFFF
+    in_range = sel < slots
+    sel = torch.where(in_range, sel, torch.zeros_like(sel))
+    return arena[..., sel], arena_ok[sel] & in_range
+
+
 def verify_kernel_slots(
     arena: torch.Tensor,
     arena_ok: torch.Tensor,
@@ -309,13 +387,8 @@ def verify_kernel_slots(
     of the cached kernel K2: it gathers each lane's table and ANDs in the
     slot's ok bit. A slot >= S verifies False.
     """
-    slots = arena.shape[-1]
-    sel = idxs.to(torch.int64) & 0xFFFF
-    in_range = sel < slots
-    sel = torch.where(in_range, sel, torch.zeros_like(sel))
-    return verify_kernel_cached(
-        arena[..., sel], y_r, sign_r, s_nibs, kneg_nibs
-    ) & arena_ok[sel] & in_range
+    table, ok = _slot_tables(arena, arena_ok, idxs)
+    return verify_kernel_cached(table, y_r, sign_r, s_nibs, kneg_nibs) & ok
 
 
 def verify_kernel(
@@ -343,3 +416,94 @@ def verify_kernel(
     a_pt, r_pt = pts[:, :, 0], pts[:, :, 1]
     table_a = _build_a_table(a_pt)
     return _ladder(table_a, r_pt, s_nibs, kneg_nibs) & oks[0] & oks[1]
+
+
+# ------------------------------------------------------------ 8-bit flavor
+
+
+def fixed_base_sum8(s_bytes: torch.Tensor) -> torch.Tensor:
+    """[S]B from little-endian S bytes: (32, *B) int32 in [0, 256), byte j
+    the window of weight 2^(8j). Returns an extended point (4, 20, *B):
+    32 affine-Niels adds from the identity, no doublings. A byte is read
+    modulo 256, as the kernels read it."""
+    batch = tuple(s_bytes.shape[1:])
+    table = base_table8(s_bytes.device)
+    win = torch.arange(WINDOWS8, device=s_bytes.device).reshape(
+        (WINDOWS8,) + (1,) * len(batch)
+    )
+    sel = table[win, (s_bytes & (TSIZE8 - 1)).to(torch.int64)]
+    sel = torch.movedim(sel, (-2, -1), (1, 2))  # (32, 3, 20, *B)
+    acc = _const_point(IDENTITY_INT, batch, s_bytes.device)
+    for j in range(WINDOWS8):
+        acc = affine_niels_add(acc, sel[j])
+    return acc
+
+
+def _ladder_a_only(table_a, kneg_nibs, batch, device):
+    """The joint ladder minus its B part: [(-k mod L)]A."""
+    acc = _const_point(IDENTITY_INT, batch, device)
+    for j in range(WINDOWS):
+        for _ in range(WBITS):
+            acc = point_double(acc)
+        acc = niels_add(acc, _select(table_a, kneg_nibs[j]))
+    return acc
+
+
+def _finish8(table_a, r_pt, s_bytes, kneg_nibs):
+    """[8]([k']A + [S]B - R) == O with [S]B from the 8-bit windows."""
+    batch = r_pt.shape[2:]
+    acc = point_add(
+        _ladder_a_only(table_a, kneg_nibs, batch, r_pt.device),
+        fixed_base_sum8(s_bytes),
+    )
+    acc = affine_niels_add(acc, to_affine_niels(point_neg(r_pt)))
+    acc = point_double(point_double(point_double(acc)))
+    return is_identity(acc)
+
+
+def verify_kernel8(
+    y_a: torch.Tensor,
+    sign_a: torch.Tensor,
+    y_r: torch.Tensor,
+    sign_r: torch.Tensor,
+    s_bytes: torch.Tensor,
+    kneg_nibs: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`verify_kernel` with [S]B on 8-bit fixed-base windows: the
+    plain version of K3. ``s_bytes`` is (32, *B) little-endian S bytes;
+    ``kneg_nibs`` stays (64, *B) 4-bit windows, MSB first."""
+    pts, oks = decompress(
+        torch.stack([y_a, y_r], dim=1), torch.stack([sign_a, sign_r], dim=0)
+    )
+    a_pt, r_pt = pts[:, :, 0], pts[:, :, 1]
+    table_a = _build_a_table(a_pt)
+    return _finish8(table_a, r_pt, s_bytes, kneg_nibs) & oks[0] & oks[1]
+
+
+def verify_kernel8_cached(
+    table_a: torch.Tensor,
+    y_r: torch.Tensor,
+    sign_r: torch.Tensor,
+    s_bytes: torch.Tensor,
+    kneg_nibs: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`verify_kernel_cached` with 8-bit fixed-base [S]B windows.
+    The caller ANDs in the cached per-key decompress-ok bits."""
+    r_pt, ok_r = decompress(y_r, sign_r)
+    return _finish8(table_a, r_pt, s_bytes, kneg_nibs) & ok_r
+
+
+def verify_kernel8_slots(
+    arena: torch.Tensor,
+    arena_ok: torch.Tensor,
+    idxs: torch.Tensor,
+    y_r: torch.Tensor,
+    sign_r: torch.Tensor,
+    s_bytes: torch.Tensor,
+    kneg_nibs: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`verify_kernel8_cached` on lanes that name their table by
+    uint16 slot in a pubkey arena: the plain version of K4, with the
+    contract of :func:`verify_kernel_slots`. A slot >= S verifies False."""
+    table, ok = _slot_tables(arena, arena_ok, idxs)
+    return verify_kernel8_cached(table, y_r, sign_r, s_bytes, kneg_nibs) & ok

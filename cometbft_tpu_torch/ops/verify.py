@@ -16,10 +16,18 @@ decompressed key and 16-entry table live in a device arena, a commit ships
 Entry points take ``device=`` and default to ``"cuda"``; without a GPU
 they raise instead of running on the CPU. ``device="cpu"`` runs the plain
 PyTorch versions of the kernels (the tests' path).
+
+They also take ``flavor=``: ``"4"`` runs the joint 4-bit ladder (K1/K2),
+``"8"`` takes [S]B from 8-bit fixed-base windows (K3/K4), and ``None``
+reads ``COMETBFT_TPU_KERNEL`` at call time with the reference's values:
+``pallas8`` and ``xla8`` mean 8-bit; ``auto`` (the default), ``pallas`` and
+``xla`` mean 4-bit. Any other value raises. The wire is the same for both
+flavors: in the 8-bit one S stays raw little-endian bytes on the device.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
 
@@ -50,6 +58,30 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# COMETBFT_TPU_KERNEL values -> flavor. "auto" is 4-bit: the reference's
+# order when it has no chip data; the port never reads the TPU's
+# BENCH_CHIP_TABLE.json.
+_KERNEL_FLAVORS = {"auto": "4", "pallas": "4", "xla": "4",
+                   "pallas8": "8", "xla8": "8"}
+FLAVORS = ("4", "8")
+
+
+def kernel_flavor(flavor=None) -> str:
+    """``"4"`` or ``"8"``: ``flavor`` itself, or with None the flavor that
+    ``COMETBFT_TPU_KERNEL`` names now. Anything else raises ValueError."""
+    if flavor is None:
+        mode = os.environ.get("COMETBFT_TPU_KERNEL", "auto")
+        if mode not in _KERNEL_FLAVORS:
+            raise ValueError(
+                f"COMETBFT_TPU_KERNEL={mode!r}: expected one of "
+                f"{sorted(_KERNEL_FLAVORS)}"
+            )
+        return _KERNEL_FLAVORS[mode]
+    if flavor not in FLAVORS:
+        raise ValueError(f"flavor {flavor!r}: expected '4', '8' or None")
+    return flavor
 
 
 def bucket_size(n: int) -> int:
@@ -140,9 +172,19 @@ def _dev_msb_nibbles(rows: torch.Tensor) -> torch.Tensor:
     return nibs.flip(0)
 
 
-def unpack_on_device(buf: torch.Tensor) -> dict:
-    """(128, N) uint8 wire rows -> verify_kernel arrays, on buf's device.
-    Bytes widen to int32 before any shift."""
+def _s_windows(rows: torch.Tensor, flavor: str) -> dict:
+    """S's (32, N) little-endian byte rows as the flavor's kernels take
+    them: 64 MSB-first 4-bit windows, or for "8" the 32 bytes themselves
+    (byte j is the 8-bit window of weight 2^(8j))."""
+    if flavor == "8":
+        return {"s_bytes": rows.contiguous()}
+    return {"s_nibs": _dev_msb_nibbles(rows)}
+
+
+def unpack_on_device(buf: torch.Tensor, flavor: str = "4") -> dict:
+    """(128, N) uint8 wire rows -> verify_kernel (or, for flavor "8",
+    verify_kernel8) arrays, on buf's device. Bytes widen to int32 before
+    any shift."""
     b = buf.to(torch.int32)
     pk_bits = _dev_le_bits(b[0:32])
     rr_bits = _dev_le_bits(b[32:64])
@@ -151,19 +193,19 @@ def unpack_on_device(buf: torch.Tensor) -> dict:
         "sign_a": pk_bits[255].contiguous(),
         "y_r": _dev_y_limbs(rr_bits),
         "sign_r": rr_bits[255].contiguous(),
-        "s_nibs": _dev_msb_nibbles(b[64:96]),
+        **_s_windows(b[64:96], flavor),
         "kneg_nibs": _dev_msb_nibbles(b[96:128]),
     }
 
 
-def _unpack_rsk_on_device(buf: torch.Tensor) -> dict:
+def _unpack_rsk_on_device(buf: torch.Tensor, flavor: str = "4") -> dict:
     """(96, N) uint8 rows R|S|kneg -> cached-kernel arrays."""
     b = buf.to(torch.int32)
     rr_bits = _dev_le_bits(b[0:32])
     return {
         "y_r": _dev_y_limbs(rr_bits),
         "sign_r": rr_bits[255].contiguous(),
-        "s_nibs": _dev_msb_nibbles(b[32:64]),
+        **_s_windows(b[32:64], flavor),
         "kneg_nibs": _dev_msb_nibbles(b[64:96]),
     }
 
@@ -241,6 +283,7 @@ class PubkeyTableCache:
         self.hits = 0
         self.misses = 0
         self.builds = 0  # builder launches
+        self.evictions = 0  # slots reused for another key
 
     def arena(self) -> tuple[torch.Tensor, torch.Tensor]:
         with self._lock:
@@ -318,6 +361,7 @@ class PubkeyTableCache:
                     # evict the oldest key this call does not use
                     old = next(k for k in self._slots if k not in in_use)
                     slot = self._slots.pop(old)
+                    self.evictions += 1
                 else:
                     slot = len(self._slots)
                 self._slots[pk] = slot
@@ -348,53 +392,61 @@ class PubkeyTableCache:
 # ---------------------------------------------------------------- launches
 
 
-def verify_bytes_async(buf: np.ndarray, n: int, device="cuda"):
-    """Launch the uncached kernel (K1) on packed (128, n) wire rows.
+def verify_bytes_async(buf: np.ndarray, n: int, device="cuda", flavor=None):
+    """Launch the uncached kernel (K1, or K3 with ``flavor`` "8") on packed
+    (128, n) wire rows.
 
     Returns a zero-arg closure that reads back the (n,) validity bitmap,
     so host work can overlap the kernel. Batches past _CHUNK split into
     _CHUNK-lane launches.
     """
     dev = resolve_device(device)
+    flavor = kernel_flavor(flavor)
     if n > _CHUNK:
         finals = [
             verify_bytes_async(buf[:, lo : min(lo + _CHUNK, n)],
-                               min(lo + _CHUNK, n) - lo, dev)
+                               min(lo + _CHUNK, n) - lo, dev, flavor)
             for lo in range(0, n, _CHUNK)
         ]
         return lambda: np.concatenate([f() for f in finals])
-    ok = cuda_verify.verify_kernel(**unpack_on_device(_to_device(buf, dev)))
+    kernel = (cuda_verify.verify_kernel8 if flavor == "8"
+              else cuda_verify.verify_kernel)
+    ok = kernel(**unpack_on_device(_to_device(buf, dev), flavor))
     return _readback(ok, bucket_size(n))
 
 
 def verify_rsk_async(buf: np.ndarray, idxs: np.ndarray, arena, arena_ok,
-                     n: int):
-    """Launch the cached kernel (K2): (96, n) R|S|kneg rows plus uint16
-    arena slots. Same async contract as :func:`verify_bytes_async`;
-    ``n`` must be <= _CHUNK."""
+                     n: int, flavor=None):
+    """Launch the cached kernel (K2, or K4 with ``flavor`` "8"): (96, n)
+    R|S|kneg rows plus uint16 arena slots. Same async contract as
+    :func:`verify_bytes_async`; ``n`` must be <= _CHUNK."""
     dev = arena.device
+    flavor = kernel_flavor(flavor)
     # uint16 slots travel as int16 (2 B/lane); the kernel reads uint16
     slot_dev = _to_device(np.asarray(idxs, np.uint16).view(np.int16), dev)
-    ok = cuda_verify.verify_kernel_cached(
-        arena, arena_ok, **_unpack_rsk_on_device(_to_device(buf, dev)),
-        idxs=slot_dev,
-    )
+    kernel = (cuda_verify.verify_kernel8_cached if flavor == "8"
+              else cuda_verify.verify_kernel_cached)
+    ok = kernel(arena, arena_ok,
+                **_unpack_rsk_on_device(_to_device(buf, dev), flavor),
+                idxs=slot_dev)
     return _readback(ok, bucket_size(n))
 
 
 def verify_batch(pubkeys, msgs, sigs, *, device="cuda",
-                 cache: PubkeyTableCache | None = None):
+                 cache: PubkeyTableCache | None = None, flavor=None):
     """Verify a batch of ed25519 signatures on ``device``.
 
     Returns (all_valid, per-signature validity (n,) bool): the contract of
     crypto.BatchVerifier.Verify (crypto/crypto.go:45-54) with per-lane
     results. With ``cache`` the steady state ships (R, S, -k) plus a slot
     per lane and runs K2; without it, or when the call's keys overflow
-    the arena, the full wire rows go to K1. Every verdict is ANDed with
-    the host checks: a zeroed malformed lane decodes to a small-order
+    the arena, the full wire rows go to K1. ``flavor`` "8" runs K4 and K3
+    in their places (see :func:`kernel_flavor`). Every verdict is ANDed
+    with the host checks: a zeroed malformed lane decodes to a small-order
     point the cofactored equation would accept.
     """
     dev = resolve_device(device)
+    flavor = kernel_flavor(flavor)
     if cache is not None and cache.device != dev:
         raise ValueError(f"cache lives on {cache.device}, not {dev}")
     n = len(pubkeys)
@@ -407,11 +459,10 @@ def verify_batch(pubkeys, msgs, sigs, *, device="cuda",
         hit = cache.lookup(pubkeys[lo:hi]) if cache is not None else None
         if hit is not None:
             idxs, arena, arena_ok = hit
-            finals.append(
-                verify_rsk_async(buf[32:], idxs, arena, arena_ok, hi - lo)
-            )
+            finals.append(verify_rsk_async(buf[32:], idxs, arena, arena_ok,
+                                           hi - lo, flavor))
         else:
-            finals.append(verify_bytes_async(buf, hi - lo, dev))
+            finals.append(verify_bytes_async(buf, hi - lo, dev, flavor))
         host_oks.append(hok)
     device_ok = np.concatenate([f() for f in finals])
     valid = device_ok & np.concatenate(host_oks)

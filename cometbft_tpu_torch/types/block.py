@@ -1,4 +1,9 @@
-"""Commit, CommitSig, BlockID, PartSetHeader (reference: types/block.go).
+"""Header, Commit, CommitSig, BlockID, PartSetHeader (types/block.go).
+
+Header.hash is the RFC-6962 merkle root of the proto-encoded fields
+(types/block.go:439-474), scalar fields wrapped in gogotypes value
+wrappers (types/encoding_helper.go's cdcEncode), time a
+google.protobuf.Timestamp.
 
 Time is integer nanoseconds since the Unix epoch throughout (Go's
 time.Time has ns precision; Python datetime does not).
@@ -58,6 +63,97 @@ class BlockID:
 
 
 NIL_BLOCK_ID = BlockID()
+
+
+def cdc_encode_string(s: str) -> bytes:
+    """gogotypes.StringValue wrapper (types/encoding_helper.go)."""
+    return proto.field_string(1, s) if s else b""
+
+
+def cdc_encode_int64(v: int) -> bytes:
+    return proto.field_varint(1, v) if v else b""
+
+
+def cdc_encode_bytes(b: bytes) -> bytes:
+    return proto.field_bytes(1, b) if b else b""
+
+
+@dataclass(frozen=True, slots=True)
+class Version:
+    """Consensus version (proto/tendermint/version/types.proto)."""
+
+    block: int = 11
+    app: int = 0
+
+    def encode(self) -> bytes:
+        return proto.field_varint(1, self.block) + proto.field_varint(
+            2, self.app
+        )
+
+
+@dataclass(frozen=True, slots=True)
+class Header:
+    """Block header (types/block.go:323-350)."""
+
+    version: Version
+    chain_id: str
+    height: int
+    time_ns: int
+    last_block_id: BlockID
+    last_commit_hash: bytes
+    data_hash: bytes
+    validators_hash: bytes
+    next_validators_hash: bytes
+    consensus_hash: bytes
+    app_hash: bytes
+    last_results_hash: bytes
+    evidence_hash: bytes
+    proposer_address: bytes
+
+    def hash(self) -> bytes | None:
+        """Merkle root over the encoded fields (types/block.go:439-474);
+        None without a validators hash, as in the reference."""
+        if not self.validators_hash:
+            return None
+        return merkle.hash_from_byte_slices(
+            [
+                self.version.encode(),
+                cdc_encode_string(self.chain_id),
+                cdc_encode_int64(self.height),
+                proto.timestamp(self.time_ns),
+                self.last_block_id.encode(),
+                cdc_encode_bytes(self.last_commit_hash),
+                cdc_encode_bytes(self.data_hash),
+                cdc_encode_bytes(self.validators_hash),
+                cdc_encode_bytes(self.next_validators_hash),
+                cdc_encode_bytes(self.consensus_hash),
+                cdc_encode_bytes(self.app_hash),
+                cdc_encode_bytes(self.last_results_hash),
+                cdc_encode_bytes(self.evidence_hash),
+                cdc_encode_bytes(self.proposer_address),
+            ]
+        )
+
+    def validate_basic(self) -> None:
+        if len(self.chain_id) > 50:
+            raise ValueError("chain id too long")
+        if self.height < 0:
+            raise ValueError("negative height")
+        self.last_block_id.validate_basic()
+        for name in (
+            "last_commit_hash",
+            "data_hash",
+            "validators_hash",
+            "next_validators_hash",
+            "consensus_hash",
+            "last_results_hash",
+            "evidence_hash",
+        ):
+            v = getattr(self, name)
+            if v and len(v) != tmhash.SIZE:
+                raise ValueError(f"{name} must be 32 bytes")
+        if len(self.proposer_address) != tmhash.TRUNCATED_SIZE:
+            raise ValueError("proposer address must be 20 bytes")
 
 
 @dataclass(frozen=True, slots=True)

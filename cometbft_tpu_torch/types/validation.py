@@ -9,9 +9,11 @@ signature) triples into one device batch:
   validator set, lookup by address (light-client bisection)
 
 Semantics follow types/validation.go:26-257, including the batch-vs-single
-threshold and the find-first-invalid error. ``device`` (default the GPU)
-and ``pubkey_cache`` (an ops.verify.PubkeyTableCache, or None for the
-uncached kernel) pass through to the batch verifier.
+threshold and the find-first-invalid error. ``device`` (default the GPU),
+``pubkey_cache`` (an ops.verify.PubkeyTableCache, or None for the
+uncached kernel) and ``flavor`` (the kernels' flavor, "4", "8" or None for
+COMETBFT_TPU_KERNEL; ops.verify.kernel_flavor) pass through to the batch
+verifier.
 """
 
 from __future__ import annotations
@@ -91,6 +93,7 @@ def verify_commit(
     *,
     device="cuda",
     pubkey_cache=None,
+    flavor=None,
 ) -> None:
     """+2/3 check over ALL signatures (incl. nil votes) — consensus path."""
     _verify_basic(vals, commit, height, block_id)
@@ -100,7 +103,7 @@ def verify_commit(
     _verify(
         chain_id, vals, commit, needed, ignore, count,
         count_all=True, by_index=True, device=device,
-        pubkey_cache=pubkey_cache,
+        pubkey_cache=pubkey_cache, flavor=flavor,
     )
 
 
@@ -113,6 +116,7 @@ def verify_commit_light(
     *,
     device="cuda",
     pubkey_cache=None,
+    flavor=None,
 ) -> None:
     """+2/3 check, commit-flag signatures only, stops when reached."""
     _verify_basic(vals, commit, height, block_id)
@@ -122,7 +126,7 @@ def verify_commit_light(
     _verify(
         chain_id, vals, commit, needed, ignore, count,
         count_all=False, by_index=True, device=device,
-        pubkey_cache=pubkey_cache,
+        pubkey_cache=pubkey_cache, flavor=flavor,
     )
 
 
@@ -134,6 +138,7 @@ def verify_commit_light_trusting(
     *,
     device="cuda",
     pubkey_cache=None,
+    flavor=None,
 ) -> None:
     """trust-level fraction of a (possibly different) validator set."""
     if vals is None:
@@ -150,17 +155,17 @@ def verify_commit_light_trusting(
     _verify(
         chain_id, vals, commit, needed, ignore, count,
         count_all=False, by_index=False, device=device,
-        pubkey_cache=pubkey_cache,
+        pubkey_cache=pubkey_cache, flavor=flavor,
     )
 
 
 def _verify(
     chain_id, vals, commit, needed, ignore, count, count_all, by_index,
-    device, pubkey_cache,
+    device, pubkey_cache, flavor,
 ) -> None:
     if _should_batch_verify(vals, commit):
         bv = crypto_batch.create_commit_batch_verifier(
-            vals, device=device, pubkey_cache=pubkey_cache
+            vals, device=device, pubkey_cache=pubkey_cache, flavor=flavor
         )
         _verify_batch(
             bv, chain_id, vals, commit, needed, ignore, count, count_all,

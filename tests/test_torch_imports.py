@@ -16,9 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from cometbft_tpu_torch import light as tlight
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
+from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
 from cometbft_tpu_torch.ops import cuda_verify
 from cometbft_tpu_torch.ops import verify as tverify
+from cometbft_tpu_torch.types import block as tblock
+from cometbft_tpu_torch.types import validation as tvalidation
+from cometbft_tpu_torch.types.light_block import LightBlock, SignedHeader
+from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "cometbft_tpu"}
@@ -88,6 +94,76 @@ def test_default_device_raises_without_cuda():
     buf, _ = tverify.pack_bytes(pks, msgs, sigs)
     with pytest.raises(RuntimeError, match="CUDA"):
         tverify.verify_bytes_async(buf, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tverify.verify_batch(pks, msgs, sigs, flavor="8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tverify.verify_bytes_async(buf, 1, flavor="8")
+
+
+def _light_block(n_vals=2):
+    """A height-1 light block signed by ``n_vals`` seeded validators."""
+    seeds = [bytes([7 + i]) * 32 for i in range(n_vals)]
+    vals = ValidatorSet([
+        Validator(Ed25519PubKey(ref.pubkey_from_seed(s)), 10) for s in seeds
+    ])
+    by_addr = {Ed25519PubKey(ref.pubkey_from_seed(s)).address(): s
+               for s in seeds}
+    header = tblock.Header(
+        version=tblock.Version(11, 1), chain_id="probe-chain", height=1,
+        time_ns=1_700_000_000_000_000_000,
+        last_block_id=tblock.BlockID(), last_commit_hash=b"", data_hash=b"",
+        validators_hash=vals.hash(), next_validators_hash=vals.hash(),
+        consensus_hash=b"", app_hash=b"", last_results_hash=b"",
+        evidence_hash=b"", proposer_address=vals.validators[0].address,
+    )
+    bid = tblock.BlockID(header.hash(), tblock.PartSetHeader(1, bytes(32)))
+    commit = tblock.Commit(1, 0, bid, [
+        tblock.CommitSig(tblock.BLOCK_ID_FLAG_COMMIT, v.address,
+                         header.time_ns + i)
+        for i, v in enumerate(vals.validators)
+    ])
+    commit.signatures = [
+        tblock.CommitSig(cs.block_id_flag, cs.validator_address,
+                         cs.timestamp_ns,
+                         ref.sign(by_addr[cs.validator_address],
+                                  commit.vote_sign_bytes("probe-chain", i)))
+        for i, cs in enumerate(commit.signatures)
+    ]
+    return LightBlock(SignedHeader(header, commit), vals)
+
+
+class _OneBlock(tlight.Provider):
+    def __init__(self, lb):
+        self.lb = lb
+
+    def chain_id(self):
+        return "probe-chain"
+
+    def light_block(self, height):
+        return self.lb
+
+
+def test_light_entry_points_default_to_cuda():
+    """light.Client and CommitVerifier default to the GPU: without one the
+    first commit check raises; with device="cpu" the same block passes."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    lb = _light_block()
+    commit, vals = lb.signed_header.commit, lb.validator_set
+    cv = tlight.CommitVerifier()
+    assert cv.device == "cuda" and cv.flavor is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cv.verify_commit_light("probe-chain", vals, commit.block_id, 1,
+                               commit)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tvalidation.verify_commit_light_trusting("probe-chain", vals, commit)
+    opts = tlight.TrustOptions(3600 * 10**9, 1, lb.hash())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlight.Client("probe-chain", opts, _OneBlock(lb))
+    client = tlight.Client("probe-chain", opts, _OneBlock(lb),
+                           commit_verifier=tlight.CommitVerifier(
+                               device="cpu", flavor="8"))
+    assert client.last_trusted_height() == 1
 
 
 def test_cpu_wrappers_take_plain_path_and_count_nothing():
@@ -104,10 +180,18 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
     assert cuda_verify.verify_kernel_cached(
         table, ok, **rsk, idxs=slot
     ).tolist() == [True]
+    arrays8 = tverify.unpack_on_device(torch.from_numpy(buf), "8")
+    assert cuda_verify.verify_kernel8(**arrays8).tolist() == [True]
+    rsk8 = {k: arrays8[k] for k in ("y_r", "sign_r", "s_bytes", "kneg_nibs")}
+    assert cuda_verify.verify_kernel8_cached(
+        table, ok, **rsk8, idxs=slot
+    ).tolist() == [True]
     assert cuda_verify.LAUNCHES == {
         "verify_kernel": 0, "verify_kernel_cached": 0,
-        "build_pubkey_tables": 0,
+        "build_pubkey_tables": 0, "verify_kernel8": 0,
+        "verify_kernel8_cached": 0,
     }
+    assert not any(cuda_verify.LAUNCH_LANES.values())
 
 
 def test_wrappers_reject_bad_inputs():
@@ -129,6 +213,18 @@ def test_wrappers_reject_bad_inputs():
             idxs=torch.zeros(4, dtype=torch.int32),
         )
     assert cuda_verify.LAUNCHES["verify_kernel"] == 0
+    # the 8-bit wrappers take S as (32, N) bytes, not (64, N) nibbles
+    sb = torch.zeros((32, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="s_bytes"):
+        cuda_verify.verify_kernel8(y, s, y, s, nib, nib)
+    with pytest.raises(TypeError, match="s_bytes"):
+        cuda_verify.verify_kernel8(y, s, y, s, sb.to(torch.uint8), nib)
+    with pytest.raises(ValueError, match="arena"):
+        cuda_verify.verify_kernel8_cached(
+            table[:, :3], torch.zeros(9, dtype=torch.bool), y, s, sb, nib,
+            idxs=torch.zeros(4, dtype=torch.int16),
+        )
+    assert cuda_verify.LAUNCHES["verify_kernel8"] == 0
 
 
 def test_cache_rejects_oversized_arena_and_mismatched_device():
