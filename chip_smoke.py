@@ -12,13 +12,18 @@ each printing one JSON line:
 3. kernels — K1, K2, X1, K3 and K4 against their plain PyTorch versions on
              the card, on 4,096 seeded lanes, a ragged 1,000, and the main
              paths' 10,000, 6,667 and 3,334 (the lanes tiled), valid lanes
-             mixed with ZIP-215 edge lanes; K2 and K4 read a pubkey arena of the
+             mixed with ZIP-215 edge lanes on A and on R (non-canonical
+             y = p + k, negative zero); K2 and K4 read a pubkey arena of the
              cache's 16,385 slots. Verdicts must be bit-identical (tables
              limb for limb), the 8-bit kernels' equal to the 4-bit ones',
-             and a sample must agree with the ed25519 oracle. Then each is
-             timed at 10,000 lanes (CUDA events, median of 5 runs after
-             warm-up) beside its plain version and its bound, and K1/K3 and
-             K2/K4 once more in turns (kernels.ab).
+             and a sample must agree with the ed25519 oracle. The ZIP-215
+             conformance classes (zip215_corpus) go through K2 and K4
+             against their expected verdicts. Then K1-K4 are timed at
+             3,334, 6,667 and 10,000 lanes, X1 at 10,000 (CUDA events
+             around 10 back-to-back launches, median of 5 after a
+             warm-up) beside the bound, the plain versions at 10,000, and
+             at each size K1/K3, K2/K4, K1/K2 and K3/K4 once more in turns
+             (kernels.ab).
 4. slice   — a seeded 10,000-validator ed25519 set with equal power signs a
              precommit Commit; verify_commit runs with the pubkey cache off
              (K1), cold and warm with it on (X1, then K2), verify_commit_light
@@ -69,7 +74,9 @@ N_TRUST = N_VALIDATORS // 3 + 1  # verify_commit_light_trusting's, at 1/3
 # the lane counts the kernels are held against their plain versions at;
 # K1-K4 run at no other count on the main paths
 COMPARED_LANES = (N_LANES, N_RAGGED, N_TIMED, N_LIGHT, N_TRUST)
+PATH_LANES = (N_TRUST, N_LIGHT, N_TIMED)  # K1-K4 are timed at each
 RUNS = 5
+KERNEL_REPS = 10  # back-to-back launches between two CUDA events
 TAMPERED = 4321
 LIGHT_GROUP = 5_000  # validators in each of the four key groups
 LIGHT_HEIGHTS = (1000, 1009, 1010)
@@ -159,7 +166,8 @@ def _order8_point(ref):
 
 
 def make_lanes(pool):
-    """N_LANES seeded lanes; lanes 0-11 are edge lanes with known verdicts."""
+    """N_LANES seeded lanes; lanes 0-36 are edge lanes with known verdicts
+    (0-11 on A, S and the message, 12-36 on R)."""
     from cometbft_tpu_torch.crypto import ed25519_ref as ref
 
     items = [
@@ -199,6 +207,26 @@ def make_lanes(pool):
         if ref.challenge_scalar(r_enc, a8, b"small-order %d" % i) % 8
     )
     edge[7] = ("small-order A, cofactored accept", a8, m8, rs, True)
+    # R side: only R decompresses in K2/K4. A non-canonical R = (p + k)
+    # for every k < 19 that decodes: the small-order ones (k = 0, 1; k = 1
+    # is the identity) with a small-order A and S = 0 accept, since
+    # [8](-[k]A - R) = O; the full-order ones reject on the equation.
+    edge[12] = ("negative zero R, small-order A, S = 0", a8, None,
+                (1 | 1 << 255).to_bytes(32, "little") + bytes(32), True)
+    i = 13
+    for k in range(19):
+        for sign in (0, 1):
+            enc = ((ref.P + k) | sign << 255).to_bytes(32, "little")
+            pt = ref.decompress(enc)
+            if pt is None:
+                continue
+            small = ref.is_identity(
+                ref.point_double(ref.point_double(ref.point_double(pt))))
+            edge[i] = ((f"R y = p + {k}, sign {sign}, "
+                        + ("small-order A, S = 0" if small else "full order")),
+                       a8 if small else None, None,
+                       enc + (bytes(32) if small else sigs[i][32:]), small)
+            i += 1
     expect = {0: True}
     for i, (_name, pk, msg, sig, verdict) in edge.items():
         pks[i] = pk if pk is not None else pks[i]
@@ -211,12 +239,93 @@ def make_lanes(pool):
     return pks, msgs, sigs, expect
 
 
+def zip215_corpus():
+    """The ZIP-215 conformance classes as (name, pubkey, msg, sig, verdict),
+    built with the port's ed25519_ref in the order and with the inputs of
+    tests/test_zip215_conformance.py::build_corpus, whose comments derive
+    each verdict (tests/test_torch_smoke.py holds the two lists equal)."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+
+    t8 = _order8_point(ref)
+    torsion = [ref.scalar_mult(i, t8) for i in range(8)]
+    v = []
+    msg = b"zip215 conformance msg"
+    seed = b"\x2a" * 32
+    a, _prefix, a_enc = ref.expand_seed(seed)
+    honest = ref.sign(seed, msg)
+    v.append(("honest", a_enc, msg, honest, True))
+    v.append(("wrong_msg", a_enc, b"other msg", honest, False))
+    v.append(("wrong_key", ref.pubkey_from_seed(b"\x2b" * 32), msg, honest,
+              False))
+    r = 123457
+    r_enc = ref.compress(ref.scalar_mult(r, ref.BASE))
+    r_tail = (r % ref.L).to_bytes(32, "little")
+    for i, t in enumerate(torsion):
+        v.append((f"small_order_A_{i}", ref.compress(t), msg, r_enc + r_tail,
+                  True))
+    for i, t in enumerate(torsion[:4]):
+        re_ = ref.compress(t)
+        s = ref.challenge_scalar(re_, a_enc, msg) * a % ref.L
+        v.append((f"small_order_R_{i}", a_enc, msg,
+                  re_ + s.to_bytes(32, "little"), True))
+    ident = ref.compress(ref.IDENTITY)
+    v.append(("s0_identity_AR", ident, msg, ident + bytes(32), True))
+
+    def first_msg(tag, r_e, a_e):
+        return next(tag % i for i in range(64)
+                    if ref.challenge_scalar(r_e, a_e, tag % i) % 8 != 0)
+
+    am_enc = ref.compress(ref.point_add(ref.scalar_mult(a, ref.BASE),
+                                        torsion[1]))
+    m = first_msg(b"zip215-mixedA-%d", r_enc, am_enc)
+    s = (r + ref.challenge_scalar(r_enc, am_enc, m) * a) % ref.L
+    v.append(("mixed_order_A", am_enc, m, r_enc + s.to_bytes(32, "little"),
+              True))
+    rm_enc = ref.compress(ref.point_add(ref.scalar_mult(r, ref.BASE),
+                                        torsion[1]))
+    m = first_msg(b"zip215-mixedR-%d", rm_enc, a_enc)
+    s = (r + ref.challenge_scalar(rm_enc, a_enc, m) * a) % ref.L
+    v.append(("mixed_order_R", a_enc, m, rm_enc + s.to_bytes(32, "little"),
+              True))
+    small, full = [], []
+    for y in range(19):
+        for sign in (0, 1):
+            e = ((y + ref.P) | (sign << 255)).to_bytes(32, "little")
+            pt = ref.decompress(e)
+            if pt is None:
+                continue
+            p8 = ref.point_double(ref.point_double(ref.point_double(pt)))
+            (small if ref.is_identity(p8) else full).append((y, sign, e))
+    for y, sign, e in small:
+        v.append((f"noncanon_A_y{y}s{sign}", e, msg, r_enc + r_tail, True))
+        s = ref.challenge_scalar(e, a_enc, msg) * a % ref.L
+        v.append((f"noncanon_R_y{y}s{sign}", a_enc, msg,
+                  e + s.to_bytes(32, "little"), True))
+    negzero = (1 | (1 << 255)).to_bytes(32, "little")
+    v.append(("negative_zero_A", negzero, msg, r_enc + r_tail, True))
+    s_int = int.from_bytes(honest[32:], "little")
+    v.append(("s_plus_L", a_enc, msg,
+              honest[:32] + (s_int + ref.L).to_bytes(32, "little"), False))
+    v.append(("s_eq_L", a_enc, msg, honest[:32] + ref.L.to_bytes(32, "little"),
+              False))
+    v.append(("s_max", a_enc, msg, honest[:32] + b"\xff" * 32, False))
+    off = (2).to_bytes(32, "little")
+    v.append(("A_off_curve", off, msg, honest, False))
+    v.append(("R_off_curve", a_enc, msg, off + honest[32:], False))
+    if full:
+        v.append(("noncanon_full_order_A", full[0][2], msg, honest, False))
+    return v
+
+
 # ---------------------------------------------------------------- timing
 
 
-def time_ms(torch, fn):
-    """(median ms of RUNS calls after one warm-up, CUDA events; the last
-    call's output)."""
+def time_ms(torch, fn, reps=1):
+    """(median ms a call over RUNS timings after one warm-up, CUDA events
+    around ``reps`` calls each; the last call's output). A kernel is timed
+    with reps=KERNEL_REPS: its wrapper's host time then overlaps the
+    launch before it, where one call between two events would add it
+    (~30 us) to the card's time."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -224,10 +333,11 @@ def time_ms(torch, fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn()
+        for _ in range(reps):
+            out = fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times), out
 
 
@@ -243,12 +353,15 @@ def bound(cuda_verify, name: str, lanes: int, extra_bytes: int = 0):
     return bytes_ms, "bytes"
 
 
-def table8_bytes(torch, cuda_verify, s_bytes) -> int:
-    """Bytes of the 8-bit fixed-base table that these S bytes name: each
-    distinct (window, byte) entry read once."""
+def table8_bytes(torch, cuda_verify, s_bytes, name) -> int:
+    """Bytes of the 8-bit fixed-base table that these S bytes name, as
+    kernel ``name`` holds it: each distinct (window, byte) entry read once
+    (0 for the 4-bit kernels)."""
+    if name not in cuda_verify.TABLE8_ENTRY_BYTES:
+        return 0
     win = torch.arange(s_bytes.shape[0], device=s_bytes.device)[:, None]
     entries = torch.unique(win * 256 + (s_bytes & 255)).numel()
-    return entries * cuda_verify.TABLE8_ENTRY_BYTES
+    return entries * cuda_verify.TABLE8_ENTRY_BYTES[name]
 
 
 # ----------------------------------------------------------------- phases
@@ -273,6 +386,7 @@ def phase_kernels(torch, pool):
     # evictions.
     slots = ov.PubkeyTableCache.CAPACITY + 1
     oracle = {}  # lane -> ed25519_ref verdict; larger sizes tile the lanes
+    timed_inputs = {}
     err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
     mismatches = dict(err)
     for n in COMPARED_LANES:
@@ -332,68 +446,132 @@ def phase_kernels(torch, pool):
               "slots_scattered": n not in (N_TIMED, N_LIGHT, N_TRUST),
               "mismatches": dict(mismatches), "oracle_lanes":
               len(expect) + len(sample), "valid_lanes": int(valid.sum())})
-        if n == N_TIMED:
-            timed_inputs = (a, rsk, a8, rsk8, arena, arena_ok, idxs,
-                            k1, k2, table, k3, k4)
+        if n in PATH_LANES:
+            timed_inputs[n] = (a, rsk, a8, rsk8, arena, arena_ok, idxs,
+                               k1, k2, table, k3, k4)
+    check_zip215(torch, dev, err, mismatches)
     check(not any(mismatches.values()), f"kernel != plain: {mismatches}")
 
-    # timing at 10,000 lanes, on the inputs compared above; each timed
-    # kernel's last output must equal the one compared
-    a, rsk, a8, rsk8, arena, arena_ok, idxs, k1, k2, table, k3, k4 = (
-        timed_inputs)
-    runs = {
-        "verify_kernel": (
-            lambda: cuda_verify.verify_kernel(**a),
-            lambda: curve.verify_kernel(**a),
-            k1,
-        ),
-        "verify_kernel_cached": (
-            lambda: cuda_verify.verify_kernel_cached(
-                arena, arena_ok, **rsk, idxs=idxs),
-            lambda: curve.verify_kernel_slots(arena, arena_ok, idxs, **rsk),
-            k2,
-        ),
-        "build_pubkey_tables": (
-            lambda: cuda_verify.build_pubkey_tables(a["y_a"], a["sign_a"])[0],
-            lambda: curve.build_pubkey_tables(a["y_a"], a["sign_a"]),
-            table,
-        ),
-        "verify_kernel8": (
-            lambda: cuda_verify.verify_kernel8(**a8),
-            lambda: curve.verify_kernel8(**a8),
-            k3,
-        ),
-        "verify_kernel8_cached": (
-            lambda: cuda_verify.verify_kernel8_cached(
-                arena, arena_ok, **rsk8, idxs=idxs),
-            lambda: curve.verify_kernel8_slots(arena, arena_ok, idxs, **rsk8),
-            k4,
-        ),
-    }
-    tab8 = table8_bytes(torch, cuda_verify, a8["s_bytes"])
-    timed = {}
-    for name, (kernel, plain, compared) in runs.items():
-        ms, out = time_ms(torch, kernel)
-        check(torch.equal(out, compared), f"{name}: timed output changed")
-        plain_ms, _ = time_ms(torch, plain)
-        bound_ms, bound_by = bound(cuda_verify, name, N_TIMED,
-                                   tab8 if "8" in name else 0)
-        timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": err[name],
-                       "mismatches": mismatches[name]}
-        emit({"phase": "kernels.time", "kernel": name, "lanes": N_TIMED,
-              **timed[name]})
-    # each 8-bit kernel beside its 4-bit sibling once more, in turns
-    # (4-bit, 8-bit, 8-bit, 4-bit), on the same card and inputs
-    for four, eight in (("verify_kernel", "verify_kernel8"),
-                        ("verify_kernel_cached", "verify_kernel8_cached")):
-        order = (four, eight, eight, four)
-        ms = [time_ms(torch, runs[name][0])[0] for name in order]
-        emit({"phase": "kernels.ab", "lanes": N_TIMED, "order": order,
-              "ms": ms, four: (ms[0] + ms[3]) / 2, eight: (ms[1] + ms[2]) / 2,
-              "ratio": (ms[1] + ms[2]) / (ms[0] + ms[3]),
-              "table8_bytes": tab8})
+    # K1-K4 timed at each lane count the main paths launch them at, X1 and
+    # the plain versions at 10,000, on the inputs compared above; each
+    # timed kernel's last output must equal the one compared
+    timed, by_lanes = {}, {}
+    for n in PATH_LANES:
+        a, rsk, a8, rsk8, arena, arena_ok, idxs, k1, k2, table, k3, k4 = (
+            timed_inputs[n])
+        runs = {
+            "verify_kernel": (
+                lambda: cuda_verify.verify_kernel(**a),
+                lambda: curve.verify_kernel(**a),
+                k1,
+            ),
+            "verify_kernel_cached": (
+                lambda: cuda_verify.verify_kernel_cached(
+                    arena, arena_ok, **rsk, idxs=idxs),
+                lambda: curve.verify_kernel_slots(arena, arena_ok, idxs,
+                                                  **rsk),
+                k2,
+            ),
+            "build_pubkey_tables": (
+                lambda: cuda_verify.build_pubkey_tables(a["y_a"],
+                                                        a["sign_a"])[0],
+                lambda: curve.build_pubkey_tables(a["y_a"], a["sign_a"]),
+                table,
+            ),
+            "verify_kernel8": (
+                lambda: cuda_verify.verify_kernel8(**a8),
+                lambda: curve.verify_kernel8(**a8),
+                k3,
+            ),
+            "verify_kernel8_cached": (
+                lambda: cuda_verify.verify_kernel8_cached(
+                    arena, arena_ok, **rsk8, idxs=idxs),
+                lambda: curve.verify_kernel8_slots(arena, arena_ok, idxs,
+                                                   **rsk8),
+                k4,
+            ),
+        }
+        for name, (kernel, plain, compared) in runs.items():
+            if name == "build_pubkey_tables" and n != N_TIMED:
+                continue
+            ms, out = time_ms(torch, kernel, KERNEL_REPS)
+            check(torch.equal(out, compared), f"{name}: timed output changed")
+            bound_ms, bound_by = bound(
+                cuda_verify, name, n,
+                table8_bytes(torch, cuda_verify, a8["s_bytes"], name))
+            row = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_share": bound_ms / ms}
+            if n == N_TIMED:
+                row.update(plain_ms=time_ms(torch, plain)[0],
+                           max_abs_err=err[name],
+                           mismatches=mismatches[name])
+                timed[name] = dict(row)
+            if name in VERIFY_KERNELS:
+                by_lanes.setdefault(name, {})[n] = ms
+            emit({"phase": "kernels.time", "kernel": name, "lanes": n, **row})
+        # pairs once more in turns (a, b, b, a), on the same card and
+        # inputs: each 8-bit kernel beside its 4-bit sibling, and each
+        # cached kernel beside the uncached one of its flavor
+        for one, two in (("verify_kernel", "verify_kernel8"),
+                         ("verify_kernel_cached", "verify_kernel8_cached"),
+                         ("verify_kernel", "verify_kernel_cached"),
+                         ("verify_kernel8", "verify_kernel8_cached")):
+            order = (one, two, two, one)
+            ms = [time_ms(torch, runs[name][0], KERNEL_REPS)[0]
+                  for name in order]
+            emit({"phase": "kernels.ab", "lanes": n, "order": order,
+                  "ms": ms, one: (ms[0] + ms[3]) / 2, two: (ms[1] + ms[2]) / 2,
+                  "ratio": (ms[1] + ms[2]) / (ms[0] + ms[3])})
+    for name in VERIFY_KERNELS:
+        timed[name]["ms_by_lanes"] = by_lanes[name]
     return timed
+
+
+def check_zip215(torch, dev, err, mismatches):
+    """The ZIP-215 classes through K2 and K4 (slots scattered over the
+    cache's arena) against the plain versions, their expected verdicts
+    and the oracle."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.ops import cuda_verify, curve
+    from cometbft_tpu_torch.ops import verify as ov
+
+    corpus = zip215_corpus()
+    names, pks, msgs, sigs, expected = zip(*corpus)
+    buf, host_ok = ov.pack_bytes(pks, msgs, sigs)
+    wire = torch.from_numpy(buf).to(dev)
+    a = ov.unpack_on_device(wire)
+    a8 = ov.unpack_on_device(wire, "8")
+    n = len(corpus)
+    slots = ov.PubkeyTableCache.CAPACITY + 1
+    gen = torch.Generator().manual_seed(215)
+    slot = torch.randperm(slots - 1, generator=gen)[:n].to(dev)
+    table, tab_ok = cuda_verify.build_pubkey_tables(a["y_a"], a["sign_a"])
+    arena = torch.zeros((16, 4, 20, slots), dtype=torch.int32, device=dev)
+    arena[..., slot] = table
+    arena_ok = torch.zeros(slots, dtype=torch.bool, device=dev)
+    arena_ok[slot] = tab_ok
+    idxs = slot.to(torch.int16)
+    rsk = {k: a[k] for k in ("y_r", "sign_r", "s_nibs", "kneg_nibs")}
+    rsk8 = {k: a8[k] for k in ("y_r", "sign_r", "s_bytes", "kneg_nibs")}
+    k2 = cuda_verify.verify_kernel_cached(arena, arena_ok, **rsk, idxs=idxs)
+    k4 = cuda_verify.verify_kernel8_cached(arena, arena_ok, **rsk8, idxs=idxs)
+    torch.cuda.synchronize()
+    for name, got, plain in (
+        ("verify_kernel_cached", k2,
+         curve.verify_kernel_slots(arena, arena_ok, idxs, **rsk)),
+        ("verify_kernel8_cached", k4,
+         curve.verify_kernel8_slots(arena, arena_ok, idxs, **rsk8)),
+    ):
+        diff = (got.to(torch.int64) - plain.to(torch.int64)).abs()
+        err[name] = max(err[name], int(diff.max()))
+        mismatches[name] += int((diff != 0).sum())
+        valid = got.cpu().numpy() & host_ok
+        for i, vec in enumerate(names):
+            check(bool(valid[i]) == expected[i], f"{name}: ZIP-215 {vec}")
+            check(expected[i] == ref.verify(pks[i], msgs[i], sigs[i]),
+                  f"oracle: ZIP-215 {vec}")
+    emit({"phase": "kernels.zip215", "vectors": n,
+          "accepted": int(sum(expected)), "mismatches": dict(mismatches)})
 
 
 def make_commit(pool):

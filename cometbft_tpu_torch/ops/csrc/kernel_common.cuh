@@ -1,6 +1,8 @@
-// Shared by the kernel sources: batched cofactored ed25519
-// verification for Hopper (sm_90a), one thread per signature lane. The
-// kernels share the field and point code of ed25519.cuh:
+// Shared by the kernel sources K1, K3 and X1: batched cofactored ed25519
+// verification for Hopper (sm_90a), one thread per signature lane, on the
+// field and point code of ed25519.cuh. The cached kernels K2 and K4 are
+// built on fe26.cuh instead (26-bit limbs, four threads a lane) and do not
+// include this file.
 //
 //   K1 k1_verify         replaces cometbft_tpu/ops/pallas_verify.py
 //                        _verify_block_kernel (wrapper verify_kernel):
@@ -10,6 +12,7 @@
 //                        verify_kernel_cached): A's table is read straight
 //                        from the pubkey arena by slot index, so only R
 //                        decompresses and no gathered table copy is made.
+//                        verify_cached.cu, on fe26.cuh.
 //   X1 x1_build_tables   replaces the XLA builder that fills the arena
 //                        (ops/verify.py _builder_kernel ->
 //                        curve.build_pubkey_tables).
@@ -19,14 +22,16 @@
 //                        joint ladder, joined by one complete add.
 //   K4 k4_verify8_cached replaces _verify_block_kernel8_cached (wrapper
 //                        verify_kernel8_cached): K3 with K2's arena read.
+//                        verify8_cached.cu, on fe26.cuh.
 //
-// What bounds them: int32 multiply-adds. K2 does ~2,020 field muls and
-// ~1,290 squarings per lane (K1 ~2,150 and ~1,550, X1 ~130 and ~260),
-// each a 20x20 schoolbook of 400 multiply-adds (210 for a squaring), so
-// ~2.2 M integer operations per lane against ~5.7 KB per lane (K2, table
-// rows included): far above the card's ops-per-byte line, so the kernels
-// are compute-bound. The bound is reckoned as operations (2 per
-// multiply-add; ops/cuda_verify.MULADDS_PER_LANE) over the int32
+// What bounds them: 32-bit multiply-adds. K2 does ~2,020 field muls and
+// ~1,290 squarings per lane (K1 ~2,150 and ~1,550, X1 ~130 and ~260); here
+// each is a 20x20 schoolbook of 400 int32 multiply-adds (210 for a
+// squaring), against ~5.7 KB per lane (K2, table rows included): far above
+// the card's ops-per-byte line, so the kernels are compute-bound. The
+// bound prices every field operation at the fewest 32-bit multiply-adds a
+// 255-bit product takes (128 a multiplication, 72 a squaring;
+// ops/cuda_verify.MULADDS_PER_LANE), 2 operations each, over the int32
 // multiply-add rate (64 per clock per SM on sm_90, half the float32 FMA
 // rate), and bytes (each input read once, each output written once) over
 // the memory rate; the larger is the bound.
@@ -42,9 +47,9 @@
 // SMs. Launches go on the caller's stream; nothing synchronises. Each
 // kernel is its own source so the nvcc runs go in parallel.
 //
-// K3/K4 compute the fixed-base sum [S]B first and park it in shared
+// K3 computes the fixed-base sum [S]B first and parks it in shared
 // memory (80 int32 a thread, 20 KB a block) while the A ladder runs, so
-// the ladder has the registers of K1/K2's and the two points meet only at
+// the ladder has the registers of K1's and the two points meet only at
 // the final complete add.
 #pragma once
 

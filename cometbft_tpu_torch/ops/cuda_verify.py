@@ -12,7 +12,12 @@ nibbles, ``(16, 4, 20, N)`` tables):
 
 K3 and K4 are the 8-bit flavor: S arrives as ``(32, N)`` little-endian
 bytes and [S]B comes from the constant ``(32, 256, 3, 20)`` table of
-ops.curve.base_table8, built once per device at first use and kept.
+ops.curve.base_table8, built once per device at first use and kept. K4
+reads it paired to 26-bit limbs (:func:`_base_table8_26`).
+
+K2 and K4 run on the 26-bit radix of csrc/fe26.cuh, four threads a lane;
+K1, K3 and X1 on the reference's 13-bit limbs of csrc/ed25519.cuh, one
+thread a lane. All five take the 13-bit arrays above.
 
 A CPU tensor goes to the plain PyTorch version in ops/curve.py. A CUDA
 tensor launches the kernel on the current stream or raises: there is no
@@ -53,17 +58,21 @@ SOURCES = {"verify_kernel": "verify_uncached.cu",
 # doublings), a table build 111 and 4. The 8-bit ladder is 1,789 and
 # 1,036: the same 64 windows of four doublings and one Niels add (the B
 # add leaves the window), 32 affine adds of the fixed-base sum, one
-# complete add at 9, then -R and three doublings. A multiplication is a
-# 20x20 schoolbook of 400 int32 multiply-adds, a squaring 210; the carries
-# are not counted. Multiply-adds and bytes per lane feed chip_smoke's
-# bound.
+# complete add at 9, then -R and three doublings. The kernels in
+# csrc/fe26.cuh do the same field operations.
 _DECOMPRESS, _LADDER, _TABLE = (19, 255), (2004, 1036), (111, 4)
 _LADDER8 = (64 * (4 * 4 + 8) + 32 * 7 + 9 + 8 + 3 * 4, 64 * 4 * 4 + 3 * 4)
+# Each operation is priced at the fewest 32-bit multiply-adds a 255-bit
+# product takes, whatever the kernel's limbs: a schoolbook in 8 x 32-bit
+# limbs, 64 products of a low and a high half (128) a multiplication and
+# 36 (72) a squaring; reductions and carries are not counted. So no radix
+# can beat the count, and the rows of every kernel stay comparable.
+# Multiply-adds and bytes per lane feed chip_smoke's bound.
+MULADDS_PER_MUL, MULADDS_PER_SQ = 2 * 8 * 8, 2 * 8 * 9 // 2
 
 
 def _muladds(*parts) -> int:
-    return sum(NLIMB * NLIMB * m + NLIMB * (NLIMB + 1) // 2 * s
-               for m, s in parts)
+    return sum(MULADDS_PER_MUL * m + MULADDS_PER_SQ * s for m, s in parts)
 
 
 MULADDS_PER_LANE = {
@@ -88,8 +97,10 @@ BYTES_PER_LANE = {
     + 4 * TSIZE * 4 * NLIMB + 1 + 2 + 1,
 }
 # K3/K4 also read the entries of the fixed-base table that their S bytes
-# name, 240 B each, once per launch (at most the whole 1,966,080 B).
-TABLE8_ENTRY_BYTES = 4 * 3 * NLIMB
+# name, once per launch: 240 B each from K3's 13-bit table (at most the
+# whole 1,966,080 B), 120 B each (30 int32) from K4's paired copy.
+TABLE8_ENTRY_BYTES = {"verify_kernel8": 4 * 3 * NLIMB,
+                      "verify_kernel8_cached": 4 * 3 * NLIMB // 2}
 
 
 # the lane counts each kernel was launched at since the last reset
@@ -123,6 +134,20 @@ def _cuda_device(device: torch.device) -> None:
 @lru_cache(maxsize=None)
 def _consts(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(curve.kernel_consts()).to(device)
+
+
+@lru_cache(maxsize=None)
+def _base_table8_26(device: torch.device) -> torch.Tensor:
+    """K4's fixed-base table: ops.curve.base_table8 with each pair of 13-bit
+    limbs joined into one 26-bit limb, ``l[2i] + (l[2i+1] << 13)``, as
+    (32, 256, 32) int32: (y+x, y-x, 2dxy) in words 0-29 of an entry, two
+    words of zeros, 128 B an entry (1,048,576 B in all). Built once per
+    device at first use and kept."""
+    t = curve.base_table8(device)
+    paired = t[..., 0::2] + (t[..., 1::2] << 13)
+    out = torch.zeros((WINDOWS8, 256, 32), dtype=torch.int32, device=device)
+    out[..., : 3 * NLIMB // 2] = paired.reshape(WINDOWS8, 256, -1)
+    return out
 
 
 _PTR = ctypes.c_void_p
@@ -319,6 +344,6 @@ def verify_kernel8_cached(arena, arena_ok, y_r, sign_r, s_bytes, kneg_nibs,
         "verify_kernel8_cached", device,
         _p(arena), _p(arena_ok), _p(idxs), slots,
         _p(y_r), _p(sign_r), _p(s_bytes), _p(kneg_nibs), _p(_consts(device)),
-        _p(curve.base_table8(device)), _p(out), n,
+        _p(_base_table8_26(device)), _p(out), n,
     )
     return out

@@ -1,0 +1,480 @@
+"""The 26-bit field layer of the cached verify kernels (csrc/fe26.cuh).
+
+(a) An exact Python-int model of the header's steps (mul, sq, the column
+    fold, the carry passes, the subtraction bias, canonical) asserts every
+    intermediate against the width the header keeps it in (uint32, uint64,
+    int32) and every result against big-int arithmetic mod p, at the lazy
+    maxima and on seeded random limbs. Pairing the reference's 13-bit
+    limbs (cometbft_tpu.ops.field on seeded inputs) gives the same value.
+(b) Where g++ is on the path, the header compiles against a stub
+    ``cuda_runtime.h`` into a small harness whose field ops must return the
+    model's limbs exactly, and whose decompression must agree with the
+    port's ed25519_ref. The stub runs every thread of a block as a fiber
+    that yields at each ``__shfl_sync`` and ``__syncthreads``, so the quad
+    kernels K2 and K4 themselves run on a few lanes against their plain
+    versions.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from cometbft_tpu.ops import field as jfield
+from cometbft_tpu_torch.crypto import ed25519_ref as ref
+from cometbft_tpu_torch.ops import cuda_verify, curve
+from cometbft_tpu_torch.ops import verify as tverify
+from cometbft_tpu_torch.ops.build import CSRC
+
+P = 2**255 - 19
+NL = 10
+MASK = (1 << 26) - 1
+FOLD = 608
+LAZY = 2**26 + 2**24
+PAIRED_MAX = 10015 + (10015 << 13)  # a paired lazy 13-bit limb
+BIAS = [(1 << 28) - 4 - 2428] + [(1 << 28) - 4] * (NL - 1)
+P_LIMBS = [(1 << 26) - 19] + [(1 << 26) - 1] * 8 + [(1 << 21) - 1]
+
+
+def u32(x):
+    assert 0 <= x < 2**32, x
+    return x
+
+
+def u64(x):
+    assert 0 <= x < 2**64, x
+    return x
+
+
+def i32(x):
+    assert -(2**31) <= x < 2**31, x
+    return x
+
+
+def value(v):
+    return sum(x << (26 * i) for i, x in enumerate(v))
+
+
+def carry1(v):
+    hi = [u32(x) >> 26 for x in v]
+    lo = [x & MASK for x in v]
+    out = [u32(lo[0] + hi[9] * FOLD)]
+    out += [u32(lo[i] + hi[i - 1]) for i in range(1, NL)]
+    return out
+
+
+def fold_cols(c):
+    t = [u64(x) for x in c[:NL]]
+    for i in range(NL - 1):
+        t[i] = u64(t[i] + (c[NL + i] & MASK) * FOLD)
+        t[i + 1] = u64(t[i + 1] + (c[NL + i] >> 26) * FOLD)
+    r = [None] + [u32((t[i] & MASK) + (t[i - 1] >> 26)) for i in range(1, NL)]
+    r0 = u64((t[0] & MASK) + (t[NL - 1] >> 26) * FOLD)
+    out = [u32((r0 & MASK) + (r[NL - 1] >> 26) * FOLD),
+           u32((r[1] & MASK) + (r0 >> 26))]
+    out += [u32((r[i] & MASK) + (r[i - 1] >> 26)) for i in range(2, NL)]
+    return out
+
+
+def mul(a, b):
+    c = [0] * (2 * NL - 1)
+    for i in range(NL):
+        for j in range(NL):
+            c[i + j] = u64(c[i + j] + u32(a[i]) * u32(b[j]))
+    return fold_cols(c)
+
+
+def sq(a):
+    c = [0] * (2 * NL - 1)
+    for i in range(NL):
+        c[2 * i] = u64(c[2 * i] + a[i] * a[i])
+        d = u32(a[i] << 1)
+        for j in range(i + 1, NL):
+            c[i + j] = u64(c[i + j] + d * a[j])
+    return fold_cols(c)
+
+
+def add(a, b):
+    return carry1([u32(x + y) for x, y in zip(a, b)])
+
+
+def sub(a, b):
+    return carry1([u32(x + k - y) for x, k, y in zip(a, BIAS, b)])
+
+
+def neg(a):
+    return carry1([u32(k - x) for k, x in zip(BIAS, a)])
+
+
+def canonical(x):
+    x = list(x)
+    for _ in range(2):
+        c = 0
+        for i in range(NL - 1):
+            v = u32(x[i] + c)
+            x[i], c = v & MASK, v >> 26
+        v = u32(x[NL - 1] + c)
+        x[NL - 1] = v & ((1 << 21) - 1)
+        x[0] = u32(x[0] + (v >> 21) * 19)
+    y, borrow = [], 0
+    for i in range(NL):
+        v = i32(i32(x[i]) - P_LIMBS[i] + borrow)
+        top = i == NL - 1
+        y.append(v & ((1 << 21) - 1 if top else MASK))
+        borrow = v >> (21 if top else 26)
+    return y if borrow == 0 else x
+
+
+def pair13(l13):
+    return [int(l13[2 * i]) + (int(l13[2 * i + 1]) << 13) for i in range(NL)]
+
+
+def _inputs():
+    rng = np.random.default_rng(20261017)
+    vecs = [[LAZY] * NL, [PAIRED_MAX] * NL, [MASK] * NL, [0] * NL,
+            [LAZY if i % 2 else 0 for i in range(NL)]]
+    vecs += [list(map(int, rng.integers(0, LAZY + 1, NL))) for _ in range(40)]
+    vecs += [list(map(int, rng.integers(0, MASK + 1, NL))) for _ in range(20)]
+    return vecs
+
+
+INPUTS = _inputs()
+
+
+def test_mul_sq_fold_fit_their_widths_and_reduce_mod_p():
+    for k, a in enumerate(INPUTS):
+        b = INPUTS[(k * 7 + 3) % len(INPUTS)]
+        for got, want in ((mul(a, b), value(a) * value(b)),
+                          (mul(a, a), value(a) ** 2),
+                          (sq(a), value(a) ** 2)):
+            assert value(got) % P == want % P
+            assert max(got) <= LAZY
+        assert sq(a) == mul(a, a)  # the same columns, so the same limbs
+
+
+def test_worst_case_column_and_fold_stay_inside_int64():
+    """Upper bounds of every step at limbs = LAZY, by intervals: a column
+    takes the most products, lo26 parts their most, 2^26 - 1."""
+    top = LAZY * LAZY
+    col = [min(k + 1, 2 * NL - 1 - k) * top for k in range(2 * NL - 1)]
+    assert max(col) == 10 * top == 70_368_744_177_664_000 < 2**56
+    t = col[:NL]
+    for i in range(NL - 1):
+        t[i] += MASK * FOLD
+        t[i + 1] += (col[NL + i] >> 26) * FOLD
+    assert max(t) == t[9] < 2**56
+    r = [MASK + (t[i - 1] >> 26) for i in range(1, NL)]
+    r0 = MASK + (t[9] >> 26) * FOLD
+    assert max(r) < 2**31 and r0 < 2**40
+    out = [MASK + (max(r) >> 26) * FOLD, MASK + (r0 >> 26)]
+    assert max(out) <= 2**26 + 9_500 < LAZY
+    # the header's stated bounds
+    assert t[9] <= 70_368_807_931_084_800 and (r0 >> 26) <= 9_501
+
+
+def test_add_sub_neg_keep_the_lazy_bound():
+    assert value(BIAS) % P == 0 and min(BIAS) > LAZY
+    for k, a in enumerate(INPUTS):
+        b = INPUTS[(k * 5 + 1) % len(INPUTS)]
+        for got, want in ((add(a, b), value(a) + value(b)),
+                          (sub(a, b), value(a) - value(b)),
+                          (neg(a), -value(a))):
+            assert value(got) % P == want % P
+            assert max(got) <= LAZY
+
+
+def test_canonical_is_exact_on_lazy_and_noncanonical_values():
+    cases = list(INPUTS)
+    # y in [p, 2^255) as ZIP-215 admits it, p itself, 2^255 - 1, and p - 1
+    for y in [P + k for k in range(19)] + [P - 1, 2**255 - 1, 2 * P - 1]:
+        cases.append([(y >> (26 * i)) & MASK for i in range(NL - 1)]
+                     + [y >> 234])
+    for a in cases:
+        c = canonical(a)
+        assert value(c) == value(a) % P
+        assert all(0 <= x <= MASK for x in c) and c[9] < 2**21
+
+
+def test_pairing_reference_limbs_keeps_the_value():
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 10016, size=(20, 16), dtype=np.int32)
+    b = rng.integers(0, 10016, size=(20, 16), dtype=np.int32)
+    a[:, 0] = 10015
+    prod = np.asarray(jfield.mul(a, b))
+    s = np.asarray(jfield.sub(a, b))
+    for col in range(16):
+        pa, pb = pair13(a[:, col]), pair13(b[:, col])
+        assert value(pa) == jfield.from_limbs(a[:, col])
+        assert max(pa) <= PAIRED_MAX <= LAZY
+        pp = pair13(prod[:, col])
+        assert value(pp) == jfield.from_limbs(prod[:, col])
+        assert value(pp) % P == value(mul(pa, pb)) % P
+        assert value(pair13(s[:, col])) % P == value(sub(pa, pb)) % P
+
+
+# ------------------------------------------------------------ (b) g++
+
+STUB = r"""
+#pragma once
+#include <cstdint>
+#include <functional>
+#include <ucontext.h>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(...)
+typedef void* cudaStream_t;
+struct int2 { int x, y; };
+struct int4 { int x, y, z, w; };
+template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline int cudaGetLastError() { return 0; }
+namespace emu {
+struct D3 { unsigned x, y, z; };
+inline int cur, nthreads;
+inline D3 bidx, bdim;
+inline uint32_t xbuf[2][1024];
+inline int nshfl[1024];
+inline ucontext_t main_ctx, ctx[1024];
+inline bool done[1024];
+inline std::function<void()>* body;
+inline std::vector<char> stacks;
+constexpr size_t STACK = 1 << 19;
+// switch to the next live fiber after `me`, or back to the launch
+inline void run_next(int me) {
+  for (int i = 1; i <= nthreads; ++i) {
+    int n = (me + i) % nthreads;
+    if (!done[n]) {
+      if (n == me) return;
+      cur = n;
+      swapcontext(&ctx[me], &ctx[n]);
+      cur = me;
+      return;
+    }
+  }
+  swapcontext(&ctx[me], &main_ctx);
+}
+inline void tramp() {
+  (*body)();
+  done[cur] = true;
+  run_next(cur);
+}
+inline void launch(int grid, int block, std::function<void()> f) {
+  body = &f;
+  nthreads = block;
+  bdim = D3{(unsigned)block, 1, 1};
+  stacks.resize(STACK * block);
+  for (int b = 0; b < grid; ++b) {
+    bidx = D3{(unsigned)b, 0, 0};
+    for (int t = 0; t < block; ++t) {
+      done[t] = false;
+      nshfl[t] = 0;
+      getcontext(&ctx[t]);
+      ctx[t].uc_stack.ss_sp = stacks.data() + STACK * t;
+      ctx[t].uc_stack.ss_size = STACK;
+      ctx[t].uc_link = &main_ctx;
+      makecontext(&ctx[t], tramp, 0);
+    }
+    cur = 0;
+    swapcontext(&main_ctx, &ctx[0]);
+  }
+}
+// every live thread of the block writes, then every one reads
+inline uint32_t exchange(uint32_t v, int src) {
+  int f = cur, k = nshfl[f]++;
+  xbuf[k & 1][f] = v;
+  run_next(f);
+  return xbuf[k & 1][src];
+}
+}  // namespace emu
+#define threadIdx (::emu::D3{(unsigned)::emu::cur, 0, 0})
+#define blockIdx (::emu::bidx)
+#define blockDim (::emu::bdim)
+static inline void __syncthreads() { ::emu::run_next(::emu::cur); }
+static inline uint32_t __shfl_sync(unsigned, uint32_t v, int s, int w) {
+  return ::emu::exchange(v, (::emu::cur & ~(w - 1)) + (s & (w - 1)));
+}
+static inline uint32_t __shfl_xor_sync(unsigned, uint32_t v, int m, int w) {
+  return ::emu::exchange(v, (::emu::cur & ~(w - 1)) + ((::emu::cur ^ m) & (w - 1)));
+}
+"""
+
+HARNESS = r"""
+#include <cuda_runtime.h>
+#include "fe26.cuh"
+using namespace f26;
+static fe ld(const uint32_t* p) { fe r; for (int i = 0; i < NL; ++i) r.v[i] = p[i]; return r; }
+static void st(uint32_t* p, const fe& a) { for (int i = 0; i < NL; ++i) p[i] = a.v[i]; }
+// op: 0 mul, 1 sq, 2 add, 3 sub, 4 neg, 5 canonical
+extern "C" void fe_op(int op, const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  const fe x = ld(a), y = ld(b);
+  fe r = op == 0 ? fe_mul(x, y) : op == 1 ? fe_sq(x) : op == 2 ? fe_add(x, y)
+       : op == 3 ? fe_sub(x, y) : op == 4 ? fe_neg(x) : fe_canonical(x);
+  st(out, r);
+}
+// sm: N_CONSTS paired constants; returns whether y decodes
+extern "C" int decompress(const uint32_t* y, int sign, const uint32_t* sm, uint32_t* x) {
+  fe r;
+  const bool ok = decompress_x(r, ld(y), sign, sm);
+  st(x, fe_canonical(r));
+  return ok;
+}
+"""
+
+
+def _gpp():
+    gpp = shutil.which("g++")
+    if gpp is None:
+        pytest.skip("g++ is not on the path")
+    return gpp
+
+
+def _compile(tmp, name, source):
+    """A C++ shared library from ``source`` against the stub header; a
+    kernel launch ``k<<<grid, block, 0, stream>>>(args)`` becomes a fiber
+    launch of ``block`` threads per block."""
+    (tmp / "cuda_runtime.h").write_text(STUB)
+    source = re.sub(r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*stream>>>\((.*?)\);",
+                    r"emu::launch((\2), (\3), [&] { \1(\4); });", source,
+                    flags=re.S)
+    cpp = tmp / f"{name}.cpp"
+    cpp.write_text("#include <cuda_runtime.h>\n" + source)
+    so = tmp / f"lib{name}.so"
+    subprocess.run([_gpp(), "-O1", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{tmp}", f"-I{CSRC}", "-o", str(so), str(cpp)],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    _gpp()
+    lib = _compile(tmp_path_factory.mktemp("fe26"), "harness", HARNESS)
+    lib.fe_op.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.decompress.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_void_p]
+    lib.decompress.restype = ctypes.c_int
+    return lib
+
+
+def _arr(v):
+    return np.ascontiguousarray(np.asarray(v, dtype=np.uint32))
+
+
+def _call(lib, op, a, b):
+    out = np.zeros(NL, np.uint32)
+    a, b = _arr(a), _arr(b)
+    lib.fe_op(op, a.ctypes.data, b.ctypes.data, out.ctypes.data)
+    return [int(x) for x in out]
+
+
+def test_harness_field_ops_equal_the_model_limb_for_limb(harness):
+    ops = [mul, sq, add, sub, neg, canonical]
+    for k, a in enumerate(INPUTS):
+        b = INPUTS[(k * 3 + 2) % len(INPUTS)]
+        for code, fn in enumerate(ops):
+            want = fn(a, b) if fn in (mul, add, sub) else fn(a)
+            assert _call(harness, code, a, b) == want, (fn.__name__, k)
+
+
+def _paired_consts():
+    c = curve.kernel_consts().astype(np.int64)
+    return _arr(c[0::2] + (c[1::2] << 13))
+
+
+def test_harness_decompression_matches_the_oracle(harness):
+    sm = _paired_consts()
+    encodings = [ref.compress(ref.scalar_mult(k, ref.BASE)) for k in (1, 7, 99)]
+    encodings += [((P + k) | (s << 255)).to_bytes(32, "little")
+                  for k in range(19) for s in (0, 1)]  # y = p + k
+    encodings += [(1 | 1 << 255).to_bytes(32, "little"),  # negative zero
+                  (2).to_bytes(32, "little")]  # off the curve
+    for enc in encodings:
+        y_int = int.from_bytes(enc, "little")
+        y = y_int & ((1 << 255) - 1)
+        limbs = [(y >> (26 * i)) & MASK for i in range(NL)]
+        x = np.zeros(NL, np.uint32)
+        ok = harness.decompress(_arr(limbs).ctypes.data, y_int >> 255,
+                                sm.ctypes.data, x.ctypes.data)
+        pt = ref.decompress(enc)
+        assert bool(ok) == (pt is not None), enc.hex()
+        if pt is not None:
+            zinv = pow(pt[2], P - 2, P)
+            assert value([int(v) for v in x]) == pt[0] * zinv % P, enc.hex()
+
+
+def _lanes():
+    """Edge lanes with known verdicts: honest, tampered, small-order and
+    non-canonical A and R, negative zero, off-curve points, S >= L."""
+    r = 123457
+    r_enc = ref.compress(ref.scalar_mult(r, ref.BASE))
+    rs = r_enc + r.to_bytes(32, "little")
+    ident_np = (1 + P).to_bytes(32, "little")
+    negzero = (1 | 1 << 255).to_bytes(32, "little")
+    items = []
+    for i in range(7):
+        seed = bytes([i + 1]) * 32
+        msg = b"fe26 lane %d" % i
+        items.append((ref.pubkey_from_seed(seed), msg, ref.sign(seed, msg)))
+    pk0, msg0, sig0 = items[0]
+    items += [
+        (pk0, msg0, bytes([sig0[0] ^ 1]) + sig0[1:]),  # flipped R bit
+        (pk0, b"tampered", sig0),
+        (ident_np, msg0, rs),  # identity A as y = 1 + p
+        (negzero, msg0, rs),  # negative zero A
+        (ident_np, msg0, ident_np + bytes(32)),  # R = identity as 1 + p
+        (ident_np, msg0, negzero + bytes(32)),  # R negative zero
+        (pk0, msg0, negzero + bytes(32)),  # the same R, full-order A
+        (pk0, msg0, (2).to_bytes(32, "little") + sig0[32:]),  # R off curve
+        (pk0, msg0, sig0[:32] + (ref.L + 1).to_bytes(32, "little")),
+    ]
+    for k in (0, 3):  # y = p + k as R
+        items.append((pk0, msg0, (P + k).to_bytes(32, "little") + sig0[32:]))
+    return [list(x) for x in zip(*items)]
+
+
+@pytest.mark.parametrize("kernel", ["verify_cached", "verify8_cached"])
+def test_quad_kernel_matches_plain_in_emulation(tmp_path, kernel):
+    """K2 or K4 as written for the card, every thread a fiber, on 20 lanes
+    (the last 8-lane block holds 4: a ragged edge), scattered arena slots
+    and one slot out of range, against the plain version."""
+    lib = _compile(tmp_path, kernel, (CSRC / f"{kernel}.cu").read_text())
+    pks, msgs, sigs = _lanes()
+    n = len(pks)
+    buf, host_ok = tverify.pack_bytes(pks, msgs, sigs)
+    flavor = "8" if kernel == "verify8_cached" else "4"
+    a = tverify.unpack_on_device(torch.from_numpy(buf), flavor)
+    s_key = "s_bytes" if flavor == "8" else "s_nibs"
+    table, tab_ok = curve.build_pubkey_tables(a["y_a"], a["sign_a"])
+    slots = 97
+    slot = torch.randperm(slots - 1, generator=torch.Generator().manual_seed(3))[:n]
+    arena = torch.zeros((16, 4, 20, slots), dtype=torch.int32)
+    arena[..., slot] = table
+    arena_ok = torch.zeros(slots, dtype=torch.bool)
+    arena_ok[slot] = tab_ok
+    idxs = slot.to(torch.int16)
+    idxs[1] = slots + 4
+    rsk = [a["y_r"], a["sign_r"], a[s_key], a["kneg_nibs"]]
+    plain = (curve.verify_kernel8_slots if flavor == "8"
+             else curve.verify_kernel_slots)(arena, arena_ok, idxs, *rsk)
+    consts = torch.from_numpy(curve.kernel_consts())
+    out = torch.zeros(n, dtype=torch.bool)
+    ptrs = [arena, arena_ok, idxs, slots, *rsk, consts]
+    if flavor == "8":
+        ptrs.append(cuda_verify._base_table8_26(torch.device("cpu")))
+        fn = lib.ed25519_verify8_cached
+    else:
+        fn = lib.ed25519_verify_cached
+    ptrs += [out, n]
+    args = [ctypes.c_int(x) if isinstance(x, int) else ctypes.c_void_p(x.data_ptr())
+            for x in ptrs]
+    assert fn(*args, None) == 0
+    assert torch.equal(out, plain)
+    want = [ref.verify(pk, m, s) for pk, m, s in zip(pks, msgs, sigs)]
+    want[1] = False  # its slot is out of range
+    assert (out & torch.from_numpy(host_ok)).tolist() == want
