@@ -17,8 +17,11 @@ each printing one JSON line:
              cache's 16,385 slots. Verdicts must be bit-identical (tables
              limb for limb), the 8-bit kernels' equal to the 4-bit ones',
              and a sample must agree with the ed25519 oracle. The ZIP-215
-             conformance classes (zip215_corpus) go through K2 and K4
-             against their expected verdicts. Then K1-K4 are timed at
+             conformance classes (zip215_corpus) go through K1-K4 against
+             their expected verdicts: the A-side classes (y = p + k,
+             negative zero, small-order and off-curve A) decode inside
+             K1 and K3 only, the R-side ones in all four. Then K1-K4 are
+             timed at
              3,334, 6,667 and 10,000 lanes, X1 at 10,000 (CUDA events
              around 10 back-to-back launches, median of 5 after a
              warm-up) beside the bound, the plain versions at 10,000, and
@@ -528,9 +531,10 @@ def phase_kernels(torch, pool):
 
 
 def check_zip215(torch, dev, err, mismatches):
-    """The ZIP-215 classes through K2 and K4 (slots scattered over the
-    cache's arena) against the plain versions, their expected verdicts
-    and the oracle."""
+    """The ZIP-215 classes through K1-K4 (K2's and K4's slots scattered
+    over the cache's arena) against the plain versions, their expected
+    verdicts and the oracle. K1 and K3 decompress A themselves, so the
+    A-side classes reach a decompression only there."""
     from cometbft_tpu_torch.crypto import ed25519_ref as ref
     from cometbft_tpu_torch.ops import cuda_verify, curve
     from cometbft_tpu_torch.ops import verify as ov
@@ -553,10 +557,14 @@ def check_zip215(torch, dev, err, mismatches):
     idxs = slot.to(torch.int16)
     rsk = {k: a[k] for k in ("y_r", "sign_r", "s_nibs", "kneg_nibs")}
     rsk8 = {k: a8[k] for k in ("y_r", "sign_r", "s_bytes", "kneg_nibs")}
+    k1 = cuda_verify.verify_kernel(**a)
     k2 = cuda_verify.verify_kernel_cached(arena, arena_ok, **rsk, idxs=idxs)
+    k3 = cuda_verify.verify_kernel8(**a8)
     k4 = cuda_verify.verify_kernel8_cached(arena, arena_ok, **rsk8, idxs=idxs)
     torch.cuda.synchronize()
     for name, got, plain in (
+        ("verify_kernel", k1, curve.verify_kernel(**a)),
+        ("verify_kernel8", k3, curve.verify_kernel8(**a8)),
         ("verify_kernel_cached", k2,
          curve.verify_kernel_slots(arena, arena_ok, idxs, **rsk)),
         ("verify_kernel8_cached", k4,

@@ -1,6 +1,8 @@
-// GF(2^255 - 19) field and edwards25519 point code for the verify kernels.
+// GF(2^255 - 19) field and edwards25519 point code of the arena builder
+// X1 (build_tables.cu), on the reference's limbs. The verify kernels K1-K4
+// run on fe26.cuh instead.
 //
-// One thread owns one signature lane. A field element is 20 limbs of 13
+// One thread owns one pubkey lane. A field element is 20 limbs of 13
 // bits in int32 with the lazy-carry discipline of ops/field.py: every op
 // takes limbs <= 10015 and returns limbs <= 10015, add/sub/neg/dbl2 carry
 // once and the mul column fold three times. A schoolbook column holds at
@@ -8,8 +10,9 @@
 // column at most 2.006e9, so no int32 intermediate overflows (the interval
 // proof for this representation is tests/test_field.py's). Every op here
 // computes the same limbs as its counterpart in ops/field.py and
-// ops/curve.py, which is what lets the kernels be held bit for bit
-// against the plain PyTorch versions.
+// ops/curve.py, which is what lets X1's tables be held limb for limb
+// against the plain PyTorch version and the reference's arena: what is
+// left here is A's decompression and its table build.
 //
 // Lane-minor arrays: element (row, lane) of an array with `stride` lanes
 // sits at row * stride + lane, so neighbouring threads read neighbouring
@@ -26,8 +29,6 @@ constexpr int BITS = 13;
 constexpr int32_t MASK = (1 << BITS) - 1;
 constexpr int32_t FOLD = 608;  // 2^260 == 19 * 2^5 (mod p)
 constexpr int TSIZE = 16;
-constexpr int WINDOWS = 64;
-constexpr int WBITS = 4;
 
 // Kernel constants (ops/curve.kernel_consts), staged in shared memory:
 // the base-point table [16][3][20] in affine-Niels form, then d, 2d and
@@ -248,15 +249,6 @@ struct gan {
   fe ypx, ymx, t2d;
 };
 
-__device__ __forceinline__ ge ge_identity() {
-  ge r;
-  r.x = fe_small(0);
-  r.y = fe_small(1);
-  r.z = fe_small(1);
-  r.t = fe_small(0);
-  return r;
-}
-
 __device__ __forceinline__ ge ge_double(const ge& p) {
   fe a = fe_sq(p.x);
   fe b = fe_sq(p.y);
@@ -265,23 +257,6 @@ __device__ __forceinline__ ge ge_double(const ge& p) {
   fe e = fe_sub(h, fe_sq(fe_add(p.x, p.y)));
   fe g = fe_sub(a, b);
   fe f = fe_add(c, g);
-  ge r;
-  r.x = fe_mul(e, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
-  return r;
-}
-
-__device__ __forceinline__ ge ge_add_niels(const ge& p, const gn& n) {
-  fe a = fe_mul(fe_sub(p.y, p.x), n.ymx);
-  fe b = fe_mul(fe_add(p.y, p.x), n.ypx);
-  fe c = fe_mul(p.t, n.t2d);
-  fe d = fe_mul(p.z, n.z2);
-  fe e = fe_sub(b, a);
-  fe f = fe_sub(d, c);
-  fe g = fe_add(d, c);
-  fe h = fe_add(b, a);
   ge r;
   r.x = fe_mul(e, f);
   r.y = fe_mul(g, h);
@@ -358,26 +333,6 @@ __device__ __forceinline__ void store_niels(int32_t* tab, size_t stride,
   fe_store(p + (size_t)3 * NL * stride, stride, n.t2d);
 }
 
-__device__ __forceinline__ gn load_niels(const int32_t* tab, size_t stride,
-                                         size_t col, int k) {
-  const int32_t* p = tab + (size_t)k * 4 * NL * stride + col;
-  gn r;
-  r.ypx = fe_load(p, stride);
-  r.ymx = fe_load(p + (size_t)NL * stride, stride);
-  r.z2 = fe_load(p + (size_t)2 * NL * stride, stride);
-  r.t2d = fe_load(p + (size_t)3 * NL * stride, stride);
-  return r;
-}
-
-__device__ __forceinline__ gan load_base(const int32_t* sm, int k) {
-  const int32_t* p = sm + C_BTAB + k * 3 * NL;
-  gan r;
-  r.ypx = fe_const(p);
-  r.ymx = fe_const(p + NL);
-  r.t2d = fe_const(p + 2 * NL);
-  return r;
-}
-
 // [O, A, 2A, ..., 15A] in projective-Niels form into column `col` of a
 // (16, 4, 20, stride) table (curve._build_a_table): one double and 13
 // affine-Niels adds of the decompressed (affine) A.
@@ -400,127 +355,6 @@ __device__ __forceinline__ void build_table(const ge& a, const int32_t* sm,
     cur = ge_add_affine(cur, a3);
     store_niels(tab, stride, col, k, to_niels(cur, d2));
   }
-}
-
-// acc - R, three doublings, and the identity test: the tail every
-// verify kernel shares (subtract R as the affine-Niels form of -R).
-__device__ __forceinline__ bool minus_r_is_small(ge acc, const ge& r,
-                                                 const int32_t* sm) {
-  const fe d2 = fe_const(sm + C_D2);
-  const fe nrx = fe_neg(r.x);
-  gan rn;
-  rn.ypx = fe_add(r.y, nrx);
-  rn.ymx = fe_sub(r.y, nrx);
-  rn.t2d = fe_mul(fe_neg(r.t), d2);
-  acc = ge_add_affine(acc, rn);
-#pragma unroll 1
-  for (int d = 0; d < 3; ++d) acc = ge_double(acc);
-  return fe_is_zero(acc.x) && fe_is_zero(fe_sub(acc.y, acc.z));
-}
-
-// [8]([S]B + [-k]A - R) == O: the joint 4-bit ladder over A's table
-// (column `col` of a (16, 4, 20, tstride) table) and the shared-memory
-// B table, then -R, three doublings and the identity test.
-__device__ __forceinline__ bool ladder_check(
-    const int32_t* tab, size_t tstride, size_t col, const ge& r,
-    const int32_t* s_nibs, const int32_t* kneg_nibs, size_t n, size_t lane,
-    const int32_t* sm) {
-  ge acc = ge_identity();
-#pragma unroll 1
-  for (int j = 0; j < WINDOWS; ++j) {
-#pragma unroll 1
-    for (int d = 0; d < WBITS; ++d) acc = ge_double(acc);
-    const int kn = kneg_nibs[(size_t)j * n + lane] & (TSIZE - 1);
-    const int sn = s_nibs[(size_t)j * n + lane] & (TSIZE - 1);
-    acc = ge_add_niels(acc, load_niels(tab, tstride, col, kn));
-    acc = ge_add_affine(acc, load_base(sm, sn));
-  }
-  return minus_r_is_small(acc, r, sm);
-}
-
-// ------------------------------------------------------- 8-bit flavor
-// [S]B from 32 fixed-base windows of 8 bits (curve.fixed_base_sum8):
-// entry (j, v) of the (32, 256, 3, 20) int32 table is [v * 2^(8j)]B in
-// affine-Niels form, 60 limbs = 240 contiguous bytes, read as 15 16-byte
-// loads. The table (1,966,080 B) fits neither shared nor constant memory;
-// it stays in global memory, resident in L2. S arrives as (32, N)
-// little-endian bytes: byte j is the window of weight 2^(8j).
-
-constexpr int WINDOWS8 = 32;
-constexpr int TSIZE8 = 256;
-constexpr int ENTRY8 = 3 * NL;
-
-// Complete extended + extended addition (curve.point_add): 9 muls.
-__device__ __forceinline__ ge ge_add_full(const ge& p, const ge& q,
-                                          const fe& d2) {
-  fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
-  fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
-  fe c = fe_mul(fe_mul(p.t, d2), q.t);
-  fe d = fe_dbl2(fe_mul(p.z, q.z));
-  fe e = fe_sub(b, a);
-  fe f = fe_sub(d, c);
-  fe g = fe_add(d, c);
-  fe h = fe_add(b, a);
-  ge r;
-  r.x = fe_mul(e, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
-  return r;
-}
-
-__device__ __forceinline__ gan load_base8(const int32_t* __restrict__ tab8,
-                                          int j, int v) {
-  const int4* p = reinterpret_cast<const int4*>(
-      tab8 + ((size_t)j * TSIZE8 + v) * ENTRY8);
-  int32_t w[ENTRY8];
-#pragma unroll
-  for (int i = 0; i < ENTRY8 / 4; ++i) {
-    const int4 q = __ldg(p + i);
-    w[4 * i] = q.x;
-    w[4 * i + 1] = q.y;
-    w[4 * i + 2] = q.z;
-    w[4 * i + 3] = q.w;
-  }
-  gan r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    r.ypx.v[i] = w[i];
-    r.ymx.v[i] = w[NL + i];
-    r.t2d.v[i] = w[2 * NL + i];
-  }
-  return r;
-}
-
-// 32 affine adds from the identity, no doublings. A byte is read modulo
-// 256, as the plain version reads it.
-__device__ __forceinline__ ge fixed_base_sum8(const int32_t* tab8,
-                                              const int32_t* s_bytes,
-                                              size_t n, size_t lane) {
-  ge acc = ge_identity();
-#pragma unroll 1
-  for (int j = 0; j < WINDOWS8; ++j) {
-    const int v = s_bytes[(size_t)j * n + lane] & (TSIZE8 - 1);
-    acc = ge_add_affine(acc, load_base8(tab8, j, v));
-  }
-  return acc;
-}
-
-// The joint ladder minus its B part (curve._ladder_a_only): [-k]A from
-// A's table, 64 windows of four doublings and one Niels add.
-__device__ __forceinline__ ge ladder_a_only(const int32_t* tab,
-                                            size_t tstride, size_t col,
-                                            const int32_t* kneg_nibs,
-                                            size_t n, size_t lane) {
-  ge acc = ge_identity();
-#pragma unroll 1
-  for (int j = 0; j < WINDOWS; ++j) {
-#pragma unroll 1
-    for (int d = 0; d < WBITS; ++d) acc = ge_double(acc);
-    const int kn = kneg_nibs[(size_t)j * n + lane] & (TSIZE - 1);
-    acc = ge_add_niels(acc, load_niels(tab, tstride, col, kn));
-  }
-  return acc;
 }
 
 }  // namespace ed

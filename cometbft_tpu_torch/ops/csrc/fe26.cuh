@@ -1,6 +1,9 @@
 // GF(2^255 - 19) in a Hopper radix, and edwards25519 point code run by a
-// quad of threads per signature lane, for the cached verify kernels K2
-// (verify_cached.cu) and K4 (verify8_cached.cu).
+// quad of threads per signature lane, for the four verify kernels: K1
+// (verify_uncached.cu), K2 (verify_cached.cu), K3 (verify8_uncached.cu)
+// and K4 (verify8_cached.cu). Only the arena builder X1 stays on the
+// reference's 13-bit limbs (ed25519.cuh), whose arena it writes bit for
+// bit.
 //
 // ------------------------------------------------------------- the field
 // A field element is 10 limbs of 26 bits in uint32, value = sum v[i] <<
@@ -57,6 +60,8 @@
 // warp reach every shuffle.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstddef>
 #include <cstdint>
 
@@ -77,6 +82,16 @@ constexpr int C_D = TSIZE * 3 * NL;
 constexpr int C_D2 = C_D + NL;
 constexpr int C_SQRTM1 = C_D2 + NL;
 constexpr int N_CONSTS = C_SQRTM1 + NL;
+
+// The paired fixed-base table of the 8-bit kernels
+// (ops/cuda_verify._base_table8_26): entry (j, v) is [v 2^(8j)]B as
+// (y+x, y-x, 2dxy) in 26-bit limbs and two words of padding.
+constexpr int WINDOWS8 = 32;
+constexpr int ENTRY8 = 32;  // int32 an entry, 128 B aligned
+
+// A's table in the shared memory of a one-warp block: entries 1-15, one
+// plane a thread (q_decompress_ar).
+constexpr int ATAB_WORDS = (TSIZE - 1) * NL * 32;
 
 struct fe {
   uint32_t v[NL];
@@ -400,13 +415,20 @@ __device__ __forceinline__ fe q_to_niels(const fe& p, const fe& d2, int c) {
   return fe_mul(w, fe_select(c == 3, d2, fe_small(1)));
 }
 
+// Thread c's component (y-x, y+x, 2, 2dxy)[c] of the affine point (x, y)
+// in affine-Niels form: what q_add takes for an affine Q.
+__device__ __forceinline__ fe q_affine_niels(const fe& x, const fe& y,
+                                             const fe& d2, int c) {
+  const fe m = fe_mul(fe_mul(x, y), d2);
+  const fe s = fe_select(c == 0, fe_sub(y, x), fe_add(y, x));
+  return fe_select(c < 2, s, fe_select(c == 2, fe_small(2), m));
+}
+
 // Thread c's component of -R in affine-Niels form, (y+x, y-x, 2, -2dxy)[c]
 // (the Niels form of (-x, y, 1, -xy)), from R's affine x, y.
 __device__ __forceinline__ fe q_neg_affine(const fe& x, const fe& y,
                                            const fe& d2, int c) {
-  const fe m = fe_mul(fe_neg(fe_mul(x, y)), d2);
-  const fe s = fe_select(c == 0, fe_add(y, x), fe_sub(y, x));
-  return fe_select(c < 2, s, fe_select(c == 2, fe_small(2), m));
+  return q_affine_niels(fe_neg(x), y, d2, c);
 }
 
 // [8](P - R) == O from P (thread c holding coordinate c) and R's negated
@@ -421,6 +443,117 @@ __device__ __forceinline__ bool q_minus_r_is_small(fe acc, const fe& nr,
   const fe y = fe_shfl(acc, 1);
   const fe z = fe_shfl(acc, 2);
   return fe_is_zero(x) && fe_is_zero(fe_sub(y, z));
+}
+
+// --------------------------------------------------- the 8-bit flavor
+
+// [S]B (curve.fixed_base_sum8): 32 affine adds from the identity over the
+// paired fixed-base table; a byte is read modulo 256. Thread c reads its
+// plane (y-x, y+x, 2dxy)[c] of an entry, 40 B in five 8-byte loads
+// (thread 2 multiplies by 2 and reads nothing it uses). The whole table
+// (1 MB) stays in L2.
+__device__ __forceinline__ fe q_fixed_base8(const int32_t* __restrict__ tab8,
+                                            const int32_t* s_bytes, int n,
+                                            size_t ln, int c) {
+  const int tplane = c == 0 ? 1 : (c == 1 ? 0 : 2);
+  fe sb = q_identity(c);
+#pragma unroll 1
+  for (int j = 0; j < WINDOWS8; ++j) {
+    const int v = s_bytes[(size_t)j * n + ln] & 255;
+    const int2* e = reinterpret_cast<const int2*>(
+        tab8 + ((size_t)j * 256 + v) * ENTRY8 + tplane * NL);
+    fe nb;
+#pragma unroll
+    for (int i = 0; i < NL / 2; ++i) {
+      const int2 w = __ldg(e + i);
+      nb.v[2 * i] = (uint32_t)w.x;
+      nb.v[2 * i + 1] = (uint32_t)w.y;
+    }
+    sb = q_add(sb, fe_select(c == 2, fe_small(2), nb), c);
+  }
+  return sb;
+}
+
+// ------------------------------------------- A's table (K1 and K3 only)
+// [O, A, 2A, ..., 15A] in projective-Niels form, built by the quad into
+// shared memory: thread c keeps its own plane (Y-X, Y+X, 2Z, 2dT)[c] of
+// entries 1-15, which is the operand q_add takes from it in the ladder.
+// Thread t's element (entry e, limb i) sits at [((e - 1) NL + i) 32 + t],
+// so a warp's 32 accesses hit 32 banks, and a thread reads only what it
+// wrote: no barrier. Entry 0, the identity (1, 1, 2, 0), is selected, not
+// stored.
+
+__device__ __forceinline__ void atab_store(uint32_t* tab, int e,
+                                           const fe& v) {
+  uint32_t* p = tab + (e - 1) * NL * 32 + (threadIdx.x & 31);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) p[i * 32] = v.v[i];
+}
+
+__device__ __forceinline__ fe atab_load(const uint32_t* tab, int e, int c) {
+  const uint32_t* p = tab + (e > 0 ? e - 1 : 0) * NL * 32 + (threadIdx.x & 31);
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = p[i * 32];
+  return fe_select(e == 0, fe_small(c == 2 ? 2 : (c < 2 ? 1 : 0)), r);
+}
+
+// A and R decompressed side by side, threads 0-1 on A and threads 2-3 on
+// R (one decompression a thread's chain; the inputs are selected, so every
+// thread reaches every shuffle), then A's table built by the quad in the
+// order of curve._build_a_table: entry 1 is A's affine-Niels form, entry 2
+// [2]A, entries 3-15 one affine add each. Returns, on all four threads,
+// whether A and R both decode (A's flag from thread 0, R's from thread 2);
+// nr gets thread c's component of -R (q_neg_affine).
+__device__ __forceinline__ bool q_decompress_ar(
+    const int32_t* y_a, const int32_t* sign_a, const int32_t* y_r,
+    const int32_t* sign_r, int n, size_t ln, const uint32_t* sm,
+    uint32_t* atab, fe& nr, int c) {
+  const bool side_a = c < 2;
+  const fe y = fe_load13((side_a ? y_a : y_r) + ln, n);
+  fe x;
+  const uint32_t dec =
+      decompress_x(x, y, side_a ? sign_a[ln] : sign_r[ln], sm);
+  const bool ok = (__shfl_sync(0xffffffffu, dec, 0, 4) &
+                   __shfl_sync(0xffffffffu, dec, 2, 4)) != 0;
+  const fe d2 = fe_const(sm + C_D2);
+  const fe xa = fe_shfl(x, 0);
+  const fe ya = fe_shfl(y, 0);
+  nr = q_neg_affine(fe_shfl(x, 2), fe_shfl(y, 2), d2, c);
+  const fe na = q_affine_niels(xa, ya, d2, c);
+  atab_store(atab, 1, na);
+  // A extended: (x, y, 1, xy)[c]
+  fe cur = fe_select(c == 0, xa,
+                     fe_select(c == 1, ya,
+                               fe_select(c == 2, fe_small(1),
+                                         fe_mul(xa, ya))));
+  cur = q_double(cur, c);
+  atab_store(atab, 2, q_to_niels(cur, d2, c));
+#pragma unroll 1
+  for (int e = 3; e < TSIZE; ++e) {
+    cur = q_add(cur, na, c);
+    atab_store(atab, e, q_to_niels(cur, d2, c));
+  }
+  return ok;
+}
+
+// ------------------------------------------------------------- the host
+
+// Asks once per device for the largest shared-memory carveout for
+// `kernel`, so that CUDA does not choose a smaller one and cap the blocks
+// an SM holds. Each kernel source instantiates it for its own
+// kernel.
+template <class K>
+inline int prefer_max_shared(K kernel) {
+  static bool set[64] = {};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0 || (dev < 64 && set[dev])) return err;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (err == 0 && dev < 64) set[dev] = true;
+  return err;
 }
 
 }  // namespace f26

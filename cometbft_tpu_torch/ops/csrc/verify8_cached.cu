@@ -20,10 +20,9 @@
 // add. The fixed-base table is the paired copy ops/cuda_verify builds once
 // a device from curve.base_table8: entry (j, v) is 32 int32, (y+x, y-x,
 // 2dxy) in 26-bit limbs and two words of padding, 128 B aligned, and
-// thread c reads its 10 words (five 8-byte loads; thread 2 multiplies by
-// 2 and reads nothing it uses). Pairing the 13-bit table on load would
-// read 80 B a thread, where the copy holds the same entry in 40. The
-// whole copy (1 MB) stays in L2.
+// thread c reads its 10 words (fe26.cuh q_fixed_base8, shared with K3).
+// Pairing the 13-bit table on load would read 80 B a thread, where the
+// copy holds the same entry in 40.
 #include <cuda_runtime.h>
 
 #include "fe26.cuh"
@@ -33,7 +32,6 @@ using namespace f26;
 constexpr int BLOCK = 32;
 constexpr int LANES = BLOCK / 4;  // lanes a block
 constexpr int NL13 = 20;          // 13-bit limbs of an arena element
-constexpr int ENTRY8 = 32;        // int32 a paired fixed-base entry
 
 extern "C" __global__ void __launch_bounds__(BLOCK, 12)
     k4_verify8_cached(const int32_t* __restrict__ arena,
@@ -57,23 +55,7 @@ extern "C" __global__ void __launch_bounds__(BLOCK, 12)
   if (!ok) slot = 0;
   ok &= arena_ok[slot] != 0;
 
-  // [S]B: 32 affine adds from the identity; a byte is read modulo 256
-  const int tplane = c == 0 ? 1 : (c == 1 ? 0 : 2);
-  fe sb = q_identity(c);
-#pragma unroll 1
-  for (int j = 0; j < 32; ++j) {
-    const int v = s_bytes[(size_t)j * n + ln] & 255;
-    const int2* e = reinterpret_cast<const int2*>(
-        tab8 + ((size_t)j * 256 + v) * ENTRY8 + tplane * NL);
-    fe nb;
-#pragma unroll
-    for (int i = 0; i < NL / 2; ++i) {
-      const int2 w = __ldg(e + i);
-      nb.v[2 * i] = (uint32_t)w.x;
-      nb.v[2 * i + 1] = (uint32_t)w.y;
-    }
-    sb = q_add(sb, fe_select(c == 2, fe_small(2), nb), c);
-  }
+  const fe sb = q_fixed_base8(tab8, s_bytes, n, ln, c);
 
   const fe ry = fe_load13(y_r + ln, n);
   fe rx;

@@ -12,12 +12,14 @@ nibbles, ``(16, 4, 20, N)`` tables):
 
 K3 and K4 are the 8-bit flavor: S arrives as ``(32, N)`` little-endian
 bytes and [S]B comes from the constant ``(32, 256, 3, 20)`` table of
-ops.curve.base_table8, built once per device at first use and kept. K4
-reads it paired to 26-bit limbs (:func:`_base_table8_26`).
+ops.curve.base_table8, which both kernels read paired to 26-bit limbs
+(:func:`_base_table8_26`, built once per device at first use and kept).
 
-K2 and K4 run on the 26-bit radix of csrc/fe26.cuh, four threads a lane;
-K1, K3 and X1 on the reference's 13-bit limbs of csrc/ed25519.cuh, one
-thread a lane. All five take the 13-bit arrays above.
+K1-K4 run on the 26-bit radix of csrc/fe26.cuh, four threads a lane, and
+K1 and K3 keep A's table in shared memory, so no wrapper allocates
+scratch; X1 stays on the reference's 13-bit limbs of csrc/ed25519.cuh, one
+thread a lane, since it writes the reference's arena. All five take the
+13-bit arrays above.
 
 A CPU tensor goes to the plain PyTorch version in ops/curve.py. A CUDA
 tensor launches the kernel on the current stream or raises: there is no
@@ -97,9 +99,8 @@ BYTES_PER_LANE = {
     + 4 * TSIZE * 4 * NLIMB + 1 + 2 + 1,
 }
 # K3/K4 also read the entries of the fixed-base table that their S bytes
-# name, once per launch: 240 B each from K3's 13-bit table (at most the
-# whole 1,966,080 B), 120 B each (30 int32) from K4's paired copy.
-TABLE8_ENTRY_BYTES = {"verify_kernel8": 4 * 3 * NLIMB,
+# name, once per launch: 120 B each (30 int32) from the paired copy.
+TABLE8_ENTRY_BYTES = {"verify_kernel8": 4 * 3 * NLIMB // 2,
                       "verify_kernel8_cached": 4 * 3 * NLIMB // 2}
 
 
@@ -138,11 +139,11 @@ def _consts(device: torch.device) -> torch.Tensor:
 
 @lru_cache(maxsize=None)
 def _base_table8_26(device: torch.device) -> torch.Tensor:
-    """K4's fixed-base table: ops.curve.base_table8 with each pair of 13-bit
-    limbs joined into one 26-bit limb, ``l[2i] + (l[2i+1] << 13)``, as
-    (32, 256, 32) int32: (y+x, y-x, 2dxy) in words 0-29 of an entry, two
-    words of zeros, 128 B an entry (1,048,576 B in all). Built once per
-    device at first use and kept."""
+    """K3's and K4's fixed-base table: ops.curve.base_table8 with each pair
+    of 13-bit limbs joined into one 26-bit limb, ``l[2i] + (l[2i+1] <<
+    13)``, as (32, 256, 32) int32: (y+x, y-x, 2dxy) in words 0-29 of an
+    entry, two words of zeros, 128 B an entry (1,048,576 B in all). Built
+    once per device at first use and kept."""
     t = curve.base_table8(device)
     paired = t[..., 0::2] + (t[..., 1::2] << 13)
     out = torch.zeros((WINDOWS8, 256, 32), dtype=torch.int32, device=device)
@@ -158,13 +159,13 @@ def _entries():
     """The C entry of each kernel, from the built libraries."""
     libs = {k: build.load_all()[v[:-3]] for k, v in SOURCES.items()}
     k1 = libs["verify_kernel"].ed25519_verify
-    k1.argtypes = [_PTR] * 9 + [ctypes.c_int, _PTR]
+    k1.argtypes = [_PTR] * 8 + [ctypes.c_int, _PTR]
     k2 = libs["verify_kernel_cached"].ed25519_verify_cached
     k2.argtypes = [_PTR] * 3 + [ctypes.c_int] + [_PTR] * 6 + [ctypes.c_int, _PTR]
     x1 = libs["build_pubkey_tables"].ed25519_build_tables
     x1.argtypes = [_PTR] * 5 + [ctypes.c_int, _PTR]
     k3 = libs["verify_kernel8"].ed25519_verify8
-    k3.argtypes = [_PTR] * 10 + [ctypes.c_int, _PTR]
+    k3.argtypes = [_PTR] * 9 + [ctypes.c_int, _PTR]
     k4 = libs["verify_kernel8_cached"].ed25519_verify8_cached
     k4.argtypes = [_PTR] * 3 + [ctypes.c_int] + [_PTR] * 7 + [ctypes.c_int,
                                                               _PTR]
@@ -227,12 +228,10 @@ def verify_kernel(y_a, sign_a, y_r, sign_r, s_nibs, kneg_nibs):
     out = torch.empty(n, dtype=torch.bool, device=device)
     if n == 0:
         return out
-    scratch = torch.empty((TSIZE, 4, NLIMB, n), dtype=torch.int32,
-                          device=device)
     _launch(
         "verify_kernel", device,
         _p(y_a), _p(sign_a), _p(y_r), _p(sign_r), _p(s_nibs), _p(kneg_nibs),
-        _p(_consts(device)), _p(scratch), _p(out), n,
+        _p(_consts(device)), _p(out), n,
     )
     return out
 
@@ -310,13 +309,11 @@ def verify_kernel8(y_a, sign_a, y_r, sign_r, s_bytes, kneg_nibs):
     out = torch.empty(n, dtype=torch.bool, device=device)
     if n == 0:
         return out
-    scratch = torch.empty((TSIZE, 4, NLIMB, n), dtype=torch.int32,
-                          device=device)
     _launch(
         "verify_kernel8", device,
         _p(y_a), _p(sign_a), _p(y_r), _p(sign_r), _p(s_bytes),
-        _p(kneg_nibs), _p(_consts(device)), _p(curve.base_table8(device)),
-        _p(scratch), _p(out), n,
+        _p(kneg_nibs), _p(_consts(device)), _p(_base_table8_26(device)),
+        _p(out), n,
     )
     return out
 

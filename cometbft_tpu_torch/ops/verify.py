@@ -40,7 +40,7 @@ from . import cuda_verify, curve, field
 L = curve.L
 _MIN_BUCKET = 8
 # Largest lane count per launch: bigger batches split into _CHUNK-lane
-# launches, which also bounds K1's (16, 4, 20, N) scratch to 84 MB.
+# launches.
 _CHUNK = 16384
 
 

@@ -11,8 +11,8 @@
     model's limbs exactly, and whose decompression must agree with the
     port's ed25519_ref. The stub runs every thread of a block as a fiber
     that yields at each ``__shfl_sync`` and ``__syncthreads``, so the quad
-    kernels K2 and K4 themselves run on a few lanes against their plain
-    versions.
+    kernels K1-K4 themselves run on a few lanes against their plain
+    versions and the oracle.
 """
 
 import ctypes
@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cometbft_tpu.ops import field as jfield
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
 from cometbft_tpu_torch.ops import cuda_verify, curve
@@ -230,6 +231,10 @@ STUB = r"""
 #define __shared__ static
 #define __launch_bounds__(...)
 typedef void* cudaStream_t;
+enum { cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+       cudaSharedmemCarveoutMaxShared = 100 };
+static inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+template <class F> static inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
 template <class T> static inline T __ldg(const T* p) { return *p; }
@@ -410,12 +415,18 @@ def test_harness_decompression_matches_the_oracle(harness):
 
 def _lanes():
     """Edge lanes with known verdicts: honest, tampered, small-order and
-    non-canonical A and R, negative zero, off-curve points, S >= L."""
+    non-canonical A and R, negative zero, off-curve points, S >= L. The
+    A-side classes decode only in K1 and K3, where threads 0-1 of a quad
+    decompress A and threads 2-3 R."""
     r = 123457
     r_enc = ref.compress(ref.scalar_mult(r, ref.BASE))
     rs = r_enc + r.to_bytes(32, "little")
     ident_np = (1 + P).to_bytes(32, "little")
     negzero = (1 | 1 << 255).to_bytes(32, "little")
+    off = (2).to_bytes(32, "little")  # y = 2 does not decode
+    a8 = ref.compress(chip_smoke._order8_point(ref))
+    m8 = next(b"fe26 order 8 %d" % i for i in range(64)
+              if ref.challenge_scalar(r_enc, a8, b"fe26 order 8 %d" % i) % 8)
     items = []
     for i in range(7):
         seed = bytes([i + 1]) * 32
@@ -435,46 +446,153 @@ def _lanes():
     ]
     for k in (0, 3):  # y = p + k as R
         items.append((pk0, msg0, (P + k).to_bytes(32, "little") + sig0[32:]))
+    items += [
+        (P.to_bytes(32, "little"), msg0, rs),  # A as y = p + 0, order 4
+        (a8, m8, rs),  # A of order 8, [k]A != O: cofactored accept
+        (off, msg0, sig0),  # A off the curve
+        (off, msg0, off + sig0[32:]),  # A and R both off the curve
+        (negzero, msg0, off + sig0[32:]),  # A decodes, R does not
+    ]
     return [list(x) for x in zip(*items)]
 
 
-@pytest.mark.parametrize("kernel", ["verify_cached", "verify8_cached"])
+DECOMPRESS_AR = r"""
+#include <cuda_runtime.h>
+#include "fe26.cuh"
+using namespace f26;
+// every thread's flag and canonical -R component, and its plane of A's
+// table entry 1 (A's affine-Niels form), from q_decompress_ar
+__global__ void dec_ar(const int32_t* y_a, const int32_t* sign_a,
+                       const int32_t* y_r, const int32_t* sign_r,
+                       const int32_t* consts, uint8_t* ok, uint32_t* nr_out,
+                       uint32_t* na_out, int n) {
+  __shared__ uint32_t sm[N_CONSTS];
+  __shared__ uint32_t atab[ATAB_WORDS];
+  stage_consts26(sm, consts);
+  const int c = quad_c();
+  const size_t lane = (size_t)blockIdx.x * 8 + (threadIdx.x >> 2);
+  const size_t ln = lane < (size_t)n ? lane : (size_t)n - 1;
+  fe nr;
+  const bool k =
+      q_decompress_ar(y_a, sign_a, y_r, sign_r, n, ln, sm, atab, nr, c);
+  const fe nrc = fe_canonical(nr);
+  const fe nac = fe_canonical(atab_load(atab, 1, c));
+  if (lane >= (size_t)n) return;
+  const size_t t = lane * 4 + c;
+  ok[t] = k;
+  for (int i = 0; i < NL; ++i) {
+    nr_out[t * NL + i] = nrc.v[i];
+    na_out[t * NL + i] = nac.v[i];
+  }
+}
+extern "C" int run(const int32_t* y_a, const int32_t* sign_a,
+                   const int32_t* y_r, const int32_t* sign_r,
+                   const int32_t* consts, uint8_t* ok, uint32_t* nr_out,
+                   uint32_t* na_out, int n, cudaStream_t stream) {
+  dec_ar<<<(n + 7) / 8, 32, 0, stream>>>(y_a, sign_a, y_r, sign_r, consts,
+                                         ok, nr_out, na_out, n);
+  return 0;
+}
+"""
+
+
+def test_quad_decompresses_a_and_r_side_by_side_in_emulation(tmp_path):
+    """K1's and K3's prologue (fe26.cuh q_decompress_ar) on the edge
+    lanes: threads 0-1 decompress A and threads 2-3 R, so every thread's
+    flag must be "A and R both decode" (A's from thread 0, R's from thread
+    2), thread c's -R component (y+x, y-x, 2, -2dxy)[c] and its plane
+    (y-x, y+x, 2, 2dxy)[c] of A's table must match the oracle's points. A
+    point that does not decode leaves the verdict False through the
+    equation as well, so only this test sees a wrong flag."""
+    lib = _compile(tmp_path, "dec_ar", DECOMPRESS_AR)
+    pks, msgs, sigs = _lanes()
+    n = len(pks)
+    buf, _ = tverify.pack_bytes(pks, msgs, sigs)
+    a = tverify.unpack_on_device(torch.from_numpy(buf))
+    ok = np.zeros((n, 4), np.uint8)
+    nr = np.zeros((n, 4, NL), np.uint32)
+    na = np.zeros((n, 4, NL), np.uint32)
+    consts = torch.from_numpy(curve.kernel_consts())
+    ptrs = [a["y_a"], a["sign_a"], a["y_r"], a["sign_r"], consts]
+    args = [ctypes.c_void_p(t.data_ptr()) for t in ptrs]
+    args += [ctypes.c_void_p(x.ctypes.data) for x in (ok, nr, na)]
+    assert lib.run(*args, ctypes.c_int(n), None) == 0
+    d = (-121665 * pow(121666, P - 2, P)) % P
+
+    def affine(enc):
+        pt = ref.decompress(enc)
+        if pt is None:
+            return None
+        zinv = pow(pt[2], P - 2, P)
+        return pt[0] * zinv % P, pt[1] * zinv % P
+
+    def wire(y, sign, i):  # the encoding the kernel was given
+        v = sum(int(y[k, i]) << (13 * k) for k in range(20))
+        return (v | int(sign[i]) << 255).to_bytes(32, "little")
+
+    decoded = 0
+    for i in range(n):
+        pa = affine(wire(a["y_a"], a["sign_a"], i))
+        pr = affine(wire(a["y_r"], a["sign_r"], i))
+        assert ok[i].tolist() == [int(pa is not None and pr is not None)] * 4, i
+        if pr is not None:
+            x, y = pr
+            want = [(y + x) % P, (y - x) % P, 2, (-2 * d * x * y) % P]
+            assert [value(v.tolist()) for v in nr[i]] == want, i
+        if pa is not None:
+            x, y = pa
+            want = [(y - x) % P, (y + x) % P, 2, (2 * d * x * y) % P]
+            assert [value(v.tolist()) for v in na[i]] == want, i
+        decoded += pa is not None and pr is not None
+    assert 0 < decoded < n
+
+
+@pytest.mark.parametrize("kernel", ["verify_cached", "verify8_cached",
+                                    "verify_uncached", "verify8_uncached"])
 def test_quad_kernel_matches_plain_in_emulation(tmp_path, kernel):
-    """K2 or K4 as written for the card, every thread a fiber, on 20 lanes
-    (the last 8-lane block holds 4: a ragged edge), scattered arena slots
-    and one slot out of range, against the plain version."""
+    """K1-K4 as written for the card, every thread a fiber, on the edge
+    lanes (the last 8-lane block ragged) against their plain versions and
+    the oracle. K2 and K4 read scattered arena slots, one out of range; K1
+    and K3 decompress A themselves and build its table in shared memory."""
     lib = _compile(tmp_path, kernel, (CSRC / f"{kernel}.cu").read_text())
     pks, msgs, sigs = _lanes()
     n = len(pks)
+    assert n % 8 != 0
     buf, host_ok = tverify.pack_bytes(pks, msgs, sigs)
-    flavor = "8" if kernel == "verify8_cached" else "4"
+    flavor = "8" if kernel.startswith("verify8") else "4"
     a = tverify.unpack_on_device(torch.from_numpy(buf), flavor)
     s_key = "s_bytes" if flavor == "8" else "s_nibs"
-    table, tab_ok = curve.build_pubkey_tables(a["y_a"], a["sign_a"])
-    slots = 97
-    slot = torch.randperm(slots - 1, generator=torch.Generator().manual_seed(3))[:n]
-    arena = torch.zeros((16, 4, 20, slots), dtype=torch.int32)
-    arena[..., slot] = table
-    arena_ok = torch.zeros(slots, dtype=torch.bool)
-    arena_ok[slot] = tab_ok
-    idxs = slot.to(torch.int16)
-    idxs[1] = slots + 4
     rsk = [a["y_r"], a["sign_r"], a[s_key], a["kneg_nibs"]]
-    plain = (curve.verify_kernel8_slots if flavor == "8"
-             else curve.verify_kernel_slots)(arena, arena_ok, idxs, *rsk)
     consts = torch.from_numpy(curve.kernel_consts())
-    out = torch.zeros(n, dtype=torch.bool)
-    ptrs = [arena, arena_ok, idxs, slots, *rsk, consts]
-    if flavor == "8":
-        ptrs.append(cuda_verify._base_table8_26(torch.device("cpu")))
-        fn = lib.ed25519_verify8_cached
+    tab8 = ([cuda_verify._base_table8_26(torch.device("cpu"))]
+            if flavor == "8" else [])
+    want = [ref.verify(pk, m, s) for pk, m, s in zip(pks, msgs, sigs)]
+    if kernel.endswith("uncached"):
+        plain = (curve.verify_kernel8 if flavor == "8"
+                 else curve.verify_kernel)(a["y_a"], a["sign_a"], *rsk)
+        ptrs = [a["y_a"], a["sign_a"], *rsk, consts, *tab8]
+        fn = lib.ed25519_verify8 if flavor == "8" else lib.ed25519_verify
     else:
-        fn = lib.ed25519_verify_cached
+        table, tab_ok = curve.build_pubkey_tables(a["y_a"], a["sign_a"])
+        slots = 97
+        gen = torch.Generator().manual_seed(3)
+        slot = torch.randperm(slots - 1, generator=gen)[:n]
+        arena = torch.zeros((16, 4, 20, slots), dtype=torch.int32)
+        arena[..., slot] = table
+        arena_ok = torch.zeros(slots, dtype=torch.bool)
+        arena_ok[slot] = tab_ok
+        idxs = slot.to(torch.int16)
+        idxs[1] = slots + 4
+        want[1] = False  # its slot is out of range
+        plain = (curve.verify_kernel8_slots if flavor == "8"
+                 else curve.verify_kernel_slots)(arena, arena_ok, idxs, *rsk)
+        ptrs = [arena, arena_ok, idxs, slots, *rsk, consts, *tab8]
+        fn = (lib.ed25519_verify8_cached if flavor == "8"
+              else lib.ed25519_verify_cached)
+    out = torch.zeros(n, dtype=torch.bool)
     ptrs += [out, n]
     args = [ctypes.c_int(x) if isinstance(x, int) else ctypes.c_void_p(x.data_ptr())
             for x in ptrs]
     assert fn(*args, None) == 0
     assert torch.equal(out, plain)
-    want = [ref.verify(pk, m, s) for pk, m, s in zip(pks, msgs, sigs)]
-    want[1] = False  # its slot is out of range
     assert (out & torch.from_numpy(host_ok)).tolist() == want

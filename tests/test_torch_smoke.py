@@ -2,7 +2,7 @@
 
 The smoke script may import neither tests/ nor cometbft_tpu, so it builds
 the ZIP-215 equivalence classes itself with the port's ed25519_ref and
-runs them through K2 and K4 on the card. Its list must stay equal to
+runs them through K1-K4 on the card. Its list must stay equal to
 tests/test_zip215_conformance.py::build_corpus, vector for vector.
 """
 
