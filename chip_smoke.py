@@ -47,13 +47,34 @@ each printing one JSON line:
              keys make the arena evict), and with a tampered signature in
              1010's commit, which must fail 1009 -> 1010. K3, K4 and X1 must
              each launch in this phase, K1 and K2 not at all.
+6. hash    — the SHA-256 hash plane on one seeded default block: 21 MiB
+             (BlockParams.max_bytes, 22,020,096 B, 336 parts of 64 KiB) of
+             10,752 txs of 2,048 B. First X4's kernels check (the lines
+             kernels.x4*): X4 against hashlib on every lane and
+             against its plain version on the card at the padding edges, a
+             0-700 B fuzz and every (block bucket, lane bucket) the path can
+             launch (buckets 1, 2 and 64 at every lane bucket 8-2,048; the
+             336 part leaves at 2,048 x 512; gossip windows at 2,048 x 8),
+             then timed at the part leaves and at a full tx-key window
+             beside the bound, and the leaf wire's pack and h2d. Then the
+             path, each step unrouted (hashlib) and then with a fresh
+             HashCoalescer(device="cuda") pushed, results equal:
+             make_block (Data.hash: tx keys and merkle levels; the slice
+             commit's hash), PartSet.from_data, gossip ingress (a fresh
+             PartSet takes the 336 parts through add_part from 8 threads;
+             assemble() gives the bytes back; a part with a flipped byte
+             raises PartSetError), and the slice phase's ValidatorSet.hash.
+             Each step prints its windows on the card and on the host. X4
+             must launch, only at shapes the check compared, and a routed
+             from_data on a warm plane runs under torch.profiler, in a
+             process of its own, for the card's idle share.
 
 In the slice and light phases K1-K4 must run only at lane counts the
 kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3 checks).
 
-Then one line {"kernels": [...]}, the card's nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failed check raises: the script exits
-nonzero and prints no last line. Without CUDA it exits 2.
+Then one line {"kernels": [...]} (K1-K4, X1 and X4), the card's nvidia-smi
+line, and last {"ok": true, "device": {...}}. Any failed check raises: the
+script exits nonzero and prints no last line. Without CUDA it exits 2.
 """
 
 import dataclasses
@@ -99,6 +120,22 @@ LIGHT_KERNELS = ("verify_kernel8", "verify_kernel8_cached",
                  "build_pubkey_tables")
 VERIFY_KERNELS = ("verify_kernel", "verify_kernel_cached", "verify_kernel8",
                   "verify_kernel8_cached")
+# the hash phase: one seeded default block, BlockParams.max_bytes (21 MiB,
+# 336 parts of BLOCK_PART_SIZE_BYTES) of 2,048-byte txs, the tx size of
+# the reference's bench_hash_plane
+BLOCK_BYTES = 22_020_096
+TX_BYTES = 2_048
+INGRESS_THREADS = 8  # gossip peers handing parts to add_part at once
+HASH_SEED = 21
+PADDING_EDGES = (0, 1, 3, 55, 56, 57, 63, 64, 65, 119, 127, 128, 129, 200)
+# X4's (block bucket, lane bucket) shapes the kernels check compares beside
+# the padding edges and the fuzz: every lane bucket of the merkle leaves
+# (1 block), inner nodes (2) and tx keys (64, 2,048-byte txs), the 336
+# part leaves (2,048: 1,025 blocks each, lane bucket 512) and the gossip
+# windows of up to INGRESS_THREADS leaves (lane bucket 8)
+X4_LANE_BUCKETS = tuple(8 << i for i in range(9))  # 8 .. 2,048
+X4_PATH_SHAPES = tuple((bb, lb) for bb in (1, 2, 64)
+                       for lb in X4_LANE_BUCKETS) + ((2048, 8), (2048, 512))
 # signing workers: the cores this process may use, at most 8 (a one-card
 # machine may share a host whose os.cpu_count() is far larger)
 WORKERS = min(8, len(os.sched_getaffinity(0)))
@@ -720,7 +757,7 @@ def phase_slice(torch, pool, card):
           "device_busy_ms": busy_ms, "device_events": events,
           "idle_share": 1 - busy_ms / host_ms if events else None,
           "card": card})
-    return launches, cache
+    return launches, cache, vals, commit
 
 
 def make_light_chain(pool):
@@ -973,6 +1010,318 @@ def phase_light(torch, pool, card, slice_cache):
     return launches
 
 
+def make_hash_block():
+    """The seeded block: its txs (BLOCK_BYTES / TX_BYTES of TX_BYTES) and
+    their bytes, which the part set splits (the port has no block codec
+    yet)."""
+    import numpy as np
+
+    data = np.random.default_rng(HASH_SEED).bytes(BLOCK_BYTES)
+    return [data[i : i + TX_BYTES] for i in range(0, BLOCK_BYTES, TX_BYTES)], data
+
+
+def x4_bound(ops: int, shift_logic: int, nbytes: int):
+    """(least ms, "operations" or "bytes") of an X4 launch. Operations: its
+    fewest 32-bit integer instructions (cuda_sha256.work), of which the
+    shifts and LOP3s issue only on the integer pipe, at 64 a clock per SM
+    (PEAK_OPS_PER_S / 2: that constant counts a multiply-add as two), and
+    all of them at most one a clock per SM sub-partition, 128 a clock per
+    SM, with the additions as IMADs on the FMA pipe. Against its bytes over
+    the memory rate."""
+    ops_ms = 1e3 * max(shift_logic / (PEAK_OPS_PER_S / 2),
+                       ops / PEAK_OPS_PER_S)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _x4_inputs(leaves, txs):
+    """[messages] for X4's kernels check: the padding edges, a fuzz of
+    0-700 bytes, and one ragged batch at each of X4_PATH_SHAPES (the
+    largest lane bucket full: a full window)."""
+    import random
+
+    rnd = random.Random(HASH_SEED)
+    batches = [[rnd.randbytes(n) for n in PADDING_EDGES],
+               [rnd.randbytes(rnd.randrange(0, 700)) for _ in range(64)]]
+    for bb, lb in X4_PATH_SHAPES:
+        n = lb if lb == X4_LANE_BUCKETS[-1] else lb // 2 + 1
+        if bb == 2048:
+            batches.append(leaves if lb == 512 else leaves[:n])
+        elif bb == 64:
+            batches.append(txs[:n])
+        else:
+            top = 64 * bb - 9  # the longest message of bb blocks
+            low = 0 if bb == 1 else 56
+            batches.append([rnd.randbytes(top)] + [
+                rnd.randbytes(rnd.randrange(low, top + 1))
+                for _ in range(n - 1)])
+    return batches
+
+
+def check_x4(torch, leaves, txs, card):
+    """X4 against hashlib on every lane, and against its plain version on
+    the card (one plain call per block bucket over that bucket's wires
+    side by side: the plain version is launch-bound, so lanes come free),
+    at every shape the hash path launches it; then timed at the part-leaf
+    shape and at a full tx-key window beside its bound."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import sha256 as osha
+
+    dev = torch.device("cuda", 0)
+    wires = {}
+    for msgs in _x4_inputs(leaves, txs):
+        t = time.perf_counter()
+        blocks, nblocks = osha.pack_messages(msgs)
+        pack_ms = 1e3 * (time.perf_counter() - t)
+        shape = (blocks.shape[0], blocks.shape[2])
+        check(shape not in wires, f"X4 inputs: shape {shape} twice")
+        b = torch.from_numpy(blocks).to(dev)
+        nb = torch.from_numpy(nblocks).to(dev)
+        state = cuda_sha256.sha256(b, nb)
+        got = osha._digests_from_state(state.cpu().numpy(), len(msgs))
+        check(got == [hashlib.sha256(m).digest() for m in msgs],
+              f"X4 != hashlib at {shape}")
+        wires[shape] = dict(np=(blocks, nblocks), dev=(b, nb), state=state,
+                            lanes=len(msgs), pack_ms=pack_ms)
+    err = mismatches = 0
+    plain_ms = {}
+    for bb in sorted({s[0] for s in wires}):
+        group = sorted(s for s in wires if s[0] == bb)
+        cat_b = torch.from_numpy(np.concatenate(
+            [wires[s]["np"][0] for s in group], axis=2)).to(dev)
+        cat_nb = torch.from_numpy(np.concatenate(
+            [wires[s]["np"][1].astype(np.int64) for s in group])).to(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = osha.sha256_plain(cat_b, cat_nb)
+        end.record()
+        end.synchronize()
+        plain_ms[bb] = start.elapsed_time(end)
+        x4 = torch.cat([cuda_sha256.as_int64(wires[s]["state"])
+                        for s in group], dim=1)
+        diff = (x4 - cuda_sha256.as_int64(plain)).abs()
+        err = max(err, int(diff.max()))
+        mismatches += int((diff != 0).sum())
+        emit({"phase": "kernels.x4", "block_bucket": bb,
+              "lane_buckets": [s[1] for s in group],
+              "lanes": [wires[s]["lanes"] for s in group],
+              "real_blocks": int(cat_nb.sum()), "plain_ms": plain_ms[bb],
+              "plain_lanes": int(cat_b.shape[2]), "mismatches": mismatches,
+              "max_abs_err": err})
+    check(mismatches == 0, f"X4 != plain: {mismatches} words differ")
+    # block counts above the bucket B read as B: a wire of the padding
+    # edges in front of random words, so a block read past B shows
+    rng = np.random.default_rng(HASH_SEED)
+    blocks, nblocks = osha.pack_messages(
+        [rng.bytes(n) for n in PADDING_EDGES])
+    bb, lanes = blocks.shape[0], blocks.shape[2]
+    room = rng.integers(0, 2**32, (bb + 8, 16, lanes), dtype=np.uint32)
+    room[:bb] = blocks
+    wire = torch.from_numpy(room).to(dev)[:bb]
+    over = nblocks.copy()
+    over[::3] = bb + 1 + np.arange(len(over[::3])) % 8
+    over_nb = torch.from_numpy(over).to(dev)
+    diff = (cuda_sha256.as_int64(cuda_sha256.sha256(wire, over_nb))
+            - cuda_sha256.as_int64(osha.sha256_plain(wire, over_nb)))
+    emit({"phase": "kernels.x4.over_bucket", "block_bucket": bb,
+          "lanes": lanes, "mismatches": int((diff != 0).sum())})
+    check(not bool(diff.any()), "X4 read a block past its bucket")
+
+    timed = {}
+    for name, shape in (("part_leaves", (2048, 512)),
+                        ("tx_key_window", (64, 2048))):
+        w = wires[shape]
+        b, nb = w["dev"]
+        ms, out = time_ms(torch, lambda: cuda_sha256.sha256(b, nb),
+                          KERNEL_REPS)
+        check(torch.equal(out.view(torch.int32), w["state"].view(torch.int32)),
+              f"X4 {name}: timed output changed")
+        bound_ms, bound_by = x4_bound(*cuda_sha256.work(nb, shape[0]))
+        timed[name] = {"block_bucket": shape[0], "lane_bucket": shape[1],
+                       "lanes": w["lanes"], "real_blocks":
+                       int(cuda_sha256.as_int64(nb).sum()), "ms": ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_share": bound_ms / ms}
+        emit({"phase": "kernels.x4.time", "shape": name, **timed[name],
+              "card": card})
+    # the part leaves' wire, as from_data ships it: packed on the host,
+    # then copied from pinned memory
+    blocks, _ = wires[(2048, 512)]["np"]
+    pinned = torch.from_numpy(blocks).pin_memory()
+    h2d_ms = time_ms(torch, lambda: pinned.to(dev, non_blocking=True))[0]
+    emit({"phase": "kernels.x4.wire", "shape": "part_leaves",
+          "wire_bytes": blocks.nbytes,
+          "real_bytes": 64 * timed["part_leaves"]["real_blocks"],
+          "pack_ms": wires[(2048, 512)]["pack_ms"], "h2d_ms": h2d_ms,
+          "h2d_gb_per_s": blocks.nbytes / h2d_ms / 1e6, "card": card})
+    leaf = timed["part_leaves"]
+    return set(wires), {
+        "ms": leaf["ms"], "plain_ms": plain_ms[2048],
+        "bound_ms": leaf["bound_ms"], "bound_by": leaf["bound_by"],
+        "bound_share": leaf["bound_share"], "max_abs_err": err,
+        "mismatches": mismatches, "ms_by_shape": {
+            k: {"ms": v["ms"], "bound_ms": v["bound_ms"]}
+            for k, v in timed.items()},
+    }
+
+
+def _traced_routed_from_data():
+    """Worker: (host ms, card-busy ms, device events) of one
+    PartSet.from_data of the seeded block through a warm, pushed
+    HashCoalescer(device="cuda") under torch.profiler."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import hashplane
+    from cometbft_tpu_torch.types import part_set
+
+    _, data = make_hash_block()
+    co = hashplane.HashCoalescer(device="cuda")
+    co.start()
+    hashplane.push_active(co)
+    try:
+        part_set.PartSet.from_data(data)
+        return device_busy_ms(torch, lambda: part_set.PartSet.from_data(data))
+    finally:
+        hashplane.pop_active(co)
+        co.stop()
+
+
+def phase_hash(torch, card, vals, commit):
+    """The hash plane on a default block: make_block (Data.hash and the
+    last commit's hash), PartSet.from_data, gossip ingress through
+    add_part from INGRESS_THREADS threads, and ValidatorSet.hash, each
+    unrouted (hashlib) and then with a fresh HashCoalescer(device="cuda")
+    pushed at its default knobs; routed results must equal unrouted."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cometbft_tpu_torch.crypto import hashplane
+    from cometbft_tpu_torch.ops import cuda_sha256, cuda_verify
+    from cometbft_tpu_torch.types import block, part_set
+
+    t0 = time.perf_counter()
+    txs, data = make_hash_block()
+    size = block.BLOCK_PART_SIZE_BYTES
+    leaves = [b"\x00" + data[i : i + size] for i in range(0, len(data), size)]
+    emit({"phase": "hash.block", "txs": len(txs), "tx_bytes": TX_BYTES,
+          "bytes": len(data), "parts": len(leaves),
+          "seconds": time.perf_counter() - t0})
+    compared, x4_row = check_x4(torch, leaves, txs, card)
+
+    def sha(tag: bytes) -> bytes:
+        return hashlib.sha256(tag).digest()
+
+    fields = dict(
+        version=block.Version(11, 1), chain_id=CHAIN_ID,
+        time_ns=LIGHT_T0_NS, last_block_id=commit.block_id,
+        validators_hash=vals.hash(), next_validators_hash=vals.hash(),
+        consensus_hash=sha(b"consensus"), app_hash=sha(b"app"),
+        last_results_hash=sha(b"results"),
+        proposer_address=vals.get_proposer().address,
+    )
+
+    def ingress(src):
+        """(assembled bytes, the tampered part's rejection) of a fresh
+        part set fed src's parts from INGRESS_THREADS threads at once."""
+        fresh = part_set.PartSet(src.header)
+
+        def feed(k):
+            for i in range(k, src.header.total, INGRESS_THREADS):
+                check(fresh.add_part(src.get_part(i)), f"part {i} twice")
+
+        with ThreadPoolExecutor(INGRESS_THREADS) as pool:
+            list(pool.map(feed, range(INGRESS_THREADS)))
+        good = src.get_part(17)
+        bad = dataclasses.replace(good, bytes_=good.bytes_[:100] + bytes(
+            [good.bytes_[100] ^ 1]) + good.bytes_[101:])
+        try:
+            part_set.PartSet(src.header).add_part(bad)
+            rejected = None
+        except part_set.PartSetError as e:
+            rejected = str(e)
+        return fresh.assemble(), rejected
+
+    device_windows = 0
+
+    def step(name, fn, same):
+        nonlocal device_windows
+        t = time.perf_counter()
+        unrouted = fn()
+        unrouted_ms = 1e3 * (time.perf_counter() - t)
+        co = hashplane.HashCoalescer(device="cuda")
+        co.start()
+        hashplane.push_active(co)
+        launches0 = cuda_sha256.LAUNCHES["sha256"]
+        h2d0 = cuda_sha256.TRANSFERS["h2d_bytes"]
+        try:
+            t = time.perf_counter()
+            routed = fn()
+            routed_ms = 1e3 * (time.perf_counter() - t)
+        finally:
+            hashplane.pop_active(co)
+            co.stop()
+        check(same(unrouted, routed), f"hash {name}: routed != unrouted")
+        device_windows += co.device_windows
+        emit({"phase": "hash.step", "step": name, "unrouted_ms": unrouted_ms,
+              "routed_ms": routed_ms, "routed_equal": True,
+              "windows": co.windows, "device_windows": co.device_windows,
+              "host_windows": co.windows - co.device_windows,
+              "flushes": co.flushes, "tickets": co.tickets,
+              "device_lanes": co.device_lanes, "host_lanes": co.host_lanes,
+              "inline_lanes": co.inline_lanes,
+              "launches": cuda_sha256.LAUNCHES["sha256"] - launches0,
+              "h2d_bytes": cuda_sha256.TRANSFERS["h2d_bytes"] - h2d0,
+              "card": card})
+        return unrouted, routed
+
+    torch.cuda.synchronize()
+    verify0 = dict(cuda_verify.LAUNCHES)
+    cuda_sha256.reset_launches()  # the hash path starts here
+    blk, _ = step(
+        "make_block",
+        lambda: block.make_block(HEIGHT + 1, txs, commit, [], fields),
+        lambda a, b: a.header == b.header and a.hash() == b.hash())
+    blk.validate_basic()
+    ps, routed_ps = step(
+        "part_set_from_data", lambda: part_set.PartSet.from_data(data),
+        lambda a, b: (a.header == b.header and a.count == b.count
+                      == len(leaves) and [p.proof for p in a.parts]
+                      == [p.proof for p in b.parts]))
+    step("gossip_ingress", lambda: ingress(routed_ps),
+         lambda a, b: a[0] == b[0] == data and a[1] == b[1]
+         and "leaf hash mismatch" in b[1])
+    step("validator_set_hash", vals.hash, lambda a, b: a == b)
+    launches = cuda_sha256.LAUNCHES["sha256"]  # read just after the path
+    shapes = sorted(cuda_sha256.LAUNCH_SHAPES["sha256"])
+    check(launches > 0, "X4 was not launched on the hash path")
+    check(device_windows > 0, "no hash window ran on the card")
+    check(set(shapes) <= compared,
+          f"hash: X4 ran at {shapes}, compared at {sorted(compared)} only")
+    check(cuda_verify.LAUNCHES == verify0, "the hash path ran verify kernels")
+    emit({"phase": "hash", "launches": launches, "shapes": shapes,
+          "device_windows": device_windows, "header": {
+              "total": ps.header.total, "hash": ps.header.hash.hex()},
+          "block_hash": blk.hash().hex()})
+
+    # the card's busy and idle share of one routed from_data, traced in a
+    # process of its own: after the X4 check, this process's profiler no
+    # longer sees the plane's threads' device work (it still sees the main
+    # thread's)
+    with get_context("spawn").Pool(1) as pool:
+        host_ms, busy_ms, events = pool.apply(_traced_routed_from_data)
+        pool.close()
+        pool.join()
+    check(events > 0, "the traced routed from_data ran nothing on the card")
+    emit({"phase": "hash.trace", "step": "part_set_from_data, routed, "
+          "warm, profiled", "host_ms": host_ms, "device_busy_ms": busy_ms,
+          "device_events": events,
+          "idle_share": 1 - busy_ms / host_ms if events else None,
+          "card": card})
+    return launches, x4_row
+
+
 def check_lanes(cuda_verify, path):
     """{kernel: sorted lane counts} of K1-K4's launches on ``path`` since
     the last reset; each count must be one the kernels phase compared."""
@@ -1041,10 +1390,12 @@ def main() -> int:
 
     with get_context("spawn").Pool(WORKERS) as pool:
         timed = phase_kernels(torch, pool)
-        slice_launches, slice_cache = phase_slice(torch, pool, smi)
+        slice_launches, slice_cache, vals, commit = phase_slice(torch, pool,
+                                                                smi)
         light_launches = phase_light(torch, pool, smi, slice_cache)
         pool.close()
         pool.join()
+    hash_launches, x4_row = phase_hash(torch, smi, vals, commit)
 
     replaces = {
         "verify_kernel": "cometbft_tpu/ops/pallas_verify.py:922",
@@ -1066,6 +1417,12 @@ def main() -> int:
         for name in ("verify_kernel_cached", "verify_kernel",
                      "build_pubkey_tables", "verify_kernel8_cached",
                      "verify_kernel8")
+    ] + [
+        {"name": "sha256", "route": "cuda",
+         "source": "cometbft_tpu_torch/ops/csrc/sha256.cu",
+         "replaces": "cometbft_tpu/ops/sha256.py:178",
+         "launches": hash_launches, "launches_by_path": {"hash": hash_launches},
+         **x4_row, "library_ms": None},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ imports nothing of the JAX package. From the JAX side::
 A light-client chain (the reference's ``LightBlock`` objects: headers,
 commits, validator sets) is carried across by reading its fields:
 :func:`light_block_from` takes any object with the reference's attribute
-names and builds this package's types from its bytes and ints.
+names and builds this package's types from its bytes and ints. Blocks and
+part sets come across the same way (:func:`block_from`,
+:func:`part_set_from`).
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .crypto import merkle
 from .crypto.keys import Ed25519PubKey
 from .ops.verify import PubkeyTableCache
 from .types import block
 from .types.light_block import LightBlock, SignedHeader
+from .types.part_set import Part, PartSet
 from .types.validator_set import Validator, ValidatorSet
 
 
@@ -111,3 +115,44 @@ def light_block_from(lb) -> LightBlock:
 def light_chain_from(blocks: dict) -> dict[int, LightBlock]:
     """{height: LightBlock} carried across block by block."""
     return {int(h): light_block_from(lb) for h, lb in blocks.items()}
+
+
+def data_from(d) -> block.Data:
+    """This package's Data with the txs of ``d``."""
+    return block.Data(txs=[bytes(tx) for tx in d.txs])
+
+
+def block_from(b) -> block.Block:
+    """This package's Block with the header, txs and last commit of ``b``.
+    Evidence is not ported: a block that carries some raises."""
+    if b.evidence:
+        raise ValueError("blocks with evidence cannot be carried across yet")
+    return block.Block(
+        header=header_from(b.header),
+        data=data_from(b.data),
+        last_commit=(commit_from(b.last_commit)
+                     if b.last_commit is not None else None),
+    )
+
+
+def part_from(p) -> Part:
+    """This package's Part with the index, bytes and proof of ``p``."""
+    pr = p.proof
+    return Part(
+        index=int(p.index),
+        bytes_=bytes(p.bytes_),
+        proof=merkle.Proof(int(pr.total), int(pr.index), bytes(pr.leaf_hash),
+                           [bytes(a) for a in pr.aunts]),
+    )
+
+
+def part_set_from(ps) -> PartSet:
+    """This package's PartSet with the header of ``ps``; each part it
+    holds is carried across through ``add_part``, so a part whose proof
+    does not verify raises PartSetError."""
+    h = ps.header
+    out = PartSet(block.PartSetHeader(int(h.total), bytes(h.hash)))
+    for p in ps.parts:
+        if p is not None:
+            out.add_part(part_from(p))
+    return out

@@ -6,11 +6,18 @@ crypto/batch/batch.go:11-32 (CreateBatchVerifier / SupportsBatchVerifier).
 The ed25519 backend accumulates (pubkey, msg, sig) triples on the host
 and verifies them in one device pass (ops/verify.verify_batch). Every
 batch goes to the device: this package has no host batch path.
+
+:class:`AdaptiveCrossover` is the runtime host/device crossover fit; the
+hash plane (crypto/hashplane.py) keeps one per SHA block bucket.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+
 import numpy as np
+import torch
 
 from . import keys
 from .keys import Ed25519PubKey
@@ -114,3 +121,96 @@ def create_commit_batch_verifier(validator_set, device="cuda",
         )
     return backend(device=device, pubkey_cache=pubkey_cache,
                    flavor=flavor)
+
+
+class AdaptiveCrossover:
+    """Runtime-calibrated host/device batch-size crossover.
+
+    Both sides get the model ``time(n) = floor + slope * n``: the device
+    floor is the launch cost that dominates small batches, the host floor
+    a fixed per-call cost. Observations feed decayed least-squares
+    accumulators; the crossover solves ``h_floor + h_rate * n = d_floor +
+    d_slope * n`` and is clamped to [LO, HI]. Until both sides have
+    ``MIN_SAMPLES`` it answers None and the caller's seed holds.
+    """
+
+    DECAY = 0.98  # per-observation decay of the running moments
+    MIN_SAMPLES = 5
+    LO, HI = 64, 16384
+
+    def __init__(self) -> None:
+        self._mtx = threading.Lock()
+        # decayed least-squares moments of (n, seconds) pairs per side
+        self._host = [0.0, 0.0, 0.0, 0.0, 0.0]  # sw, sx, sy, sxx, sxy
+        self._dev = [0.0, 0.0, 0.0, 0.0, 0.0]
+        self._host_n = 0
+        self._dev_n = 0
+
+    def _accumulate(self, acc: list[float], n: int, seconds: float) -> None:
+        d = self.DECAY
+        acc[0] = d * acc[0] + 1.0
+        acc[1] = d * acc[1] + n
+        acc[2] = d * acc[2] + seconds
+        acc[3] = d * acc[3] + float(n) * n
+        acc[4] = d * acc[4] + n * seconds
+
+    def observe_host(self, n: int, seconds: float) -> None:
+        if n <= 0 or seconds <= 0:
+            return
+        with self._mtx:
+            self._host_n += 1
+            self._accumulate(self._host, n, seconds)
+
+    def observe_device(self, n: int, seconds: float) -> None:
+        if n <= 0 or seconds <= 0:
+            return
+        with self._mtx:
+            self._dev_n += 1
+            self._accumulate(self._dev, n, seconds)
+
+    @staticmethod
+    def _fit(acc: list[float]) -> tuple[float, float]:
+        """(floor, slope) of time(n) = floor + slope*n from the decayed
+        moments; samples at one size give a pure floor (slope 0)."""
+        sw, sx, sy, sxx, sxy = acc
+        mx = sx / sw
+        my = sy / sw
+        var = sxx / sw - mx * mx
+        cov = sxy / sw - mx * my
+        if var > 1e-9:
+            slope = max(0.0, cov / var)
+            floor = max(0.0, my - slope * mx)
+        else:
+            slope, floor = 0.0, my
+        return floor, slope
+
+    def threshold(self) -> int | None:
+        """The calibrated crossover, or None while uncalibrated."""
+        with self._mtx:
+            if (
+                self._host_n < self.MIN_SAMPLES
+                or self._dev_n < self.MIN_SAMPLES
+                or self._host[0] <= 0
+                or self._dev[0] <= 0
+            ):
+                return None
+            h_floor, h_rate = self._fit(self._host)
+            d_floor, d_slope = self._fit(self._dev)
+        if h_rate <= d_slope:
+            # past the floors the host wins at every size
+            return self.HI
+        n_star = (d_floor - h_floor) / (h_rate - d_slope)
+        return int(min(self.HI, max(self.LO, n_star)))
+
+
+def _adaptive_enabled(device="cuda") -> bool:
+    """Whether a crossover on ``device`` adapts to what it observes:
+    COMETBFT_TPU_ADAPTIVE_THRESHOLD=1 forces it, 0 turns it off, and
+    otherwise it adapts on CUDA and keeps its seed on the CPU (so CPU runs
+    route deterministically)."""
+    mode = os.environ.get("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "auto")
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    return torch.device(device).type == "cuda"

@@ -1,0 +1,616 @@
+"""Cross-caller hash coalescer: the device SHA-256 plane.
+
+Port of cometbft_tpu/crypto/hashplane.py. Concurrent callers (PartSet leaf
+hashing on the build and the gossip side, merkle levels, Data.hash's tx
+keys) submit message lanes and block on a ticket; an executor thread
+flushes windows by size (``max_lanes``) or by a deadline proportional to
+the host cost of the pending work (capped by ``window_us``), splits each
+window by SHA block bucket (a 33-byte merkle leaf must not pad to a
+64 KiB part's block count) and launches each bucket through
+ops/sha256.sha256_many_async on the plane's own CUDA stream. A readback
+drain thread materializes dispatched windows in order, each behind its
+own event, while the executor packs the next one; ``max_inflight``
+bounds that pipeline.
+
+Routing, as in the reference: with no plane pushed (:func:`push_active`)
+hashing is unrouted and runs hashlib; a batch below its block bucket's
+device cut (``batch_worth_routing``, the seed curve ``max(2, 2048 //
+bucket)`` lanes, adapted per bucket on CUDA) hashes inline with hashlib,
+as does a bucket of a window below its cut. Digests are bit-identical
+either way.
+
+No fallback, unlike the reference: a device fault (at dispatch or at
+readback) or a ticket that outlives its wait fails the tickets of its
+window, and the routed helpers raise to their caller. Nothing is hashed
+on the host to cover for the device. Stopping drains the pending windows
+through the plane's device and fails what a dead executor left.
+
+``device="cpu"`` runs the plain PyTorch version through the same windows
+(the tests' path); the default ``"cuda"`` raises without a GPU.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import threading
+import time
+from collections import deque
+
+import torch
+
+from ..libs.service import BaseService, ServiceError
+from ..ops import cuda_sha256
+from ..ops import sha256 as osha
+from ..ops.verify import resolve_device
+from . import batch as crypto_batch
+
+# Deadline window before a sub-size window flushes anyway.
+_DEFAULT_WINDOW_US = 500
+# Lanes that trigger a size flush, and the per-window cap.
+_DEFAULT_MAX_LANES = 2048
+# Dispatched windows waiting for readback before the executor blocks.
+_DEFAULT_MAX_INFLIGHT = 2
+# Ticket wait bound for the routed helpers; past it they raise.
+_RESULT_TIMEOUT_S = 5.0
+
+# Routed-helper floors: hash_bytes routes single messages of at least this
+# many bytes; hash_many routes batches of at least this many padded blocks.
+_SUM_ROUTE_MIN_BYTES = 1024
+_ROUTE_MIN_BLOCKS = 64
+# Seed of the per-bucket device cut: a window wins on the device once it
+# carries ~this many SHA blocks, so bucket B's cut is max(2, SEED // B).
+_SEED_DEVICE_BLOCKS = 2048
+
+# The deadline a window waits for more lanes: at most ~2x the host hashlib
+# cost of the work already pending (capped by the window knob), so a lone
+# small message does not sit out the whole window.
+_HOST_S_PER_BLOCK = 25e-9  # single-core hashlib cost per 64-byte block
+_WAIT_COST_FACTOR = 2.0
+
+
+class HashplaneStoppedError(ServiceError):
+    """submit() after the drain began, or a ticket the plane stopped
+    before its window ran."""
+
+
+class _Ticket:
+    """One submit()'s pending digests; settled exactly once (the first of
+    resolve and fail wins)."""
+
+    __slots__ = ("n", "blocks", "t_submit", "_done", "_lock", "_digests",
+                 "_exc")
+
+    def __init__(self, n: int, blocks: int = 0):
+        self.n = n
+        # total padded SHA blocks across the lanes: the deadline budget
+        self.blocks = blocks
+        self.t_submit = time.perf_counter()
+        self._done = threading.Event()
+        self._lock = threading.Lock()
+        self._digests: list[bytes] | None = None
+        self._exc: BaseException | None = None
+
+    def resolve(self, digests) -> None:
+        with self._lock:
+            if not self._done.is_set():
+                self._digests = list(digests)
+                self._done.set()
+
+    def fail(self, exc: BaseException) -> None:
+        with self._lock:
+            if not self._done.is_set():
+                self._exc = exc
+                self._done.set()
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def result(self, timeout: float | None = None) -> list[bytes]:
+        """Block for this submit's digests; raises the window's fault, or
+        TimeoutError after ``timeout`` seconds."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(
+                f"coalesced hash not resolved within {timeout}s "
+                f"({self.n} lanes)"
+            )
+        if self._exc is not None:
+            raise self._exc
+        return list(self._digests)
+
+
+class _Inflight:
+    """A window whose device buckets are dispatched, not yet read back."""
+
+    __slots__ = ("finishes", "out", "staged")
+
+    def __init__(self, finishes, out, staged):
+        # [(materializer, window indices, block bucket, dispatch seconds)]
+        self.finishes = finishes
+        self.out = out  # window-ordered digests (host buckets filled)
+        self.staged = staged  # [(ticket, first window index)]
+
+
+class _BucketCrossover:
+    """Per-block-bucket host/device lane cut.
+
+    One crypto.batch.AdaptiveCrossover per SHA block bucket, fed from the
+    plane's own windows: ``threshold(bucket)`` says at how many lanes a
+    window of that message size goes to the device. Until a bucket is
+    calibrated, and always where adaptation is off for the plane's device
+    (crypto.batch._adaptive_enabled), the seed ``max(2, 2048 // bucket)``
+    answers.
+    """
+
+    def __init__(self, device) -> None:
+        self._adaptive = crypto_batch._adaptive_enabled(device)
+        self._mtx = threading.Lock()
+        self._fits: dict[int, crypto_batch.AdaptiveCrossover] = {}
+
+    def _fit(self, bucket: int) -> crypto_batch.AdaptiveCrossover:
+        with self._mtx:
+            xo = self._fits.get(bucket)
+            if xo is None:
+                xo = self._fits[bucket] = crypto_batch.AdaptiveCrossover()
+            return xo
+
+    def note_host(self, bucket: int, lanes: int, seconds: float) -> None:
+        if self._adaptive:
+            self._fit(bucket).observe_host(lanes, seconds)
+
+    def note_device(self, bucket: int, lanes: int, seconds: float) -> None:
+        if self._adaptive:
+            self._fit(bucket).observe_device(lanes, seconds)
+
+    def threshold(self, bucket: int) -> int:
+        seed = max(2, _SEED_DEVICE_BLOCKS // max(1, bucket))
+        if not self._adaptive:
+            return seed
+        t = self._fit(bucket).threshold()
+        return seed if t is None else t
+
+
+class HashCoalescer(BaseService):
+    """Background hash executor coalescing concurrent digest callers on
+    ``device`` (see the module docstring)."""
+
+    _JOIN_TIMEOUT_S = 10.0
+
+    def __init__(
+        self,
+        window_us: int | None = None,
+        max_lanes: int | None = None,
+        min_device_lanes: int | None = None,
+        device="cuda",
+        max_inflight: int | None = None,
+    ):
+        super().__init__("HashCoalescer")
+        self.device = resolve_device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self.window_s = (
+            _DEFAULT_WINDOW_US if window_us is None else window_us) / 1e6
+        # clamped to the kernel's per-launch cap
+        self.max_lanes = min(osha.MAX_LANES, max(
+            1, _DEFAULT_MAX_LANES if max_lanes is None else max_lanes))
+        # None defers to the per-bucket crossover at flush time
+        self.min_device_lanes = min_device_lanes
+        self.max_inflight = max(1, _DEFAULT_MAX_INFLIGHT
+                                if max_inflight is None else max_inflight)
+        self.crossover = _BucketCrossover(self.device)
+        self._mtx = threading.Lock()  # the pending queue and counters
+        self._cv = threading.Condition(self._mtx)
+        self._pending: deque[tuple] = deque()  # (ticket, msgs)
+        self._pending_lanes = 0
+        self._pending_blocks = 0
+        self._draining = False
+        self._accepting = False
+        self._thread: threading.Thread | None = None
+        self._staging: list[tuple] | None = None  # the window being launched
+        # executor -> drain handoff
+        self._rb_mtx = threading.Lock()
+        self._rb_cv = threading.Condition(self._rb_mtx)
+        self._readback: deque[_Inflight] = deque()
+        self._rb_busy = 0
+        self._rb_closed = False
+        self._rb_alive = False
+        self._rb_thread: threading.Thread | None = None
+        # windows flushed, by reason and those with a device bucket;
+        # tickets taken; lanes hashed on the device, with hashlib inside
+        # windows, and with hashlib inline by the routed helpers (below
+        # their cut)
+        self.flushes = {"size": 0, "deadline": 0, "drain": 0}
+        self.windows = 0
+        self.device_windows = 0
+        self.tickets = 0
+        self.device_lanes = 0
+        self.host_lanes = 0
+        self.inline_lanes = 0
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def on_start(self) -> None:
+        if self.device.type == "cuda":
+            cuda_sha256.load()  # windows never wait on the build
+        with self._mtx:
+            self._draining = False
+        with self._rb_mtx:
+            self._rb_closed = False
+            self._rb_alive = True
+        self._rb_thread = threading.Thread(
+            target=self._drain_run, name="hash-readback", daemon=True)
+        self._rb_thread.start()
+        self._thread = threading.Thread(
+            target=self._run, name="hash-plane", daemon=True)
+        self._thread.start()
+        with self._mtx:
+            self._accepting = True
+
+    def on_stop(self) -> None:
+        """Drain: pending tickets go through the device before stop
+        returns; what a dead or wedged executor left is failed."""
+        with self._mtx:
+            self._draining = True
+            self._accepting = False
+            self._cv.notify_all()
+        with self._rb_mtx:
+            self._rb_cv.notify_all()  # an executor at the depth bound
+        for t in (self._thread, self._rb_thread):
+            if t is not None and t is not threading.current_thread():
+                t.join(timeout=self._JOIN_TIMEOUT_S)
+        self._fail_leftovers()
+
+    def _fail_leftovers(self) -> None:
+        with self._mtx:
+            leftovers, self._pending = self._pending, deque()
+            self._pending_lanes = self._pending_blocks = 0
+        with self._rb_mtx:
+            flights, self._readback = list(self._readback), deque()
+        exc = HashplaneStoppedError(
+            f"{self._name} stopped before this window ran")
+        tickets = [t for t, _ in leftovers]
+        tickets += [t for t, _ in self._staging or ()]
+        tickets += [t for fl in flights for t, _ in fl.staged]
+        for ticket in tickets:
+            ticket.fail(exc)
+
+    # -- submission --------------------------------------------------------
+
+    def submit(self, msgs) -> _Ticket:
+        """Queue message lanes; returns the ticket with their digests.
+        Raises :class:`HashplaneStoppedError` once the drain began."""
+        return self.submit_many([msgs])[0]
+
+    def submit_many(self, groups) -> list[_Ticket]:
+        """Submit several lane groups as one queue transaction, so a
+        chunked batch packs into consecutive windows."""
+        tickets: list[_Ticket] = []
+        staged: list[tuple] = []
+        for msgs in groups:
+            try:
+                blocks = sum(osha.n_blocks(len(m)) for m in msgs)
+            except TypeError:
+                blocks = 0  # unsized lanes fail in _stage, per ticket
+            t = _Ticket(len(msgs), blocks)
+            tickets.append(t)
+            if t.n == 0:
+                t.resolve([])
+            else:
+                staged.append((t, msgs))
+        if not staged:
+            return tickets
+        with self._mtx:
+            if self._draining or not self._accepting:
+                raise HashplaneStoppedError(self._name)
+            for g in staged:
+                self._pending.append(g)
+                self._pending_lanes += g[0].n
+                self._pending_blocks += g[0].blocks
+            self.tickets += len(staged)
+            self._cv.notify_all()
+        return tickets
+
+    def try_hash_many(self, msgs) -> list[bytes]:
+        """Submit and wait: the digests of ``msgs``, chunked into
+        ``max_lanes`` tickets submitted as one batch. Raises the fault of
+        a failed window, TimeoutError past the wait bound and
+        :class:`HashplaneStoppedError` on a stopped plane: it never
+        answers from the host in the device's place."""
+        n = len(msgs)
+        groups = [msgs[i : i + self.max_lanes]
+                  for i in range(0, n, self.max_lanes)] or [msgs]
+        digests: list[bytes] = []
+        for ticket in self.submit_many(groups):
+            digests.extend(ticket.result(_RESULT_TIMEOUT_S))
+        return digests
+
+    def batch_worth_routing(self, msgs) -> bool:
+        """True when this batch alone puts at least one of its block
+        buckets over that bucket's device cut, and carries the minimum
+        total work. Single messages (:func:`hash_bytes`) do not ask: they
+        queue hoping for concurrent company."""
+        counts: dict[int, int] = {}
+        total = 0
+        for m in msgs:
+            nb = osha.n_blocks(len(m))
+            total += nb
+            bb = osha.block_bucket(nb)
+            counts[bb] = counts.get(bb, 0) + 1
+        if total < _ROUTE_MIN_BLOCKS:
+            return False
+        return any(c >= self._device_cut(bb) for bb, c in counts.items())
+
+    def note_inline(self, lanes: int) -> None:
+        """Count lanes a routed helper hashed inline, below their cut."""
+        with self._mtx:
+            self.inline_lanes += lanes
+
+    def routable(self) -> bool:
+        """Accepting submits."""
+        return self._accepting
+
+    # -- the executor ------------------------------------------------------
+
+    def _run(self) -> None:
+        try:
+            while True:
+                groups, reason = self._collect()
+                if groups:
+                    self._staging = groups
+                    try:
+                        fl = self._launch(groups)
+                    except Exception as e:  # a dispatch fault: its window fails
+                        for ticket, _ in groups:
+                            ticket.fail(e)
+                        fl = None
+                    self._staging = None
+                    if fl is not None:
+                        self._hand_to_drain(fl)
+                if reason == "quit":
+                    return
+        finally:
+            self._close_readback()
+            rt = self._rb_thread
+            if rt is not None and rt is not threading.current_thread():
+                rt.join(timeout=self._JOIN_TIMEOUT_S)
+            with self._mtx:
+                self._accepting = False
+            self._fail_leftovers()
+
+    def _collect(self):
+        """Pop one flush window: (groups, reason), reason one of size,
+        deadline, drain or quit. The deadline is anchored at the oldest
+        pending ticket and its budget is min(window, ~2x the pending
+        lanes' host hashlib cost), recomputed as lanes arrive."""
+        with self._mtx:
+            while not self._pending and not self._draining:
+                self._cv.wait(0.2)
+            if not self._pending:
+                return None, "quit"
+            first_t = self._pending[0][0].t_submit
+            while self._pending_lanes < self.max_lanes and not self._draining:
+                budget = min(self.window_s, _WAIT_COST_FACTOR
+                             * _HOST_S_PER_BLOCK * self._pending_blocks)
+                rem = budget - (time.perf_counter() - first_t)
+                if rem <= 0:
+                    break
+                self._cv.wait(rem)
+            if self._draining:
+                reason = "drain"
+            elif self._pending_lanes >= self.max_lanes:
+                reason = "size"
+            else:
+                reason = "deadline"
+            self.flushes[reason] += 1
+            groups: list[tuple] = []
+            lanes = 0
+            while self._pending and (
+                not groups or lanes + self._pending[0][0].n <= self.max_lanes
+            ):
+                g = self._pending.popleft()
+                groups.append(g)
+                lanes += g[0].n
+                self._pending_blocks -= g[0].blocks
+            self._pending_lanes -= lanes
+            return groups, reason
+
+    def _device_cut(self, bucket: int) -> int:
+        """Lane cut of a block bucket: the constructor's pin, else the
+        bucket's crossover."""
+        if self.min_device_lanes is not None:
+            return self.min_device_lanes
+        return self.crossover.threshold(bucket)
+
+    def _stage(self, groups):
+        """Flatten groups into one window-ordered message list; a lane
+        that cannot coerce to bytes fails only its own ticket."""
+        msgs: list[bytes] = []
+        staged: list[tuple] = []  # (ticket, first window index)
+        for ticket, raw in groups:
+            try:
+                lanes = [bytes(m) for m in raw]
+                if len(lanes) != ticket.n:
+                    raise ValueError(
+                        f"lane count mismatch: {len(lanes)} != {ticket.n}")
+            except Exception as e:
+                ticket.fail(e)
+                continue
+            staged.append((ticket, len(msgs)))
+            msgs.extend(lanes)
+        return msgs, staged
+
+    def _launch(self, groups) -> _Inflight | None:
+        """Stage and dispatch one window, split by block bucket. Buckets
+        at their device cut dispatch asynchronously on the plane's stream;
+        the others hash inline with hashlib. Returns the in-flight window
+        when a device bucket launched, else resolves it here."""
+        msgs, staged = self._stage(groups)
+        if not staged:
+            return None
+        self.windows += 1
+        buckets: dict[int, list[int]] = {}
+        for i, msg in enumerate(msgs):
+            bb = osha.block_bucket(osha.n_blocks(len(msg)))
+            buckets.setdefault(bb, []).append(i)
+        out: list[bytes | None] = [None] * len(msgs)
+        finishes = []
+        for bb in sorted(buckets):
+            idxs = buckets[bb]
+            sub = [msgs[i] for i in idxs]
+            t0 = time.perf_counter()
+            if len(idxs) >= self._device_cut(bb):
+                with torch.cuda.stream(self._stream):
+                    finish = osha.sha256_many_async(sub, bb,
+                                                    device=self.device)
+                finishes.append((finish, idxs, bb, time.perf_counter() - t0))
+                self.device_lanes += len(idxs)
+                continue
+            for i, m in zip(idxs, sub):
+                out[i] = hashlib.sha256(m).digest()
+            self.crossover.note_host(bb, len(idxs), time.perf_counter() - t0)
+            self.host_lanes += len(idxs)
+        if finishes:
+            self.device_windows += 1
+            return _Inflight(finishes, out, staged)
+        self._resolve(staged, out)
+        return None
+
+    def _finish(self, fl: _Inflight) -> None:
+        """Read back a window's device buckets and resolve its tickets."""
+        for finish, idxs, bb, prep in fl.finishes:
+            t0 = time.perf_counter()
+            digests = finish()
+            self.crossover.note_device(bb, len(idxs),
+                                       prep + time.perf_counter() - t0)
+            for j, i in enumerate(idxs):
+                fl.out[i] = digests[j]
+        self._resolve(fl.staged, fl.out)
+
+    @staticmethod
+    def _resolve(staged, out) -> None:
+        for ticket, lo in staged:
+            ticket.resolve(out[lo : lo + ticket.n])
+
+    # -- the readback drain ------------------------------------------------
+
+    def _hand_to_drain(self, fl: _Inflight) -> None:
+        with self._rb_mtx:
+            handed = self._rb_alive and not self._rb_closed
+            if handed:
+                self._readback.append(fl)
+                self._rb_cv.notify_all()
+                while (self._rb_alive and not self._rb_closed
+                       and not self._draining
+                       and len(self._readback) + self._rb_busy
+                       >= self.max_inflight):
+                    self._rb_cv.wait(0.2)
+        if not handed:
+            self._finish_or_fail(fl)
+
+    def _close_readback(self) -> None:
+        with self._rb_mtx:
+            self._rb_closed = True
+            self._rb_cv.notify_all()
+
+    def _drain_run(self) -> None:
+        """Read back dispatched windows in submission order."""
+        try:
+            while True:
+                with self._rb_mtx:
+                    while not self._readback and not self._rb_closed:
+                        self._rb_cv.wait(0.2)
+                    if not self._readback:
+                        return
+                    fl = self._readback.popleft()
+                    self._rb_busy += 1
+                try:
+                    self._finish_or_fail(fl)
+                finally:
+                    with self._rb_mtx:
+                        self._rb_busy -= 1
+                        self._rb_cv.notify_all()
+        finally:
+            with self._rb_mtx:
+                self._rb_alive = False
+                self._rb_cv.notify_all()
+
+    def _finish_or_fail(self, fl: _Inflight) -> None:
+        try:
+            self._finish(fl)
+        except Exception as e:  # a readback fault: its window fails
+            for ticket, _ in fl.staged:
+                ticket.fail(e)
+
+
+# -- process-wide routing switch ------------------------------------------
+
+_ACTIVE: list[HashCoalescer] = []
+_ACTIVE_LOCK = threading.Lock()
+
+
+def push_active(co: HashCoalescer) -> None:
+    """Install ``co`` as the process-wide routed hash plane."""
+    with _ACTIVE_LOCK:
+        _ACTIVE.append(co)
+
+
+def pop_active(co: HashCoalescer) -> None:
+    with _ACTIVE_LOCK:
+        for i in range(len(_ACTIVE) - 1, -1, -1):
+            if _ACTIVE[i] is co:
+                del _ACTIVE[i]
+                return
+
+
+def active() -> HashCoalescer | None:
+    """The routed plane, or None when hashing is unrouted."""
+    with _ACTIVE_LOCK:
+        planes = tuple(_ACTIVE)
+    for co in reversed(planes):
+        if co.routable():
+            return co
+    return None
+
+
+def configured_mode() -> str:
+    """COMETBFT_TPU_HASH: "auto" (the default), "on" ("1", "on", "true",
+    "yes") or "off" ("0", "off", "false", "no")."""
+    v = os.environ.get("COMETBFT_TPU_HASH", "auto").lower()
+    if v in ("1", "on", "true", "yes"):
+        return "on"
+    if v in ("0", "off", "false", "no"):
+        return "off"
+    return "auto"
+
+
+def prewarm() -> bool:
+    """Push one tiny window through the routed plane, so its kernel and
+    buffers are resident before the next height needs them. True when a
+    window ran, False when hashing is unrouted; a fault raises."""
+    co = active()
+    if co is None:
+        return False
+    co.submit([b"\x00" * 64] * 4).result(_RESULT_TIMEOUT_S)
+    return True
+
+
+def hash_bytes(bz: bytes) -> bytes:
+    """Single-message SHA-256 (``tmhash.sum``), queued on the routed plane
+    from :data:`_SUM_ROUTE_MIN_BYTES` up; hashlib when unrouted or below."""
+    if len(bz) >= _SUM_ROUTE_MIN_BYTES:
+        co = active()
+        if co is not None:
+            return co.try_hash_many([bz])[0]
+    return hashlib.sha256(bz).digest()
+
+
+def hash_many(msgs) -> list[bytes]:
+    """Batch SHA-256 over independent messages: on the routed plane when
+    the batch can win there (``batch_worth_routing``), else hashlib."""
+    if msgs:
+        co = active()
+        if co is not None:
+            if co.batch_worth_routing(msgs):
+                return co.try_hash_many(msgs)
+            co.note_inline(len(msgs))
+    return [hashlib.sha256(bytes(m)).digest() for m in msgs]

@@ -86,10 +86,11 @@ def _build(source: Path) -> Path:
     return out
 
 
-def load_all() -> dict[str, ctypes.CDLL]:
-    """Every ``csrc/<name>.cu`` built (one nvcc each, all started
-    together) and loaded, by name."""
-    sources = sorted(CSRC.glob("*.cu"))
+def load_all(names=None) -> dict[str, ctypes.CDLL]:
+    """Every ``csrc/<name>.cu``, or only the sources ``names`` lists,
+    built (one nvcc each, all started together) and loaded, by stem."""
+    sources = (sorted(CSRC.glob("*.cu")) if names is None
+               else [CSRC / name for name in names])
     with _lock:
         missing = [s for s in sources if s.stem not in _loaded]
         if missing:

@@ -1,4 +1,5 @@
-"""Header, Commit, CommitSig, BlockID, PartSetHeader (types/block.go).
+"""Block, Data, Header, Commit, CommitSig, BlockID, PartSetHeader
+(types/block.go).
 
 Header.hash is the RFC-6962 merkle root of the proto-encoded fields
 (types/block.go:439-474), scalar fields wrapped in gogotypes value
@@ -7,14 +8,20 @@ google.protobuf.Timestamp.
 
 Time is integer nanoseconds since the Unix epoch throughout (Go's
 time.Time has ns precision; Python datetime does not).
+
+Data.hash pre-hashes its txs in one batch and takes the merkle root of the
+32-byte keys; both, and every other merkle root here, go through the hash
+plane when one is routed (crypto/hashplane.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
 
-from ..crypto import merkle, tmhash
+from ..crypto import hashplane, merkle, tmhash
 from . import canonical, proto
+
+BLOCK_PART_SIZE_BYTES = 65536  # types/part_set.go part size
 
 # BlockIDFlag (types/block.go:574-583)
 BLOCK_ID_FLAG_ABSENT = 1
@@ -50,6 +57,13 @@ class BlockID:
     def is_nil(self) -> bool:
         return not self.hash and self.part_set_header.is_zero()
 
+    def is_complete(self) -> bool:
+        return (
+            len(self.hash) == tmhash.SIZE
+            and self.part_set_header.total > 0
+            and len(self.part_set_header.hash) == tmhash.SIZE
+        )
+
     def encode(self) -> bytes:
         """BlockID proto body; part_set_header is nullable=false."""
         return proto.field_bytes(1, self.hash) + proto.field_message(
@@ -60,6 +74,11 @@ class BlockID:
         if self.hash and len(self.hash) != tmhash.SIZE:
             raise ValueError("block-id hash must be 32 bytes")
         self.part_set_header.validate_basic()
+
+    def key(self) -> bytes:
+        return self.hash + self.part_set_header.hash + bytes(
+            [self.part_set_header.total & 0xFF]
+        )
 
 
 NIL_BLOCK_ID = BlockID()
@@ -246,3 +265,69 @@ class Commit:
                 raise ValueError("no signatures in commit")
             for cs in self.signatures:
                 cs.validate_basic()
+
+
+@dataclass(slots=True)
+class Data:
+    """Block transactions; the hash is the merkle root of the tx hashes."""
+
+    txs: list[bytes] = dc_field(default_factory=list)
+
+    def hash(self) -> bytes:
+        # the tx keys are one flat batch (the hash plane's best shape); the
+        # merkle levels over them route level by level
+        return merkle.hash_from_byte_slices(hashplane.hash_many(self.txs))
+
+
+@dataclass(slots=True)
+class Block:
+    """Header, txs, evidence and the previous block's commit."""
+
+    header: Header
+    data: Data
+    evidence: list = dc_field(default_factory=list)
+    last_commit: Commit | None = None
+
+    def hash(self) -> bytes | None:
+        return self.header.hash()
+
+    def validate_basic(self) -> None:
+        from .evidence import evidence_list_hash
+
+        self.header.validate_basic()
+        if self.header.height > 1:
+            if self.last_commit is None:
+                raise ValueError("block above height 1 needs last commit")
+            self.last_commit.validate_basic()
+            if self.header.last_commit_hash != self.last_commit.hash():
+                raise ValueError("last commit hash mismatch")
+        if self.header.data_hash != self.data.hash():
+            raise ValueError("data hash mismatch")
+        for ev in self.evidence:
+            ev.validate_basic()
+        # the evidence section against the committed header hash
+        # (types/block.go:98)
+        if self.header.evidence_hash != evidence_list_hash(self.evidence):
+            raise ValueError("evidence hash mismatch")
+
+
+def make_block(height: int, txs: list[bytes], last_commit: Commit | None,
+               evidence: list, header_fields: dict) -> Block:
+    """Assemble a block and fill its derived hashes (types/block.go
+    MakeBlock + fillHeader)."""
+    from .evidence import evidence_list_hash
+
+    data = Data(txs=list(txs))
+    header = Header(
+        height=height,
+        data_hash=data.hash(),
+        last_commit_hash=(
+            last_commit.hash()
+            if last_commit is not None
+            else merkle.hash_from_byte_slices([])
+        ),
+        evidence_hash=evidence_list_hash(evidence),
+        **header_fields,
+    )
+    return Block(header=header, data=data, evidence=evidence,
+                 last_commit=last_commit)

@@ -5,11 +5,13 @@
   the port itself).
 * Entry points default to the GPU and raise without one: they never run
   on the CPU unless asked.
-* On CPU tensors the kernel wrappers take the plain path and leave their
-  launch counters at 0; on bad inputs they raise.
+* On CPU tensors the kernel wrappers (and the hash plane on the CPU) take
+  the plain path and leave their launch counters at 0; on bad inputs they
+  raise.
 """
 
 import ast
+import hashlib
 from pathlib import Path
 
 import numpy as np
@@ -18,8 +20,10 @@ import torch
 
 from cometbft_tpu_torch import light as tlight
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
+from cometbft_tpu_torch.crypto import hashplane
 from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
-from cometbft_tpu_torch.ops import cuda_verify
+from cometbft_tpu_torch.ops import cuda_sha256, cuda_verify
+from cometbft_tpu_torch.ops import sha256 as tsha
 from cometbft_tpu_torch.ops import verify as tverify
 from cometbft_tpu_torch.types import block as tblock
 from cometbft_tpu_torch.types import validation as tvalidation
@@ -98,6 +102,10 @@ def test_default_device_raises_without_cuda():
         tverify.verify_batch(pks, msgs, sigs, flavor="8")
     with pytest.raises(RuntimeError, match="CUDA"):
         tverify.verify_bytes_async(buf, 1, flavor="8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsha.sha256_many_async([b"default-device probe"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hashplane.HashCoalescer()
 
 
 def _light_block(n_vals=2):
@@ -192,6 +200,42 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
         "verify_kernel8_cached": 0,
     }
     assert not any(cuda_verify.LAUNCH_LANES.values())
+
+
+def test_cpu_hash_path_runs_plain_and_counts_nothing():
+    """sha256_many_async and a HashCoalescer on the CPU run X4's plain
+    version: right digests, no launch, no transfer counted."""
+    cuda_sha256.reset_launches()
+    msgs = [b"", b"a" * 55, b"b" * 56, b"c" * 1500]
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    assert tsha.sha256_many_async(msgs, device="cpu")() == want
+    co = hashplane.HashCoalescer(device="cpu", min_device_lanes=1)
+    co.start()
+    try:
+        assert co.submit(msgs).result(timeout=30) == want
+        assert co.device_windows == 1 and co.device_lanes == len(msgs)
+    finally:
+        co.stop()
+    assert cuda_sha256.LAUNCHES == {"sha256": 0}
+    assert not cuda_sha256.LAUNCH_SHAPES["sha256"]
+    assert cuda_sha256.TRANSFERS == {"h2d_bytes": 0, "d2h_bytes": 0}
+
+
+def test_sha256_wrapper_rejects_bad_inputs():
+    blocks = torch.zeros((2, 16, 8), dtype=torch.uint32)
+    counts = torch.zeros(8, dtype=torch.uint16)
+    with pytest.raises(TypeError, match="blocks: dtype"):
+        cuda_sha256.sha256(blocks.to(torch.int64), counts)
+    with pytest.raises(ValueError, match="blocks: shape"):
+        cuda_sha256.sha256(blocks[:, :8], counts)
+    with pytest.raises(TypeError, match="nblocks: dtype"):
+        cuda_sha256.sha256(blocks, counts.to(torch.int32))
+    with pytest.raises(ValueError, match="nblocks: shape"):
+        cuda_sha256.sha256(blocks, counts[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_sha256.sha256(blocks.transpose(0, 1).contiguous()
+                           .transpose(0, 1), counts)
+    assert cuda_sha256.LAUNCHES["sha256"] == 0
 
 
 def test_wrappers_reject_bad_inputs():

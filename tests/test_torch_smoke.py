@@ -1,4 +1,5 @@
-"""chip_smoke.py's own copy of the ZIP-215 conformance corpus.
+"""chip_smoke.py's own copy of the ZIP-215 conformance corpus, and the
+shapes its X4 check compares.
 
 The smoke script may import neither tests/ nor cometbft_tpu, so it builds
 the ZIP-215 equivalence classes itself with the port's ed25519_ref and
@@ -9,6 +10,8 @@ tests/test_zip215_conformance.py::build_corpus, vector for vector.
 import importlib.util
 from pathlib import Path
 
+from cometbft_tpu_torch.crypto import hashplane
+from cometbft_tpu_torch.ops import sha256
 from test_zip215_conformance import build_corpus
 
 
@@ -26,3 +29,27 @@ def test_smoke_corpus_equals_the_conformance_corpus():
     assert [v[0] for v in ours] == [v[0] for v in theirs]
     assert ours == theirs
     assert sum(v[4] for v in ours) == 25  # accepted vectors
+
+
+def test_x4_check_covers_every_shape_the_hash_path_launches():
+    """The X4 check compares each shape once: the padding edges, the fuzz
+    and every (block bucket, lane bucket) of X4_PATH_SHAPES. Those cover
+    the hash path: merkle leaves of 32-byte keys (1 block) and inner nodes
+    (2), the 2,048-byte tx keys (64), in windows of at most 2,048 lanes;
+    the 336 part leaves and gossip windows of up to 8 leaves (2,048)."""
+    cs = _chip_smoke()
+    txs, data = cs.make_hash_block()
+    leaves = [b"\x00" + data[i : i + 65536] for i in range(0, len(data), 65536)]
+    assert len(txs) == 10_752 and len(leaves) == 336
+    shapes = []
+    for msgs in cs._x4_inputs(leaves, txs):
+        blocks, _ = sha256.pack_messages(msgs)
+        shapes.append((blocks.shape[0], blocks.shape[2]))
+    assert len(set(shapes)) == len(shapes) == len(cs.X4_PATH_SHAPES) + 2
+    assert set(cs.X4_PATH_SHAPES) <= set(shapes)
+    bucket = [sha256.block_bucket(sha256.n_blocks(n))
+              for n in (1 + 32, 1 + 64, cs.TX_BYTES, 1 + 65536)]
+    assert bucket == [1, 2, 64, 2048]
+    assert cs.X4_LANE_BUCKETS[-1] == hashplane._DEFAULT_MAX_LANES
+    assert sha256.lane_bucket(len(leaves)) == 512
+    assert sha256.lane_bucket(cs.INGRESS_THREADS) == 8
