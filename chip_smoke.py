@@ -29,7 +29,10 @@ each printing one JSON line:
              (kernels.ab).
 4. slice   — a seeded 10,000-validator ed25519 set with equal power signs a
              precommit Commit; verify_commit runs with the pubkey cache off
-             (K1), cold and warm with it on (X1, then K2), verify_commit_light
+             (COMETBFT_TPU_PUBKEY_CACHE=0: K1), then prestage_validators
+             warms the card's process-wide cache (X1) and a default-argument
+             verify_commit must run K2 and neither X1 nor K1; then with a
+             cache of its own cold and warm (X1, then K2), verify_commit_light
              runs warm, and a tampered signature must raise naming its index.
              Every kernel's launch counter must rise in this phase. Then one
              warm call's steps are timed on their own (slice.breakdown), and
@@ -43,7 +46,8 @@ each printing one JSON line:
              1010 cannot be trusted (none of 1000's validators signed), the
              pivot 1009 passes verify_non_adjacent, 1009 -> 1010 passes
              verify_adjacent. The replay runs with the pubkey cache on (X1,
-             K4), off (K3), on the slice phase's cache (whose 10,000 other
+             K4), off (COMETBFT_TPU_PUBKEY_CACHE=0: K3), on the slice
+             phase's cache (whose 10,000 other
              keys make the arena evict), and with a tampered signature in
              1010's commit, which must fail 1009 -> 1010. K3, K4 and X1 must
              each launch in this phase, K1 and K2 not at all.
@@ -54,20 +58,28 @@ each printing one JSON line:
              against its plain version on the card at the padding edges, a
              0-700 B fuzz and every (block bucket, lane bucket) the path can
              launch (buckets 1, 2 and 64 at every lane bucket 8-2,048; the
-             336 part leaves at 2,048 x 512; gossip windows at 2,048 x 8),
-             then timed at the part leaves and at a full tx-key window
-             beside the bound, and the leaf wire's pack and h2d. Then the
-             path, each step unrouted (hashlib) and then with a fresh
-             HashCoalescer(device="cuda") pushed, results equal:
+             336 part leaves at 2,048 x 512; gossip windows at 2,048 x 8);
+             its SASS counted (cuobjdump), the SM clock and the dependent
+             latency and issue rates of integer instructions read with
+             clock64() (csrc/probes/clock_chain.cu), one warp of part
+             leaves timed for the cycles a compression; then timed at the
+             part leaves, a gossip window and a full tx-key window beside
+             the throughput bound and the chain bound, and the leaf wire's
+             pack and h2d. Then the path, each step unrouted (hashlib) and
+             then with a fresh HashCoalescer(device="cuda") pushed (every
+             plane shares the card's process-wide cuts, so a step's plane
+             starts from what the earlier ones calibrated), results equal:
              make_block (Data.hash: tx keys and merkle levels; the slice
              commit's hash), PartSet.from_data, gossip ingress (a fresh
              PartSet takes the 336 parts through add_part from 8 threads;
              assemble() gives the bytes back; a part with a flipped byte
              raises PartSetError), and the slice phase's ValidatorSet.hash.
-             Each step prints its windows on the card and on the host. X4
+             Each step prints its windows on the card and on the host, its
+             X4 launches by shape and the cuts at its start and end. X4
              must launch, only at shapes the check compared, and a routed
-             from_data on a warm plane runs under torch.profiler, in a
-             process of its own, for the card's idle share.
+             from_data and a routed ingress on a warm plane each run under
+             torch.profiler, in a process of its own, for the card's idle
+             share.
 
 In the slice and light phases K1-K4 must run only at lane counts the
 kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3 checks).
@@ -77,15 +89,20 @@ line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits nonzero and prints no last line. Without CUDA it exits 2.
 """
 
+import collections
+import contextlib
+import ctypes
 import dataclasses
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 from multiprocessing import get_context
+from pathlib import Path
 
 CHAIN_ID = "chip-smoke-chain"
 HEIGHT = 1000
@@ -651,7 +668,22 @@ def make_commit(pool):
     return vals, block_id, commit
 
 
+@contextlib.contextmanager
+def env(name: str, value: str):
+    """``name`` set to ``value`` inside the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
 def phase_slice(torch, pool, card):
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
     from cometbft_tpu_torch.ops import cuda_verify
     from cometbft_tpu_torch.ops import verify as ov
     from cometbft_tpu_torch.types import block, validation
@@ -669,51 +701,79 @@ def phase_slice(torch, pool, card):
     bad.signatures[TAMPERED] = block.CommitSig(
         cs.block_id_flag, cs.validator_address, cs.timestamp_ns, sig)
 
+    # (name, mode, fn, pubkey_cache, commit, COMETBFT_TPU_PUBKEY_CACHE):
+    # the cache-off call turns the process-wide cache off; the default one
+    # calls verify_commit with default arguments (the card, its
+    # process-wide cache, the flavor COMETBFT_TPU_KERNEL names) right after
+    # prestage_validators warmed that cache; the rest pass a cache
     calls = [
-        ("verify_commit", "cache off", validation.verify_commit, None, commit),
+        ("verify_commit", "cache off", validation.verify_commit, None, commit,
+         "0"),
+        ("prestage_validators", "process-wide cache", None, None, None, "1"),
+        ("verify_commit", "default arguments, prestaged", None, None, commit,
+         "1"),
         ("verify_commit", "cache cold", validation.verify_commit, cache,
-         commit),
+         commit, "1"),
         ("verify_commit", "cache warm", validation.verify_commit, cache,
-         commit),
+         commit, "1"),
         ("verify_commit", "cache warm", validation.verify_commit, cache,
-         commit),
+         commit, "1"),
         ("verify_commit_light", "cache warm", validation.verify_commit_light,
-         cache, commit),
+         cache, commit, "1"),
         ("verify_commit", "tampered, cache warm", validation.verify_commit,
-         cache, bad),
+         cache, bad, "1"),
     ]
     torch.cuda.synchronize()
     cuda_verify.reset_launches()  # the main path starts here
     per_call = []
-    for fn_name, mode, fn, pubkey_cache, c in calls:
+    for fn_name, mode, fn, pubkey_cache, c, cache_env in calls:
         before = dict(cuda_verify.LAUNCHES)
         t = time.perf_counter()
         error = None
-        try:
-            fn(CHAIN_ID, vals, block_id, HEIGHT, c, device="cuda",
-               pubkey_cache=pubkey_cache, flavor="4")
-        except validation.VerificationError as e:
-            error = str(e)
+        with env("COMETBFT_TPU_PUBKEY_CACHE", cache_env):
+            try:
+                if fn_name == "prestage_validators":
+                    with env("COMETBFT_TPU_PRESTAGE", "auto"):
+                        built = crypto_batch.prestage_validators(vals)
+                    check(built >= 1, f"prestage_validators built {built}")
+                elif fn is None:
+                    with env("COMETBFT_TPU_KERNEL", "auto"):  # its default
+                        validation.verify_commit(CHAIN_ID, vals, block_id,
+                                                 HEIGHT, c)
+                else:
+                    fn(CHAIN_ID, vals, block_id, HEIGHT, c, device="cuda",
+                       pubkey_cache=pubkey_cache, flavor="4")
+            except validation.VerificationError as e:
+                error = str(e)
         seconds = time.perf_counter() - t
         if c is bad:
             check(error is not None and f"(#{TAMPERED})" in error,
                   f"tampered commit: {error!r}")
         else:
             check(error is None, f"{fn_name} ({mode}) rejected: {error}")
-        sigs = len(c.signatures) if fn_name == "verify_commit" else (
-            2 * len(c.signatures) // 3 + 1)
         launches = {k: v - before[k] for k, v in cuda_verify.LAUNCHES.items()}
         per_call.append(launches)
-        emit({"phase": "slice.call", "call": fn_name, "mode": mode,
-              "ms": 1e3 * seconds, "sigs_per_s": sigs / seconds,
-              "signatures": sigs, "launches": launches, "error": error,
-              "card": card})
+        line = {"phase": "slice.call", "call": fn_name, "mode": mode,
+                "ms": 1e3 * seconds, "launches": launches, "error": error,
+                "pubkey_cache_env": cache_env, "card": card}
+        if c is not None:
+            sigs = len(c.signatures) if fn_name == "verify_commit" else (
+                2 * len(c.signatures) // 3 + 1)
+            line.update(sigs_per_s=sigs / seconds, signatures=sigs)
+        emit(line)
     launches = dict(cuda_verify.LAUNCHES)  # read just after the main path
     lanes = check_lanes(cuda_verify, "slice")
-    check(per_call[0]["verify_kernel"] >= 1, "cache-off call launched no K1")
-    check(per_call[1]["build_pubkey_tables"] >= 1, "cold call built nothing")
+    check(per_call[0]["verify_kernel"] >= 1
+          and per_call[0]["verify_kernel_cached"] == 0,
+          "cache-off call did not run K1")
+    check(per_call[1]["build_pubkey_tables"] >= 1, "prestaging built nothing")
     check(per_call[2]["verify_kernel_cached"] >= 1
-          and per_call[2]["build_pubkey_tables"] == 0,
+          and per_call[2]["build_pubkey_tables"] == 0
+          and per_call[2]["verify_kernel"] == 0,
+          f"the default route did not run K2 alone: {per_call[2]}")
+    check(per_call[3]["build_pubkey_tables"] >= 1, "cold call built nothing")
+    check(per_call[4]["verify_kernel_cached"] >= 1
+          and per_call[4]["build_pubkey_tables"] == 0,
           "warm call did not run K2 alone")
     for name in SLICE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched on the main path")
@@ -953,7 +1013,9 @@ def phase_light(torch, pool, card, slice_cache):
     for mode, cache in (("cache on", fresh), ("cache off", None),
                         ("cache shared with the slice phase", slice_cache)):
         evictions0 = cache.evictions if cache is not None else 0
-        trace, fetched, calls, error = replay(mode, blocks, cache)
+        # off: no cache given and the process-wide one turned off
+        with env("COMETBFT_TPU_PUBKEY_CACHE", "1" if cache else "0"):
+            trace, fetched, calls, error = replay(mode, blocks, cache)
         check(error is None, f"{mode}: replay failed: {error}")
         check(trace == [1000, 1009, 1010], f"{mode}: trace {trace}")
         check(fetched == [1000, 1010, 1009], f"{mode}: fetched {fetched}")
@@ -1032,6 +1094,214 @@ def x4_bound(ops: int, shift_logic: int, nbytes: int):
                        ops / PEAK_OPS_PER_S)
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+# ------------------------------------------------------------------ SASS
+
+# SHA-256's rotation and shift amounts: the message schedule's (sigma0,
+# sigma1) and the rounds' (Sigma0, Sigma1) are disjoint, so a funnel shift
+# in the SASS names its side by its amount
+_SCHEDULE_ROT, _SCHEDULE_SHR = {7, 18, 17, 19}, {3, 10}
+_ROUND_ROT = {2, 13, 22, 6, 11, 25}
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+
+
+def _shift_side(opcode: str, operands: str) -> str:
+    """"schedule", "round" or "other" for one SHF: a funnel shift of a
+    register with itself is a rotation (right by its amount, or left,
+    i.e. right by 32 less it; with a constant amount below 32 the wrap and
+    clamp forms agree), one with RZ a plain shift. An operand's ".reuse"
+    (a register-reuse cache flag) is not part of the register."""
+    ops = [o.strip().removesuffix(".reuse") for o in operands.split(",")]
+    if len(ops) != 4 or not ops[2].startswith("0x"):
+        return "other"
+    n = int(ops[2], 16)
+    if ops[1] == ops[3]:
+        rot = n if ".R" in opcode else 32 - n
+        return ("schedule" if rot in _SCHEDULE_ROT
+                else "round" if rot in _ROUND_ROT else "other")
+    if ops[1] == "RZ" and ".R" in opcode and n in _SCHEDULE_SHR:
+        return "schedule"
+    return "other"
+
+
+def _sass_summary(instrs):
+    """Counts over [(addr, opcode, operands)]: instructions (NOPs left
+    out), by opcode, SHFs by side, constant-bank-3 operands (the
+    __constant__ round constants), loads and stores, barriers."""
+    real = [(a, op, o) for a, op, o in instrs if op != "NOP"]
+    by_op = collections.Counter(op.split(".")[0] for _, op, _ in real)
+    shifts = collections.Counter(_shift_side(op, o) for _, op, o in real
+                                 if op.startswith("SHF"))
+    return {"instructions": len(real),
+            "opcodes": dict(by_op.most_common()),
+            "shf_by_side": dict(shifts),
+            "shf_other_sample": [
+                f"{op} {o.strip()}" for _, op, o in real
+                if op.startswith("SHF") and _shift_side(op, o) == "other"][:4],
+            "const_bank3_operands": sum("c[0x3]" in o for _, _, o in real),
+            "ldg": by_op["LDG"], "lds": by_op["LDS"], "sts": by_op["STS"],
+            "bar": by_op["BAR"]}
+
+
+def sass_report(lib_path, name_part: str) -> dict:
+    """``cuobjdump -sass`` of a built library: for each function whose
+    name holds ``name_part``, _sass_summary of the whole function and of
+    each loop (a backward branch: from its target to the branch)."""
+    from cometbft_tpu_torch.ops import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, name, instrs, labels, pending = {}, None, [], {}, []
+    for line in text.splitlines() + ["Function : <end>"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name is not None and name_part in name:
+                funcs[name] = (instrs, labels)
+            name, instrs, labels, pending = m.group(1), [], {}, []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_LINE.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            instrs.append((addr, m.group(2), m.group(3)))
+    report = {}
+    for fname, (instrs, labels) in funcs.items():
+        loops = []
+        for addr, op, operands in instrs:
+            if not op.startswith("BRA"):
+                continue
+            m = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", operands)
+            target = (labels.get(m.group(1)) if m and m.group(1)
+                      else int(m.group(2), 16) if m else None)
+            if target is not None and target < addr:
+                body = [i for i in instrs if target <= i[0] <= addr]
+                loops.append({"from": target, "to": addr,
+                              **_sass_summary(body)})
+        report[fname] = {**_sass_summary(instrs), "loops": loops}
+    return report
+
+
+# clock_chain.cu's modes: the latency chain (adds, IMAD adds), then the
+# rate of one instruction in eight independent chains
+CLOCK_MODES = ("latency", "latency_imad_adds", "rate_shf", "rate_lop3",
+               "rate_iadd3", "rate_imad")
+
+
+def clock_probe(torch):
+    """The SM clock and what one warp's integer instructions cost, from
+    csrc/probes/clock_chain.cu, its cycles read with clock64() and each
+    launch timed with CUDA events (the median of RUNS after a warm-up):
+    "latency_cycles", the dependent-issue latency of a chain of funnel
+    shifts, LOP3s and adds (and with IMAD adds), and "issue_cycles", the
+    cycles one warp takes a SHF, LOP3, IADD3 or IMAD when eight chains of
+    it run side by side. Also the probe's SASS, so each mode's
+    instructions can be checked."""
+    from cometbft_tpu_torch.ops import build
+
+    lib = build.load_all(["probes/clock_chain.cu"])["clock_chain"]
+    run = lib.clock_chain_run
+    run.argtypes = [ctypes.c_uint32] * 3 + [ctypes.c_int, ctypes.c_int] + [
+        ctypes.c_void_p] * 3
+    run.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+    out = torch.empty(32, dtype=torch.int32, device=dev)
+    cycles = torch.empty(1, dtype=torch.int64, device=dev)
+    turns = 20_000
+    per, ghz = {}, []
+    for mode, name in enumerate(CLOCK_MODES):
+        samples = []
+        for _ in range(RUNS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            start.record()
+            check(run(0x6A09E667, 0x3C6EF372, 0x510E527F, turns, mode,
+                      out.data_ptr(), cycles.data_ptr(), stream) == 0,
+                  "clock_chain launch")
+            end.record()
+            end.synchronize()
+            samples.append((int(cycles.item()), start.elapsed_time(end)))
+        samples = samples[1:]  # the first warms up
+        instrs = turns * lib.clock_chain_steps(mode)
+        per[name] = statistics.median(c for c, _ in samples) / instrs
+        ghz.append(statistics.median(c / t / 1e6 for c, t in samples))
+    so = build.BUILD_INFO["clock_chain.cu"]["path"]
+    return {"latency_cycles": per["latency"],
+            "latency_cycles_imad_adds": per["latency_imad_adds"],
+            "issue_cycles": {k[5:]: v for k, v in per.items()
+                             if k.startswith("rate_")},
+            "clock_ghz": statistics.median(ghz),
+            "sass": sass_report(so, "clock_")}
+
+
+def x4_sass_counts(lib_path) -> dict:
+    """X4's SASS, its uint16-count instantiation: the kernel's
+    instructions and each loop that holds SHA-256's funnel shifts, with
+    its role by the side of those shifts (the schedule's, the rounds' or
+    both), its instructions and, for a loop of rounds, those over 64 (a
+    round's share of one compression)."""
+    report = sass_report(lib_path, "x4_sha256")
+    name = next(n for n in report if "x4_sha256It" in n)
+    loops = []
+    for loop in report[name]["loops"]:
+        sides = loop["shf_by_side"]
+        rounds, sched = sides.get("round", 0), sides.get("schedule", 0)
+        if not (rounds or sched):
+            continue
+        role = ("rounds and schedule" if rounds and sched
+                else "rounds" if rounds else "schedule")
+        row = {"role": role, **{k: loop[k] for k in (
+            "instructions", "shf_by_side", "shf_other_sample",
+            "const_bank3_operands", "ldg", "lds", "sts", "bar",
+            "opcodes")}}
+        if rounds:
+            row["per_round"] = loop["instructions"] / 64
+        loops.append(row)
+    return {"function": name,
+            "instructions": report[name]["instructions"], "loops": loops}
+
+
+def x4_one_warp(torch, fn, leaves, clock_ghz, check_digests=True):
+    """One warp's worth of part leaves (32 lanes of 1,025 blocks, so one
+    warp of a one-thread-a-lane kernel, one warp pair of a specialised
+    one) through ``fn(blocks, nblocks)``, timed with CUDA events: its ms
+    and, at the SM clock clock_probe read in the same run, the cycles a
+    compression takes on one lane's chain."""
+    from cometbft_tpu_torch.ops import sha256 as osha
+
+    dev = torch.device("cuda", 0)
+    blocks, nblocks = osha.pack_messages(leaves[:32])
+    b, nb = (torch.from_numpy(x).to(dev) for x in (blocks, nblocks))
+    ms, state = time_ms(torch, lambda: fn(b, nb), KERNEL_REPS)
+    got = osha._digests_from_state(state.cpu().numpy(), 32)
+    check(not check_digests
+          or got == [hashlib.sha256(m).digest() for m in leaves[:32]],
+          "X4 one-warp launch != hashlib")
+    compressions = int(nblocks.max())
+    return {"lanes": 32, "compressions": compressions, "ms": ms,
+            "cycles_per_compression":
+                ms * clock_ghz * 1e6 / compressions}
+
+
+def x4_chain_bound_ms(nblocks, bucket: int, probe) -> float:
+    """The least time SHA-256's serial chain allows a launch: its largest
+    count (clamped to the bucket) x 64 rounds x 3 dependent integer
+    instructions (a funnel shift, a LOP3, an add) x their dependent-issue
+    latency, over the SM clock (clock_probe)."""
+    from cometbft_tpu_torch.ops import cuda_sha256
+
+    longest = int(cuda_sha256.as_int64(nblocks).clamp(max=bucket).max())
+    cycles = longest * 64 * 3 * probe["latency_cycles"]
+    return cycles / (probe["clock_ghz"] * 1e6)
 
 
 def _x4_inputs(leaves, txs):
@@ -1130,8 +1400,22 @@ def check_x4(torch, leaves, txs, card):
           "lanes": lanes, "mismatches": int((diff != 0).sum())})
     check(not bool(diff.any()), "X4 read a block past its bucket")
 
+    # what one warp issues (SASS) and how fast the chain goes: the SM
+    # clock and an integer instruction's dependent-issue latency
+    # (clock_probe), X4's cycles a compression on one warp of part leaves
+    from cometbft_tpu_torch.ops import build
+
+    sass = x4_sass_counts(build.BUILD_INFO["sha256.cu"]["path"])
+    probe = clock_probe(torch)
+    one_warp = x4_one_warp(torch, cuda_sha256.sha256, leaves,
+                           probe["clock_ghz"])
+    emit({"phase": "kernels.x4.sass", **sass})
+    emit({"phase": "kernels.x4.clock", "latency_cycles":
+          probe["latency_cycles"], "clock_ghz": probe["clock_ghz"],
+          "chain_sass": probe["sass"], "one_warp": one_warp, "card": card})
     timed = {}
     for name, shape in (("part_leaves", (2048, 512)),
+                        ("gossip_window", (2048, 8)),
                         ("tx_key_window", (64, 2048))):
         w = wires[shape]
         b, nb = w["dev"]
@@ -1140,11 +1424,14 @@ def check_x4(torch, leaves, txs, card):
         check(torch.equal(out.view(torch.int32), w["state"].view(torch.int32)),
               f"X4 {name}: timed output changed")
         bound_ms, bound_by = x4_bound(*cuda_sha256.work(nb, shape[0]))
+        chain_ms = x4_chain_bound_ms(nb, shape[0], probe)
         timed[name] = {"block_bucket": shape[0], "lane_bucket": shape[1],
                        "lanes": w["lanes"], "real_blocks":
                        int(cuda_sha256.as_int64(nb).sum()), "ms": ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "bound_share": bound_ms / ms}
+                       "bound_share": bound_ms / ms,
+                       "chain_bound_ms": chain_ms,
+                       "chain_bound_share": chain_ms / ms}
         emit({"phase": "kernels.x4.time", "shape": name, **timed[name],
               "card": card})
     # the part leaves' wire, as from_data ships it: packed on the host,
@@ -1161,17 +1448,52 @@ def check_x4(torch, leaves, txs, card):
     return set(wires), {
         "ms": leaf["ms"], "plain_ms": plain_ms[2048],
         "bound_ms": leaf["bound_ms"], "bound_by": leaf["bound_by"],
-        "bound_share": leaf["bound_share"], "max_abs_err": err,
+        "bound_share": leaf["bound_share"],
+        "chain_bound_ms": leaf["chain_bound_ms"], "max_abs_err": err,
         "mismatches": mismatches, "ms_by_shape": {
-            k: {"ms": v["ms"], "bound_ms": v["bound_ms"]}
+            k: {"ms": v["ms"], "bound_ms": v["bound_ms"],
+                "chain_bound_ms": v["chain_bound_ms"]}
             for k, v in timed.items()},
+        "cycles_per_compression": one_warp["cycles_per_compression"],
+        "round_loop_per_round": next(
+            (lp["per_round"] for lp in sass["loops"] if "per_round" in lp),
+            None),
     }
 
 
-def _traced_routed_from_data():
-    """Worker: (host ms, card-busy ms, device events) of one
-    PartSet.from_data of the seeded block through a warm, pushed
-    HashCoalescer(device="cuda") under torch.profiler."""
+def _ingress(src):
+    """(assembled bytes, the tampered part's rejection) of a fresh part set
+    fed src's parts through add_part from INGRESS_THREADS threads at
+    once, as gossip peers hand them over."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cometbft_tpu_torch.types import part_set
+
+    fresh = part_set.PartSet(src.header)
+
+    def feed(k):
+        for i in range(k, src.header.total, INGRESS_THREADS):
+            check(fresh.add_part(src.get_part(i)), f"part {i} twice")
+
+    with ThreadPoolExecutor(INGRESS_THREADS) as pool:
+        list(pool.map(feed, range(INGRESS_THREADS)))
+    good = src.get_part(17)
+    bad = dataclasses.replace(good, bytes_=good.bytes_[:100] + bytes(
+        [good.bytes_[100] ^ 1]) + good.bytes_[101:])
+    try:
+        part_set.PartSet(src.header).add_part(bad)
+        rejected = None
+    except part_set.PartSetError as e:
+        rejected = str(e)
+    return fresh.assemble(), rejected
+
+
+def _traced_routed(step):
+    """Worker: one routed step of the seeded block ("part_set_from_data"
+    or "gossip_ingress") through a warm, pushed HashCoalescer(device=
+    "cuda") under torch.profiler: (host ms, card-busy ms, device events,
+    the plane's windows on the card and in all). The plane is warmed by
+    one routed from_data first, which also makes the ingress's parts."""
     import torch
 
     from cometbft_tpu_torch.crypto import hashplane
@@ -1182,8 +1504,12 @@ def _traced_routed_from_data():
     co.start()
     hashplane.push_active(co)
     try:
-        part_set.PartSet.from_data(data)
-        return device_busy_ms(torch, lambda: part_set.PartSet.from_data(data))
+        ps = part_set.PartSet.from_data(data)
+        fn = ((lambda: part_set.PartSet.from_data(data))
+              if step == "part_set_from_data" else (lambda: _ingress(ps)))
+        windows0, device0 = co.windows, co.device_windows
+        traced = device_busy_ms(torch, fn)
+        return (*traced, co.device_windows - device0, co.windows - windows0)
     finally:
         hashplane.pop_active(co)
         co.stop()
@@ -1194,9 +1520,9 @@ def phase_hash(torch, card, vals, commit):
     last commit's hash), PartSet.from_data, gossip ingress through
     add_part from INGRESS_THREADS threads, and ValidatorSet.hash, each
     unrouted (hashlib) and then with a fresh HashCoalescer(device="cuda")
-    pushed at its default knobs; routed results must equal unrouted."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    pushed at its default knobs; routed results must equal unrouted. The
+    planes share the card's process-wide cuts (hashplane.crossover): each
+    step's plane starts from what the earlier steps' planes calibrated."""
     from cometbft_tpu_torch.crypto import hashplane
     from cometbft_tpu_torch.ops import cuda_sha256, cuda_verify
     from cometbft_tpu_torch.types import block, part_set
@@ -1221,29 +1547,11 @@ def phase_hash(torch, card, vals, commit):
         last_results_hash=sha(b"results"),
         proposer_address=vals.get_proposer().address,
     )
-
-    def ingress(src):
-        """(assembled bytes, the tampered part's rejection) of a fresh
-        part set fed src's parts from INGRESS_THREADS threads at once."""
-        fresh = part_set.PartSet(src.header)
-
-        def feed(k):
-            for i in range(k, src.header.total, INGRESS_THREADS):
-                check(fresh.add_part(src.get_part(i)), f"part {i} twice")
-
-        with ThreadPoolExecutor(INGRESS_THREADS) as pool:
-            list(pool.map(feed, range(INGRESS_THREADS)))
-        good = src.get_part(17)
-        bad = dataclasses.replace(good, bytes_=good.bytes_[:100] + bytes(
-            [good.bytes_[100] ^ 1]) + good.bytes_[101:])
-        try:
-            part_set.PartSet(src.header).add_part(bad)
-            rejected = None
-        except part_set.PartSetError as e:
-            rejected = str(e)
-        return fresh.assemble(), rejected
-
     device_windows = 0
+    xo = hashplane.crossover("cuda")
+
+    def cuts():
+        return {bb: xo.threshold(bb) for bb in (1, 2, 64, 2048)}
 
     def step(name, fn, same):
         nonlocal device_windows
@@ -1254,7 +1562,9 @@ def phase_hash(torch, card, vals, commit):
         co.start()
         hashplane.push_active(co)
         launches0 = cuda_sha256.LAUNCHES["sha256"]
+        shapes0 = dict(cuda_sha256.LAUNCH_SHAPES["sha256"])
         h2d0 = cuda_sha256.TRANSFERS["h2d_bytes"]
+        cuts0 = cuts()
         try:
             t = time.perf_counter()
             routed = fn()
@@ -1264,6 +1574,9 @@ def phase_hash(torch, card, vals, commit):
             co.stop()
         check(same(unrouted, routed), f"hash {name}: routed != unrouted")
         device_windows += co.device_windows
+        by_shape = {f"{bb}x{lb}": n - shapes0.get((bb, lb), 0) for (bb, lb), n
+                    in sorted(cuda_sha256.LAUNCH_SHAPES["sha256"].items())
+                    if n != shapes0.get((bb, lb), 0)}
         emit({"phase": "hash.step", "step": name, "unrouted_ms": unrouted_ms,
               "routed_ms": routed_ms, "routed_equal": True,
               "windows": co.windows, "device_windows": co.device_windows,
@@ -1272,7 +1585,11 @@ def phase_hash(torch, card, vals, commit):
               "device_lanes": co.device_lanes, "host_lanes": co.host_lanes,
               "inline_lanes": co.inline_lanes,
               "launches": cuda_sha256.LAUNCHES["sha256"] - launches0,
+              "launches_by_shape": by_shape,
               "h2d_bytes": cuda_sha256.TRANSFERS["h2d_bytes"] - h2d0,
+              "crossover": "process-wide: this step's plane starts from the "
+                           "cuts the earlier steps' planes calibrated",
+              "cuts_by_block_bucket": {"start": cuts0, "end": cuts()},
               "card": card})
         return unrouted, routed
 
@@ -1289,36 +1606,42 @@ def phase_hash(torch, card, vals, commit):
         lambda a, b: (a.header == b.header and a.count == b.count
                       == len(leaves) and [p.proof for p in a.parts]
                       == [p.proof for p in b.parts]))
-    step("gossip_ingress", lambda: ingress(routed_ps),
+    step("gossip_ingress", lambda: _ingress(routed_ps),
          lambda a, b: a[0] == b[0] == data and a[1] == b[1]
          and "leaf hash mismatch" in b[1])
     step("validator_set_hash", vals.hash, lambda a, b: a == b)
     launches = cuda_sha256.LAUNCHES["sha256"]  # read just after the path
-    shapes = sorted(cuda_sha256.LAUNCH_SHAPES["sha256"])
+    shapes = dict(sorted(cuda_sha256.LAUNCH_SHAPES["sha256"].items()))
     check(launches > 0, "X4 was not launched on the hash path")
     check(device_windows > 0, "no hash window ran on the card")
     check(set(shapes) <= compared,
-          f"hash: X4 ran at {shapes}, compared at {sorted(compared)} only")
+          f"hash: X4 ran at {sorted(shapes)}, compared at "
+          f"{sorted(compared)} only")
     check(cuda_verify.LAUNCHES == verify0, "the hash path ran verify kernels")
-    emit({"phase": "hash", "launches": launches, "shapes": shapes,
+    emit({"phase": "hash", "launches": launches, "launches_by_shape": {
+              f"{bb}x{lb}": n for (bb, lb), n in shapes.items()},
           "device_windows": device_windows, "header": {
               "total": ps.header.total, "hash": ps.header.hash.hex()},
           "block_hash": blk.hash().hex()})
 
-    # the card's busy and idle share of one routed from_data, traced in a
-    # process of its own: after the X4 check, this process's profiler no
-    # longer sees the plane's threads' device work (it still sees the main
-    # thread's)
-    with get_context("spawn").Pool(1) as pool:
-        host_ms, busy_ms, events = pool.apply(_traced_routed_from_data)
-        pool.close()
-        pool.join()
-    check(events > 0, "the traced routed from_data ran nothing on the card")
-    emit({"phase": "hash.trace", "step": "part_set_from_data, routed, "
-          "warm, profiled", "host_ms": host_ms, "device_busy_ms": busy_ms,
-          "device_events": events,
-          "idle_share": 1 - busy_ms / host_ms if events else None,
-          "card": card})
+    # the card's busy and idle share of a routed from_data and a routed
+    # ingress, each traced in a process of its own: after the X4 check,
+    # this process's profiler no longer sees the plane's threads' device
+    # work (it still sees the main thread's)
+    for name in ("part_set_from_data", "gossip_ingress"):
+        with get_context("spawn").Pool(1) as pool:
+            host_ms, busy_ms, events, dev_windows, windows = pool.apply(
+                _traced_routed, (name,))
+            pool.close()
+            pool.join()
+        check(events > 0, f"the traced routed {name} ran nothing on the card")
+        emit({"phase": "hash.trace", "step": f"{name}, routed, warm, "
+              "profiled", "host_ms": host_ms, "device_busy_ms": busy_ms,
+              "device_events": events, "idle_share": 1 - busy_ms / host_ms,
+              "device_windows": dev_windows, "windows": windows,
+              "card": card})
+    x4_row["launches_by_shape"] = {f"{bb}x{lb}": n
+                                   for (bb, lb), n in shapes.items()}
     return launches, x4_row
 
 

@@ -44,7 +44,9 @@ class Ed25519BatchVerifier(BatchVerifier):
     """ed25519 batch verification on ``device`` (default the GPU).
 
     ``pubkey_cache`` (an ops.verify.PubkeyTableCache on the same device)
-    routes the batch through the cached kernel; None runs the uncached one.
+    routes the batch through the cached kernel; None takes the process-wide
+    cache of the device (ops.verify.pubkey_cache), or with
+    COMETBFT_TPU_PUBKEY_CACHE=0 the uncached kernel.
     ``flavor`` picks the kernels' flavor (ops.verify.kernel_flavor: "4",
     "8", or None for COMETBFT_TPU_KERNEL read when the batch verifies).
     """
@@ -80,6 +82,23 @@ class Ed25519BatchVerifier(BatchVerifier):
 _BATCH_BACKENDS: dict[str, type] = {
     keys.ED25519_KEY_TYPE: Ed25519BatchVerifier,
 }
+
+
+def prestage_validators(validator_set, device="cuda") -> int:
+    """Warm the process-wide pubkey arena of ``device`` with a validator
+    set's ed25519 keys (ops.verify.prestage_pubkeys: COMETBFT_TPU_PRESTAGE
+    decides whether it runs), so its next commit runs the cached kernel
+    with no builder launch. Returns the builder launches it took."""
+    keys_bytes = [
+        v.pub_key.data
+        for v in getattr(validator_set, "validators", [])
+        if getattr(v.pub_key, "type", None) == keys.ED25519_KEY_TYPE
+    ]
+    if not keys_bytes:
+        return 0
+    from ..ops import verify as ov
+
+    return ov.prestage_pubkeys(keys_bytes, device=device)
 
 
 def supports_batch_verifier(pub_key) -> bool:

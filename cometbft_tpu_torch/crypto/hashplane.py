@@ -16,8 +16,11 @@ Routing, as in the reference: with no plane pushed (:func:`push_active`)
 hashing is unrouted and runs hashlib; a batch below its block bucket's
 device cut (``batch_worth_routing``, the seed curve ``max(2, 2048 //
 bucket)`` lanes, adapted per bucket on CUDA) hashes inline with hashlib,
-as does a bucket of a window below its cut. Digests are bit-identical
-either way.
+as does a bucket of a window below its cut. The cuts are process-wide per
+device, as the reference's module-level ``CROSSOVER`` is: every plane on
+a device reads and feeds one :class:`_BucketCrossover`
+(:func:`crossover`), so a new plane starts from the cut the planes before
+it calibrated. Digests are bit-identical either way.
 
 No fallback, unlike the reference: a device fault (at dispatch or at
 readback) or a ticket that outlives its wait fails the tickets of its
@@ -132,20 +135,23 @@ class _Inflight:
 
 
 class _BucketCrossover:
-    """Per-block-bucket host/device lane cut.
+    """Per-block-bucket host/device lane cut of one device.
 
     One crypto.batch.AdaptiveCrossover per SHA block bucket, fed from the
-    plane's own windows: ``threshold(bucket)`` says at how many lanes a
-    window of that message size goes to the device. Until a bucket is
-    calibrated, and always where adaptation is off for the plane's device
-    (crypto.batch._adaptive_enabled), the seed ``max(2, 2048 // bucket)``
-    answers.
+    windows of every plane on the device: ``threshold(bucket)`` says at how
+    many lanes a window of that message size goes to the device. Until a
+    bucket is calibrated, and always while adaptation is off for the
+    device (crypto.batch._adaptive_enabled, read at each call as the
+    reference reads it), the seed ``max(2, 2048 // bucket)`` answers.
     """
 
     def __init__(self, device) -> None:
-        self._adaptive = crypto_batch._adaptive_enabled(device)
+        self._device = device
         self._mtx = threading.Lock()
         self._fits: dict[int, crypto_batch.AdaptiveCrossover] = {}
+
+    def _adaptive(self) -> bool:
+        return crypto_batch._adaptive_enabled(self._device)
 
     def _fit(self, bucket: int) -> crypto_batch.AdaptiveCrossover:
         with self._mtx:
@@ -155,19 +161,42 @@ class _BucketCrossover:
             return xo
 
     def note_host(self, bucket: int, lanes: int, seconds: float) -> None:
-        if self._adaptive:
+        if self._adaptive():
             self._fit(bucket).observe_host(lanes, seconds)
 
     def note_device(self, bucket: int, lanes: int, seconds: float) -> None:
-        if self._adaptive:
+        if self._adaptive():
             self._fit(bucket).observe_device(lanes, seconds)
 
     def threshold(self, bucket: int) -> int:
         seed = max(2, _SEED_DEVICE_BLOCKS // max(1, bucket))
-        if not self._adaptive:
+        if not self._adaptive():
             return seed
         t = self._fit(bucket).threshold()
         return seed if t is None else t
+
+
+# The process-wide crossovers, one per device, made at first use.
+_CROSSOVERS: dict[torch.device, _BucketCrossover] = {}
+_CROSSOVERS_LOCK = threading.Lock()
+
+
+def crossover(device) -> _BucketCrossover:
+    """The process-wide :class:`_BucketCrossover` of ``device``, which
+    every plane on it reads and feeds."""
+    dev = resolve_device(device)
+    with _CROSSOVERS_LOCK:
+        xo = _CROSSOVERS.get(dev)
+        if xo is None:
+            xo = _CROSSOVERS[dev] = _BucketCrossover(dev)
+        return xo
+
+
+def reset_crossovers() -> None:
+    """Forget every device's calibrated cuts. For tests only: they need a
+    clean start; a running node keeps what its planes have learned."""
+    with _CROSSOVERS_LOCK:
+        _CROSSOVERS.clear()
 
 
 class HashCoalescer(BaseService):
@@ -197,7 +226,7 @@ class HashCoalescer(BaseService):
         self.min_device_lanes = min_device_lanes
         self.max_inflight = max(1, _DEFAULT_MAX_INFLIGHT
                                 if max_inflight is None else max_inflight)
-        self.crossover = _BucketCrossover(self.device)
+        self.crossover = crossover(self.device)
         self._mtx = threading.Lock()  # the pending queue and counters
         self._cv = threading.Condition(self._mtx)
         self._pending: deque[tuple] = deque()  # (ticket, msgs)

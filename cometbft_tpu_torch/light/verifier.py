@@ -33,7 +33,8 @@ class CommitVerifier:
 
     ``device`` (default ``"cuda"``: without a GPU a check raises),
     ``flavor`` and ``pubkey_cache`` (an ops.verify.PubkeyTableCache on that
-    device, or None for the uncached kernels) pass through to
+    device, or None for the process-wide cache of the device, which
+    COMETBFT_TPU_PUBKEY_CACHE=0 turns off) pass through to
     types/validation. Nothing is checked until a commit is.
     """
 

@@ -33,7 +33,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-# per source: {"seconds": build time, "ptxas": nvcc's -Xptxas -v report}
+# per source: {"seconds": build time, "ptxas": nvcc's -Xptxas -v report,
+# "path": the library}
 BUILD_INFO: dict[str, dict] = {}
 
 
@@ -64,7 +65,8 @@ def _build(source: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{source.stem}_{_digest(source)}.so"
     if out.exists():
-        BUILD_INFO.setdefault(source.name, {"seconds": 0.0, "ptxas": ""})
+        BUILD_INFO.setdefault(source.name, {"seconds": 0.0, "ptxas": "",
+                                            "path": out})
         return out
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -82,13 +84,15 @@ def _build(source: Path) -> Path:
     BUILD_INFO[source.name] = {
         "seconds": time.perf_counter() - t0,
         "ptxas": proc.stderr,
+        "path": out,
     }
     return out
 
 
 def load_all(names=None) -> dict[str, ctypes.CDLL]:
-    """Every ``csrc/<name>.cu``, or only the sources ``names`` lists,
-    built (one nvcc each, all started together) and loaded, by stem."""
+    """Every ``csrc/<name>.cu``, or only the sources ``names`` lists
+    (paths under csrc/, such as a probe's ``probes/<name>.cu``), built
+    (one nvcc each, all started together) and loaded, by stem."""
     sources = (sorted(CSRC.glob("*.cu")) if names is None
                else [CSRC / name for name in names])
     with _lock:

@@ -12,7 +12,7 @@ A CUDA tensor launches the kernel on the current stream or raises: there
 is no fallback. Inputs are checked for dtype, shape, device and
 contiguity, the output is allocated here with ``torch.empty``,
 ``LAUNCHES`` counts the kernel's launches (and nothing else) and
-``LAUNCH_SHAPES`` keeps the (block bucket, lane bucket) of each.
+``LAUNCH_SHAPES`` counts them by (block bucket, lane bucket).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from . import build
 
 LAUNCHES = {"sha256": 0}
-LAUNCH_SHAPES: dict[str, set[tuple[int, int]]] = {"sha256": set()}
+LAUNCH_SHAPES: dict[str, dict[tuple[int, int], int]] = {"sha256": {}}
 SOURCES = {"sha256": "sha256.cu"}
 # bytes the device path copied in and out (sha256_many_async), since the
 # last reset
@@ -143,5 +143,6 @@ def sha256(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"sha256: CUDA launch failed with cudaError {err}")
     with _counts_lock:
         LAUNCHES["sha256"] += 1
-        LAUNCH_SHAPES["sha256"].add((bb, lanes))
+        shapes = LAUNCH_SHAPES["sha256"]
+        shapes[(bb, lanes)] = shapes.get((bb, lanes), 0) + 1
     return state

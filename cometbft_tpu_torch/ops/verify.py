@@ -11,7 +11,10 @@ Split of labor:
 
 Steady state goes through the :class:`PubkeyTableCache`: a validator's
 decompressed key and 16-entry table live in a device arena, a commit ships
-96 B per lane plus a uint16 slot, and K2 reads the table in place.
+96 B per lane plus a uint16 slot, and K2 reads the table in place. A
+batch that names no cache goes through the process-wide one of its device
+(:func:`pubkey_cache`) unless ``COMETBFT_TPU_PUBKEY_CACHE=0``;
+:func:`prestage_pubkeys` warms it ahead of a commit.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a GPU
 they raise instead of running on the CPU. ``device="cpu"`` runs the plain
@@ -389,6 +392,55 @@ class PubkeyTableCache:
             )
 
 
+# The process-wide caches, one per device, made at first use: the
+# reference's module-level _PUBKEY_CACHE (cometbft_tpu/ops/verify.py:852),
+# which verify_batch reads unless COMETBFT_TPU_PUBKEY_CACHE is "0".
+_PUBKEY_CACHE: dict[torch.device, PubkeyTableCache] = {}
+_PUBKEY_CACHE_LOCK = threading.Lock()
+
+
+def _cache_enabled() -> bool:
+    """COMETBFT_TPU_PUBKEY_CACHE, read at each call: anything but "0"
+    (the default "1") routes cache-less batches through the process-wide
+    cache."""
+    return os.environ.get("COMETBFT_TPU_PUBKEY_CACHE", "1") != "0"
+
+
+def pubkey_cache(device="cuda") -> PubkeyTableCache:
+    """The process-wide :class:`PubkeyTableCache` of ``device``."""
+    dev = resolve_device(device)
+    with _PUBKEY_CACHE_LOCK:
+        cache = _PUBKEY_CACHE.get(dev)
+        if cache is None:
+            cache = _PUBKEY_CACHE[dev] = PubkeyTableCache(dev)
+        return cache
+
+
+def prestage_pubkeys(pubkeys, device="cuda") -> int:
+    """Warm the process-wide arena of ``device`` with ``pubkeys`` (at most
+    its capacity), so the next commit over them ships only R|S|k and runs
+    K2 with no builder launch. Returns the builder launches this took (0:
+    already staged, or nothing to do).
+
+    COMETBFT_TPU_PRESTAGE: "auto" (the default) warms only a CUDA device,
+    "1" forces a warm-up (the CPU tests), "0" disables it; so does
+    COMETBFT_TPU_PUBKEY_CACHE=0. Unlike the reference (which returns 0 on
+    any exception), a failed warm-up raises.
+    """
+    mode = os.environ.get("COMETBFT_TPU_PRESTAGE", "auto")
+    if mode == "0" or not _cache_enabled():
+        return 0
+    if mode != "1" and torch.device(device).type != "cuda":
+        return 0
+    keys = [bytes(pk) for pk in pubkeys][: PubkeyTableCache.CAPACITY]
+    if not keys:
+        return 0
+    cache = pubkey_cache(device)
+    before = cache.builds
+    cache.lookup(keys)
+    return cache.builds - before
+
+
 # ---------------------------------------------------------------- launches
 
 
@@ -438,9 +490,11 @@ def verify_batch(pubkeys, msgs, sigs, *, device="cuda",
 
     Returns (all_valid, per-signature validity (n,) bool): the contract of
     crypto.BatchVerifier.Verify (crypto/crypto.go:45-54) with per-lane
-    results. With ``cache`` the steady state ships (R, S, -k) plus a slot
-    per lane and runs K2; without it, or when the call's keys overflow
-    the arena, the full wire rows go to K1. ``flavor`` "8" runs K4 and K3
+    results. The steady state ships (R, S, -k) plus a slot per lane and
+    runs K2 against ``cache`` or, when None, the process-wide cache of
+    ``device`` (:func:`pubkey_cache`); with COMETBFT_TPU_PUBKEY_CACHE=0 and
+    no ``cache``, or when the call's keys overflow the arena, the full wire
+    rows go to K1. ``flavor`` "8" runs K4 and K3
     in their places (see :func:`kernel_flavor`). Every verdict is ANDed
     with the host checks: a zeroed malformed lane decodes to a small-order
     point the cofactored equation would accept.
@@ -452,6 +506,8 @@ def verify_batch(pubkeys, msgs, sigs, *, device="cuda",
     n = len(pubkeys)
     if n == 0:
         return True, np.zeros(0, bool)
+    if cache is None and _cache_enabled():
+        cache = pubkey_cache(dev)
     finals, host_oks = [], []
     for lo in range(0, n, _CHUNK):
         hi = min(lo + _CHUNK, n)

@@ -11,9 +11,10 @@ signature) triples into one device batch:
 Semantics follow types/validation.go:26-257, including the batch-vs-single
 threshold and the find-first-invalid error. ``device`` (default the GPU),
 ``pubkey_cache`` (an ops.verify.PubkeyTableCache, or None for the
-uncached kernel) and ``flavor`` (the kernels' flavor, "4", "8" or None for
-COMETBFT_TPU_KERNEL; ops.verify.kernel_flavor) pass through to the batch
-verifier.
+process-wide cache of the device; COMETBFT_TPU_PUBKEY_CACHE=0 turns that
+off and runs the uncached kernel) and ``flavor`` (the kernels' flavor,
+"4", "8" or None for COMETBFT_TPU_KERNEL; ops.verify.kernel_flavor) pass
+through to the batch verifier.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Variants of the verify kernels K1-K4 beside the tree's, on one CUDA card.
+"""Variants of the verify kernels K1-K4, and an older commit's X4, beside
+the tree's, on one CUDA card.
 
     python3 kernel_ab.py [--sizes 3334,6667,10000] [--probe NAME ...]
-                         [--parent REV] [NAME=SOURCE.cu ...]
+                         [--parent REV] [--only verify|x4]
+                         [NAME=SOURCE.cu ...]
     python3 kernel_ab.py --parent REV --extract-only
 
 Run from the root of a checkout. Each variant source builds with the flags
@@ -28,6 +30,21 @@ table). They take turns with the tree's K1 and K3 in a group of their
 own, before the group of everything else: at 4-8 ms a launch they would
 slow whichever kernel was timed next to them by a few per cent.
 
+--parent REV also takes REV's csrc/sha256.cu as "X4@parent" (the C entry
+sha256_blocks has not changed). On chip_smoke's seeded default block,
+X4 and X4@parent are first held against hashlib and the plain version
+at the three shapes the hash path launches X4 at: the 336 part leaves
+(2,048 x 512), a gossip window of 5 leaves (2,048 x 8) and a full tx-key
+window (64 x 2,048); then timed in turns at each (X4, X4@parent,
+X4@parent, X4), beside the throughput bound (chip_smoke.x4_bound) and
+the chain bound (chip_smoke.x4_chain_bound_ms, on clock_probe's latency
+and clock from the same run). Both are also timed as one warp's worth of
+leaves (chip_smoke.x4_one_warp: cycles a compression), and their SASS
+is counted (chip_smoke.x4_sass_counts), with a copy of the parent's
+source whose message schedule is cut ("X4@parent_no_schedule", built
+for its SASS only): the parent's loop less that one's is its schedule.
+--only verify or --only x4 runs one of the two parts.
+
 Probes are variants generated from the tree's own sources:
 
   k1_no_ladder, k3_no_ladder  K1, K3 without their 64 windows: the
@@ -49,6 +66,7 @@ with the card's name and power limit.
 
 import argparse
 import ctypes
+import hashlib
 import re
 import subprocess
 import sys
@@ -95,6 +113,137 @@ PROBES = {
     "k1_global": ("verify_uncached.cu", GLOBAL_ATAB),
     "k3_global": ("verify8_uncached.cu", GLOBAL_ATAB),
 }
+# X4 (csrc/sha256.cu) variants generated from the tree's source, all but
+# the first computing the same digests:
+#   x4_rounds_only  the schedule warp's work cut: what the round warp
+#                   costs alone (its digests are wrong)
+#   x4_e_imad       the new e as two multiply-adds by `one` (IMADs, its
+#                   chain four steps), as the first redesign had it
+#   x4_iadd3        every addition a plain add (ptxas picks IADD3 or IMAD)
+#   x4_textbook     the round as FIPS 180-4 writes it: T1 = h + W + K +
+#                   Sigma1 + Ch, e = d + T1, a = T1 + Sigma0 + Maj
+#   x4_ex           e = (d + h + W + K) + Sigma1 + Ch, a = e + (Sigma0 +
+#                   Maj - d): five plain adds, the e chain three steps
+#   x4_wide_rot     two of each Sigma's rotations as a 64-bit multiply by
+#                   2^(32 - r) (both halves from one IMAD.WIDE)
+#   x4_a3           a = T1 + Sigma0 + Maj as one three-way add (T1 = h + W
+#                   + K + Sigma1 + Ch by multiply-adds): the a chain three
+#                   steps too, at one more integer-pipe instruction a round
+#   x4_sigma_last   every addition a multiply-add by `one`, ordered so
+#                   that Sigma1 (Sigma0) is added last to a sum ready
+#                   before it: the e and a chains three steps, the integer
+#                   pipe 10 instructions a round
+#   x4_sigma_last_mask  that, with a lane's state taking a block as
+#                   h + x * (b < nb), an IMAD, in place of a select
+#   x4_stages4      four ring stages in place of two
+#   x4_fma_rot      one rotation of each Sigma on the FMA pipe:
+#                   rotr(x, r) = x * 2^(32 - r) + umulhi(x, 2^(32 - r)),
+#                   an IMAD.HI and an IMAD (2^(32 - r) from `one`)
+#   x4_fma_rot_iadd3  that, with every addition a plain add
+_X4_ROUND = """      const uint32_t hk = hh * one + wk;
+      const uint32_t dhk = d * one + hk;
+      const uint32_t s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+      const uint32_t ch = (e & f) ^ (~e & g);
+      const uint32_t s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+      const uint32_t maj = (a & bb) ^ (a & c) ^ (bb & c);
+      const uint32_t s1ch = s1 * one + ch;
+      const uint32_t s0maj = s0 * one + maj;
+      hh = g;
+      g = f;
+      f = e;
+      e = dhk + s1 + ch;
+      d = c;
+      c = bb;
+      bb = a;
+      a = (s1ch * one + hk) * one + s0maj;
+"""
+_X4_SIGMAS = _X4_ROUND.split("\n", 2)[2].split("      const uint32_t s1ch")[0]
+_X4_SHIFT = """      hh = g;
+      g = f;
+      f = e;
+      e = {e};
+      d = c;
+      c = bb;
+      bb = a;
+      a = {a};
+"""
+_X4_TEXTBOOK = (_X4_ROUND, "      const uint32_t hk = hh + wk;\n" + _X4_SIGMAS
+                + "      const uint32_t t1 = hk + s1 + ch;\n"
+                + _X4_SHIFT.format(e="d + t1", a="t1 + s0 + maj"))
+_X4_EX = (_X4_ROUND, "      const uint32_t hk = hh + wk;\n"
+          "      const uint32_t dhk = d + hk;\n" + _X4_SIGMAS
+          + "      const uint32_t x = s0 + maj - d;\n"
+          + _X4_SHIFT.format(e="dhk + s1 + ch", a="e + x"))
+_X4_IADD3 = (_X4_ROUND, _X4_ROUND.replace(" * one", ""))
+_X4_SIGMA_LAST = (_X4_ROUND, "      const uint32_t hk = hh * one + wk;\n"
+                  "      const uint32_t dhk = d * one + hk;\n" + _X4_SIGMAS
+                  + "      const uint32_t t1 = s1 * one + (ch * one + hk);\n"
+                  + _X4_SHIFT.format(e="s1 * one + (ch * one + dhk)",
+                                     a="s0 * one + (maj * one + t1)"))
+_X4_MASK = [("    const bool real = b < nb;\n", "    const uint32_t real = b < nb;\n")] + [
+    (f"h[{k}] = real ? h[{k}] + {v} : h[{k}];", f"h[{k}] = {v} * real + h[{k}];")
+    for k, v in enumerate(("a", "bb", "c", "d", "e", "f", "g", "hh"))]
+_X4_A3 = (_X4_ROUND, "      const uint32_t hk = hh * one + wk;\n"
+          "      const uint32_t dhk = d * one + hk;\n" + _X4_SIGMAS
+          + "      const uint32_t t1 = (s1 * one + ch) * one + hk;\n"
+          + _X4_SHIFT.format(e="dhk + s1 + ch", a="t1 + s0 + maj"))
+_X4_WIDE = [
+    ("""__device__ __forceinline__ uint32_t rotr(uint32_t x, int r) {
+  return __funnelshift_r(x, x, r);
+}
+""", """__device__ __forceinline__ uint32_t rotr(uint32_t x, int r) {
+  return __funnelshift_r(x, x, r);
+}
+
+__device__ __forceinline__ uint32_t rotr_wide(uint32_t x, int r,
+                                              uint32_t one) {
+  const uint64_t p = (uint64_t)x * (uint64_t)(one << (32 - r));
+  return (uint32_t)p ^ (uint32_t)(p >> 32);
+}
+"""),
+    ("rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)",
+     "rotr(e, 6) ^ rotr_wide(e, 11, one) ^ rotr_wide(e, 25, one)"),
+    ("rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)",
+     "rotr(a, 2) ^ rotr_wide(a, 13, one) ^ rotr_wide(a, 22, one)"),
+]
+_X4_FMA_ROT = [
+    ("""__device__ __forceinline__ uint32_t rotr(uint32_t x, int r) {
+  return __funnelshift_r(x, x, r);
+}
+""", """__device__ __forceinline__ uint32_t rotr(uint32_t x, int r) {
+  return __funnelshift_r(x, x, r);
+}
+
+// rotr(x, r) with m = 2^(32 - r): the low half of x * m plus the high
+__device__ __forceinline__ uint32_t rotr_fma(uint32_t x, uint32_t m) {
+  return x * m + __umulhi(x, m);
+}
+"""),
+    ("  uint32_t h[8] = {0x6a09e667u,",
+     "  const uint32_t m7 = one << 7, m10 = one << 10;\n"
+     "  uint32_t h[8] = {0x6a09e667u,"),
+    ("rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)",
+     "rotr(e, 6) ^ rotr(e, 11) ^ rotr_fma(e, m7)"),
+    ("rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)",
+     "rotr(a, 2) ^ rotr(a, 13) ^ rotr_fma(a, m10)"),
+]
+PROBES.update({
+    "x4_fma_rot": ("sha256.cu", _X4_FMA_ROT),
+    "x4_fma_rot_iadd3": ("sha256.cu", [_X4_IADD3] + _X4_FMA_ROT),
+    "x4_rounds_only": ("sha256.cu", [(
+        "for (int q = 0; q < QUADS; ++q) {\n      uint32_t wk[4];",
+        "for (int q = 0; q < 0; ++q) {\n      uint32_t wk[4];")]),
+    "x4_e_imad": ("sha256.cu", [("e = dhk + s1 + ch;",
+                                 "e = s1ch * one + dhk;")]),
+    "x4_iadd3": ("sha256.cu", [_X4_IADD3]),
+    "x4_textbook": ("sha256.cu", [_X4_TEXTBOOK]),
+    "x4_ex": ("sha256.cu", [_X4_EX]),
+    "x4_wide_rot": ("sha256.cu", _X4_WIDE),
+    "x4_a3": ("sha256.cu", [_X4_A3]),
+    "x4_sigma_last": ("sha256.cu", [_X4_SIGMA_LAST]),
+    "x4_sigma_last_mask": ("sha256.cu", [_X4_SIGMA_LAST] + _X4_MASK),
+    "x4_stages4": ("sha256.cu", [("int STAGES = 2;", "int STAGES = 4;")]),
+})
 # the block shape: the tree's one warp against two and four
 for _k, _src in (("k2", "verify_cached.cu"), ("k4", "verify8_cached.cu")):
     for _threads, _blocks in ((64, 6), (128, 3)):
@@ -104,7 +253,12 @@ for _k, _src in (("k2", "verify_cached.cu"), ("k4", "verify8_cached.cu")):
              f"__launch_bounds__(BLOCK, {_blocks})")])
 # the parent's uncached kernels and what they include
 PARENT_FILES = ("verify_uncached.cu", "verify8_uncached.cu",
-                "kernel_common.cuh", "ed25519.cuh")
+                "kernel_common.cuh", "ed25519.cuh", "sha256.cu")
+# the one-thread X4's schedule, cut for a SASS count without it
+X4_NO_SCHEDULE = ("    if (t >= 16) {\n", "    if (false) {\n")
+# X4's path shapes: (name, block bucket, lane bucket)
+X4_SHAPES = (("part_leaves", 2048, 512), ("gossip_window", 2048, 8),
+             ("tx_key_window", 64, 2048))
 
 
 def probe_source(name: str, csrc: Path) -> Path:
@@ -179,65 +333,145 @@ def bind(name, lib):
     return fn
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--sizes", default="3334,6667,10000")
-    ap.add_argument("--probe", action="append", default=[],
-                    choices=sorted(PROBES))
-    ap.add_argument("--parent", metavar="REV",
-                    help="also time K1 and K3 of commit REV")
-    ap.add_argument("--extract-only", action="store_true",
-                    help="write the --parent sources and exit")
-    ap.add_argument("variants", nargs="*", metavar="NAME=SOURCE.cu")
-    args = ap.parse_args()
-    if args.extract_only:
-        if not args.parent:
-            raise SystemExit("--extract-only needs --parent")
-        print(parent_sources(args.parent))
-        return 0
+def no_schedule_source(pdir: Path) -> Path:
+    """The parent's sha256.cu with its message schedule cut, for a SASS
+    count without it (its digests are wrong)."""
+    text = (pdir / "sha256.cu").read_text()
+    old, new = X4_NO_SCHEDULE
+    if text.count(old) != 1:
+        raise SystemExit(f"{pdir}/sha256.cu: {old!r} found "
+                         f"{text.count(old)} times")
+    path = pdir / "sha256_no_schedule.cu"
+    path.write_text(text.replace(old, new))
+    return path
+
+
+def x4_entry(lib_path):
+    """fn(blocks, nblocks) -> (8, L) state through the C entry
+    sha256_blocks of a built X4 library, on the current stream."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    import chip_smoke as cs
-    from cometbft_tpu_torch.ops import build, cuda_verify, curve
+    fn = ctypes.CDLL(str(lib_path)).sha256_blocks
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(blocks, nblocks):
+        lanes = blocks.shape[2]
+        state = torch.empty((8, lanes), dtype=torch.uint32,
+                            device=blocks.device)
+        stream = torch.cuda.current_stream(blocks.device).cuda_stream
+        err = fn(blocks.data_ptr(), nblocks.data_ptr(),
+                 int(nblocks.dtype == torch.uint16), state.data_ptr(),
+                 blocks.shape[0], lanes, stream)
+        if err:
+            raise RuntimeError(f"{lib_path.name}: cudaError {err}")
+        return state
+    return run
+
+
+def x4_ab(torch, cs, dev, x4_libs, smi):
+    """The tree's X4 against X4@parent at the hash path's three shapes:
+    held against hashlib and the plain version, then timed in turns
+    beside both bounds; one warp's cycles a compression; SASS counts."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import build, cuda_sha256
+    from cometbft_tpu_torch.ops import sha256 as osha
+    from cometbft_tpu_torch.types import block
+
+    probe = cs.clock_probe(torch)
+    cs.emit({"x4": "clock_probe", "card": smi, **probe})
+    sass = {"X4": cs.x4_sass_counts(build.BUILD_INFO["sha256.cu"]["path"])}
+    for name, so in x4_libs.items():
+        sass[name] = cs.x4_sass_counts(so)
+    loop = {k: next(lp for lp in sass[k]["loops"] if "per_round" in lp)
+            for k in ("X4@parent", "X4@parent_no_schedule")}
+    schedule = (loop["X4@parent"]["instructions"]
+                - loop["X4@parent_no_schedule"]["instructions"])
+    cs.emit({"x4": "sass", **sass, "parent_schedule_instructions": schedule,
+             "parent_schedule_share":
+                 schedule / loop["X4@parent"]["instructions"]})
+    probes = [name for name in x4_libs if name.startswith("x4")]
+    runs = {"X4": cuda_sha256.sha256, "X4@parent": x4_entry(
+        x4_libs["X4@parent"]), **{p: x4_entry(x4_libs[p]) for p in probes}}
+    txs, data = cs.make_hash_block()
+    size = block.BLOCK_PART_SIZE_BYTES
+    leaves = [b"\x00" + data[i : i + size] for i in range(0, len(data), size)]
+    msgs = {"part_leaves": leaves, "gossip_window": leaves[:5],
+            "tx_key_window": txs[:2048]}
+    wires = {}
+    for name, bb, lb in X4_SHAPES:
+        blocks, nblocks = osha.pack_messages(msgs[name])
+        cs.check((blocks.shape[0], blocks.shape[2]) == (bb, lb),
+                 f"X4 {name}: shape {blocks.shape}")
+        wires[name] = (blocks, nblocks, torch.from_numpy(blocks).to(dev),
+                       torch.from_numpy(nblocks).to(dev))
+    states = {k: {} for k in runs}
+    wrong = dict.fromkeys(runs, 0)  # lanes != hashlib (probes may differ)
+    for kname, fn in runs.items():
+        for name, (_, _, b, nb) in wires.items():
+            states[kname][name] = fn(b, nb)
+            got = osha._digests_from_state(
+                states[kname][name].cpu().numpy(), len(msgs[name]))
+            wrong[kname] += sum(g != hashlib.sha256(m).digest()
+                                for g, m in zip(got, msgs[name]))
+    cs.check(not (wrong["X4"] or wrong["X4@parent"]),
+             f"X4 != hashlib: {wrong}")
+    mismatches = dict.fromkeys(runs, 0)
+    for bb in sorted({bb for _, bb, _ in X4_SHAPES}):
+        group = [name for name, b_, _ in X4_SHAPES if b_ == bb]
+        cat_b = torch.from_numpy(np.concatenate(
+            [wires[n][0] for n in group], axis=2)).to(dev)
+        cat_nb = torch.from_numpy(np.concatenate(
+            [wires[n][1].astype(np.int64) for n in group])).to(dev)
+        plain = cuda_sha256.as_int64(osha.sha256_plain(cat_b, cat_nb))
+        for kname in runs:
+            got = torch.cat([cuda_sha256.as_int64(states[kname][n])
+                             for n in group], dim=1)
+            mismatches[kname] += int((got != plain).sum())
+    cs.emit({"x4": "compare", "shapes": [list(s) for s in X4_SHAPES],
+             "lanes_not_hashlib": wrong, "plain_mismatches": mismatches})
+    cs.check(not (mismatches["X4"] or mismatches["X4@parent"]),
+             f"X4 != plain: {mismatches}")
+    one_warp = {k: cs.x4_one_warp(torch, fn, leaves, probe["clock_ghz"],
+                                  check_digests=k in ("X4", "X4@parent"))
+                for k, fn in runs.items()}
+    cs.emit({"x4": "one_warp", **one_warp})
+    summary = {}
+    for name, bb, _ in X4_SHAPES:
+        _, nblocks, b, nb = wires[name]
+        ms = {}
+        group = ["X4", *probes, "X4@parent"]
+        for kname in group + group[::-1]:
+            t, out = cs.time_ms(torch, lambda fn=runs[kname]: fn(b, nb),
+                                cs.KERNEL_REPS)
+            cs.check(kname in probes or torch.equal(
+                out.view(torch.int32), states[kname][name].view(torch.int32)),
+                     f"{kname} {name}: timed output changed")
+            ms.setdefault(kname, []).append(t)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        bound_ms, bound_by = cs.x4_bound(*cuda_sha256.work(nb, bb))
+        chain_ms = cs.x4_chain_bound_ms(nb, bb, probe)
+        summary[name] = {
+            "lanes": len(msgs[name]), "ms": mean, "new_over_parent":
+                mean["X4"] / mean["X4@parent"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "chain_bound_ms": chain_ms,
+            "share_of_larger_bound": {
+                k: max(bound_ms, chain_ms) / v for k, v in mean.items()}}
+        cs.emit({"x4": "time", "shape": name, "order": group + group[::-1],
+                 "ms_in_turns": ms, **summary[name]})
+    cs.emit({"x4_summary": summary, "card": smi})
+
+
+def verify_ab(torch, cs, dev, entries, parents, sizes, smi):
+    """K1-K4 and their variants: held against the plain versions, then
+    timed in turns at each size."""
+    from cometbft_tpu_torch.ops import cuda_verify, curve
     from cometbft_tpu_torch.ops import verify as ov
 
-    sizes = [int(x) for x in args.sizes.split(",")]
-    variants = dict(v.split("=", 1) for v in args.variants)
-    for name in variants:
-        if not name.startswith(("k1", "k2", "k3", "k4")):
-            raise SystemExit(f"{name}: a variant's name starts with k1-k4")
-    for name in args.probe:
-        variants[name] = probe_source(name, build.CSRC)
-    parents = []
-    if args.parent:
-        pdir = parent_sources(args.parent)
-        variants["K1@parent"] = pdir / "verify_uncached.cu"
-        variants["K3@parent"] = pdir / "verify8_uncached.cu"
-        parents = ["K1@parent", "K3@parent"]
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    cs.emit({"card": smi, "parent": args.parent})
-    OUT.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    cuda_verify._entries()
-    with ThreadPoolExecutor(max(1, len(variants))) as pool:
-        built = list(pool.map(lambda kv: nvcc(build, build.CSRC, *kv),
-                              variants.items()))
-    cs.emit({"build_s": time.perf_counter() - t0,
-             "tree": {k: v for info in build.BUILD_INFO.values()
-                      for k, v in build.ptxas_usage(info["ptxas"]).items()},
-             "tree_nvcc_s": {k: v["seconds"]
-                             for k, v in build.BUILD_INFO.items()},
-             "variants": {n: {"nvcc_s": s, "ptxas": u}
-                          for n, _, s, u in built}})
-    entries = {name: bind(name, ctypes.CDLL(str(so)))
-               for name, so, _, _ in built}
     consts = cuda_verify._consts(dev)
     tab8 = cuda_verify._base_table8_26(dev)
     tab8_13 = curve.base_table8(dev)
@@ -341,6 +575,91 @@ def main() -> int:
             cs.emit(line)
             summary[n][group] = mean
     cs.emit({"summary_ms": summary, "card": smi})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sizes", default="3334,6667,10000")
+    ap.add_argument("--probe", action="append", default=[],
+                    choices=sorted(PROBES))
+    ap.add_argument("--parent", metavar="REV",
+                    help="also time K1, K3 and X4 of commit REV")
+    ap.add_argument("--only", choices=("verify", "x4"),
+                    help="run only the verify kernels' or X4's part")
+    ap.add_argument("--extract-only", action="store_true",
+                    help="write the --parent sources and exit")
+    ap.add_argument("variants", nargs="*", metavar="NAME=SOURCE.cu")
+    args = ap.parse_args()
+    if args.extract_only:
+        if not args.parent:
+            raise SystemExit("--extract-only needs --parent")
+        print(parent_sources(args.parent))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from cometbft_tpu_torch.ops import build, cuda_verify
+
+    sizes = [int(x) for x in args.sizes.split(",")]
+    variants = dict(v.split("=", 1) for v in args.variants)
+    for name in variants:
+        if not name.startswith(("k1", "k2", "k3", "k4")):
+            raise SystemExit(f"{name}: a variant's name starts with k1-k4")
+    x4_probes = {}
+    for name in args.probe:
+        if name.startswith("x4"):
+            x4_probes[name] = probe_source(name, build.CSRC)
+        else:
+            variants[name] = probe_source(name, build.CSRC)
+    if (x4_probes or args.only == "x4") and not (
+            args.parent and args.only != "verify"):
+        raise SystemExit("X4's part (--only x4, an x4 probe) needs "
+                         "--parent REV")
+    parents, x4_sources = [], {}
+    if args.parent:
+        pdir = parent_sources(args.parent)
+        if args.only != "x4":
+            variants["K1@parent"] = pdir / "verify_uncached.cu"
+            variants["K3@parent"] = pdir / "verify8_uncached.cu"
+            parents = ["K1@parent", "K3@parent"]
+        if args.only != "verify":
+            x4_sources = {"X4@parent": pdir / "sha256.cu",
+                          "X4@parent_no_schedule": no_schedule_source(pdir),
+                          **x4_probes}
+    if args.only == "x4" and variants:
+        raise SystemExit("--only x4 takes no verify variants")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cs.emit({"card": smi, "parent": args.parent})
+    OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    if args.only == "x4":
+        build.load_all(["sha256.cu"])
+    else:
+        cuda_verify._entries()
+    with ThreadPoolExecutor(max(1, len(variants) + len(x4_sources))) as pool:
+        built = list(pool.map(lambda kv: nvcc(build, build.CSRC, *kv),
+                              {**variants, **x4_sources}.items()))
+    cs.emit({"build_s": time.perf_counter() - t0,
+             "tree": {k: v for info in build.BUILD_INFO.values()
+                      for k, v in build.ptxas_usage(info["ptxas"]).items()},
+             "tree_nvcc_s": {k: v["seconds"]
+                             for k, v in build.BUILD_INFO.items()},
+             "variants": {n: {"nvcc_s": s, "ptxas": u}
+                          for n, _, s, u in built}})
+    entries = {name: bind(name, ctypes.CDLL(str(so)))
+               for name, so, _, _ in built if name not in x4_sources}
+    x4_libs = {name: so for name, so, _, _ in built if name in x4_sources}
+    if args.only != "x4":
+        verify_ab(torch, cs, dev, entries, parents, sizes, smi)
+    if x4_sources:
+        x4_ab(torch, cs, dev, x4_libs, smi)
     return 0
 
 

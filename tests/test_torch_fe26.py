@@ -12,7 +12,8 @@
     port's ed25519_ref. The stub runs every thread of a block as a fiber
     that yields at each ``__shfl_sync`` and ``__syncthreads``, so the quad
     kernels K1-K4 themselves run on a few lanes against their plain
-    versions and the oracle.
+    versions and the oracle. (tests/test_torch_hashplane.py runs X4 on the
+    same stub, whose named barriers it emulates too.)
 """
 
 import ctypes
@@ -229,6 +230,7 @@ STUB = r"""
 #define __device__
 #define __forceinline__ inline
 #define __shared__ static
+#define __constant__ static
 #define __launch_bounds__(...)
 typedef void* cudaStream_t;
 enum { cudaFuncAttributePreferredSharedMemoryCarveout = 9,
@@ -237,8 +239,14 @@ static inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 template <class F> static inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
+struct uint4 { uint32_t x, y, z, w; };
+static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
+  return uint4{x, y, z, w};
+}
 template <class T> static inline T __ldg(const T* p) { return *p; }
-static inline int cudaGetLastError() { return 0; }
+static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (s & 31));
+}
 namespace emu {
 struct D3 { unsigned x, y, z; };
 inline int cur, nthreads;
@@ -250,6 +258,10 @@ inline bool done[1024];
 inline std::function<void()>* body;
 inline std::vector<char> stacks;
 constexpr size_t STACK = 1 << 19;
+// named barriers: arrivals in the open phase and phases completed; a
+// launch whose fibers all wait fails (cudaGetLastError says so)
+inline int arrived[16], phases[16];
+inline bool failed;
 // switch to the next live fiber after `me`, or back to the launch
 inline void run_next(int me) {
   for (int i = 1; i <= nthreads; ++i) {
@@ -271,6 +283,7 @@ inline void tramp() {
 }
 inline void launch(int grid, int block, std::function<void()> f) {
   body = &f;
+  failed = false;
   nthreads = block;
   bdim = D3{(unsigned)block, 1, 1};
   stacks.resize(STACK * block);
@@ -285,8 +298,10 @@ inline void launch(int grid, int block, std::function<void()> f) {
       ctx[t].uc_link = &main_ctx;
       makecontext(&ctx[t], tramp, 0);
     }
+    for (int id = 0; id < 16; ++id) arrived[id] = phases[id] = 0;
     cur = 0;
     swapcontext(&main_ctx, &ctx[0]);
+    if (failed) return;
   }
 }
 // every live thread of the block writes, then every one reads
@@ -296,7 +311,27 @@ inline uint32_t exchange(uint32_t v, int src) {
   run_next(f);
   return xbuf[k & 1][src];
 }
+// bar.arrive / bar.sync on barrier `id` of `n` threads: the n-th arrival
+// completes the phase; a waiting fiber yields until its phase completes
+inline void bar_arrive(int id, int n) {
+  if (++arrived[id] == n) {
+    arrived[id] = 0;
+    ++phases[id];
+  }
+}
+inline void bar_sync(int id, int n) {
+  const int phase = phases[id];
+  bar_arrive(id, n);
+  for (int spins = 0; phases[id] == phase; ++spins) {
+    if (spins > 4096) {  // every fiber waits: a deadlock
+      failed = true;
+      swapcontext(&ctx[cur], &main_ctx);
+    }
+    run_next(cur);
+  }
+}
 }  // namespace emu
+static inline int cudaGetLastError() { return ::emu::failed ? 1 : 0; }
 #define threadIdx (::emu::D3{(unsigned)::emu::cur, 0, 0})
 #define blockIdx (::emu::bidx)
 #define blockDim (::emu::bdim)
@@ -306,6 +341,13 @@ static inline uint32_t __shfl_sync(unsigned, uint32_t v, int s, int w) {
 }
 static inline uint32_t __shfl_xor_sync(unsigned, uint32_t v, int m, int w) {
   return ::emu::exchange(v, (::emu::cur & ~(w - 1)) + ((::emu::cur ^ m) & (w - 1)));
+}
+static inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  for (int m = 16; m > 0; m >>= 1) {
+    const unsigned o = __shfl_xor_sync(~0u, v, m, 32);
+    v = v > o ? v : o;
+  }
+  return v;
 }
 """
 

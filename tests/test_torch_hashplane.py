@@ -21,24 +21,27 @@ to exact equality:
   cut routing a CPU plane under COMETBFT_TPU_ADAPTIVE_THRESHOLD=1, and
   configured_mode on COMETBFT_TPU_HASH.
 
-Where g++ is on the path, X4's CUDA source itself compiles against a stub
-cuda_runtime.h (one thread a lane needs no fibers) and must give hashlib's
-digests; a one-character change to a rotation or a ring index must not.
-It must read no block past the bucket, whatever a lane's count says.
+Where g++ is on the path, X4's CUDA source itself compiles against the
+fiber stub of tests/test_torch_fe26.py (every thread of a CTA a fiber:
+the schedule warp and the round warp run side by side, handing stages
+over at emulated named barriers) and must give hashlib's digests; a
+one-character change to a rotation, a ring index or a barrier must not
+(a barrier change deadlocks, which the stub reports). It must read no
+block past the bucket, whatever a lane's count says, and one warp may
+hold lanes of 0, 1, 33, B and more than B blocks side by side.
 """
 
 import ctypes
 import hashlib
 import random
 import re
-import shutil
-import subprocess
 import sys
 import threading
 
 import jax
 import numpy as np
 import pytest
+import test_torch_fe26 as fe26
 import torch
 
 from cometbft_tpu.crypto import batch as jbatch
@@ -594,8 +597,20 @@ def test_adaptation_is_keyed_on_the_device(monkeypatch, mode, device,
     assert tbatch._adaptive_enabled(device) is adapts
 
 
+@pytest.fixture
+def fresh_crossovers(monkeypatch):
+    """Both packages' process-wide crossovers start uncalibrated, and the
+    port's is forgotten again after the test."""
+    hashplane.reset_crossovers()
+    monkeypatch.setattr(jhashplane, "CROSSOVER",
+                        jhashplane._BucketCrossover())
+    yield
+    hashplane.reset_crossovers()
+
+
 @pytest.mark.parametrize("mode", ["1", "auto"])
-def test_calibrated_cut_routes_the_cpu_plane(plane, monkeypatch, mode):
+def test_calibrated_cut_routes_the_cpu_plane(plane, monkeypatch, mode,
+                                             fresh_crossovers):
     """Forced on, the plane's bucket-1 fit answers 64 lanes (the device
     wins from the smallest routed size) and a 64-lane window goes to the
     device, a 63-lane one to the host; the windows feed the fit. Off (the
@@ -621,6 +636,44 @@ def test_calibrated_cut_routes_the_cpu_plane(plane, monkeypatch, mode):
     assert (fit._host_n, fit._dev_n) == ((6, 6) if forced else (0, 0))
 
 
+def test_second_plane_starts_from_the_first_planes_cut(plane, monkeypatch,
+                                                        fresh_crossovers):
+    """The cut is process-wide per device, as the reference's CROSSOVER
+    is: two planes in turn, the first calibrated on bucket 1 (the same
+    observations fed to each package's crossover: a device window of the
+    reference would compile its kernel for minutes on a CPU), and the
+    second starts from that cut (64 lanes), not from the seed (2,048), in
+    both. The port's second plane then routes a 64-lane window to its
+    device and a 63-lane one to the host."""
+    monkeypatch.setenv("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "1")
+    cuts = {}
+    for turn in ("first", "second"):
+        co = plane(min_device_lanes=None, window_us=60_000_000, max_lanes=64)
+        ref = jhashplane.HashCoalescer(device=False)
+        ref.start()
+        try:
+            cuts[turn] = (co._device_cut(1), ref._device_cut(1))
+            if turn == "first":
+                for n in (8, 16, 32, 64, 128):
+                    for xo in (co.crossover, jhashplane.CROSSOVER):
+                        xo.note_host(1, n, 1.0 + 1e-3 * n)
+                        xo.note_device(1, n, 1e-4)
+                cuts["calibrated"] = (co._device_cut(1), ref._device_cut(1))
+            else:
+                msgs = _msgs([40] * 64, seed=71)
+                assert co.submit(msgs).result(timeout=30) == _sha(msgs)
+                assert co.submit(msgs[:63]).result(timeout=30) == _sha(
+                    msgs[:63])
+                assert (co.device_lanes, co.host_lanes) == (64, 63)
+        finally:
+            ref.stop()
+            hashplane.pop_active(co)
+            co.stop()
+    assert cuts == {"first": (2048, 2048), "calibrated": (64, 64),
+                    "second": (64, 64)}
+    assert hashplane.crossover("cpu") is co.crossover
+
+
 @pytest.mark.parametrize("value", [None, "1", "on", "TRUE", "yes", "0",
                                    "off", "False", "no", "auto", "maybe"])
 def test_configured_mode_matches_reference(monkeypatch, value):
@@ -633,48 +686,17 @@ def test_configured_mode_matches_reference(monkeypatch, value):
 
 # ------------------------------------------------- X4's source under g++
 
-STUB = r"""
-#pragma once
-#include <cstddef>
-#include <cstdint>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __constant__ static
-#define __launch_bounds__(...)
-typedef void* cudaStream_t;
-struct D3 { unsigned x, y, z; };
-inline D3 threadIdx, blockIdx, blockDim;
-static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
-  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (s & 31));
-}
-template <class T> static inline T __ldg(const T* p) { return *p; }
-static inline int cudaGetLastError() { return 0; }
-"""
-
-
 def _compile_sha256(tmp, source):
-    """sha256.cu as a C++ library: a launch ``k<<<grid, block, 0,
-    stream>>>(args)`` becomes a loop over blocks and threads."""
-    gpp = shutil.which("g++")
-    if gpp is None:
-        pytest.skip("g++ is not on the path")
-    (tmp / "cuda_runtime.h").write_text(STUB)
+    """sha256.cu as a C++ library on test_torch_fe26's fiber stub: every
+    thread of a CTA a fiber, the schedule warp and the round warp side by
+    side, yielding at the named barriers (emulated there: a wait yields
+    until its phase completes; a launch whose fibers all wait returns an
+    error) and at the warp reduction of the largest count."""
     source, n = re.subn(
-        r"([\w<>]+)<<<(.*?),\s*(\w+),\s*0,\s*stream>>>\((.*?)\);",
-        r"for (unsigned g_ = 0; g_ < (unsigned)(\2); ++g_) "
-        r"for (unsigned t_ = 0; t_ < (unsigned)(\3); ++t_) { "
-        r"blockIdx = D3{g_, 0, 0}; threadIdx = D3{t_, 0, 0}; "
-        r"blockDim = D3{(unsigned)(\3), 1, 1}; \1(\4); }",
-        source, flags=re.S)
-    assert n == 1
-    cpp = tmp / "sha256.cpp"
-    cpp.write_text(source)
-    so = tmp / "libsha256.so"
-    subprocess.run([gpp, "-O1", "-std=c++17", "-shared", "-fPIC",
-                    f"-I{tmp}", "-o", str(so), str(cpp)],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+        r'asm volatile\("bar\.(sync|arrive) %0, %1;"[^;]*;',
+        r"::emu::bar_\1(id, threads);", source)
+    assert n == 2
+    lib = fe26._compile(tmp, "sha256", source)
     lib.sha256_blocks.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_int, ctypes.c_void_p,
                                   ctypes.c_int, ctypes.c_int,
@@ -683,22 +705,26 @@ def _compile_sha256(tmp, source):
     return lib
 
 
-def _run_x4(lib, msgs, counts_dtype):
-    blocks, nblocks = tsha.pack_messages(msgs)
-    nblocks = nblocks.astype(counts_dtype)
-    lanes = blocks.shape[2]
+def _run_x4(lib, blocks, nblocks, counts_dtype):
+    """(the C entry's return, the (8, L) state) of X4 on a packed wire."""
+    nb = np.ascontiguousarray(nblocks.astype(counts_dtype))
+    lanes = nb.shape[0]
     state = np.full((8, lanes), 0xDEADBEEF, np.uint32)
-    assert lib.sha256_blocks(blocks.ctypes.data, nblocks.ctypes.data,
-                             int(counts_dtype == np.uint16),
-                             state.ctypes.data, blocks.shape[0], lanes,
-                             None) == 0
-    return state, blocks, nblocks
+    rc = lib.sha256_blocks(blocks.ctypes.data, nb.ctypes.data,
+                           int(counts_dtype == np.uint16), state.ctypes.data,
+                           blocks.shape[0], lanes, None)
+    return rc, state
 
 
 MUTATIONS = {
     "none": None,
     "rotation": ("rotr(e, 6)", "rotr(e, 7)"),
     "ring index": ("w[(t - 7) & 15]", "w[(t - 6) & 15]"),
+    # the round warp reads a stage without waiting for it
+    "stage wait": ("    bar_sync(FULL + s, THREADS);",
+                   "    bar_arrive(FULL + s, THREADS);"),
+    # the schedule warp overwrites stages the round warp has not read
+    "stage release": ("if (b >= STAGES) bar_sync(", "if (false) bar_sync("),
 }
 
 
@@ -713,16 +739,50 @@ def test_x4_source_under_gpp_matches_hashlib(tmp_path, mutation):
     # the padding edges, then a 3-block and a 9-block message, in one wire
     msgs = _msgs(PADDING_EDGES, seed=2) + _msgs((150, 560), seed=3)
     assert [tsha.n_blocks(len(m)) for m in msgs[-2:]] == [3, 9]
+    blocks, nblocks = tsha.pack_messages(msgs)
     for counts in (np.uint16, np.int32):
-        state, blocks, nblocks = _run_x4(lib, msgs, counts)
+        rc, state = _run_x4(lib, blocks, nblocks, counts)
         got = tsha._digests_from_state(state, len(msgs))
         if mutation == "none":
-            assert got == _sha(msgs)
-            plain = tsha.sha256_plain(torch.from_numpy(blocks),
-                                      torch.from_numpy(nblocks))
+            assert rc == 0 and got == _sha(msgs)
+            plain = tsha.sha256_plain(
+                torch.from_numpy(blocks),
+                torch.from_numpy(nblocks.astype(counts)))
             assert np.array_equal(state, plain.numpy())  # padding lanes too
-        else:
-            assert got != _sha(msgs)
+        else:  # wrong digests, or every fiber waiting: a deadlock
+            assert rc != 0 or got != _sha(msgs)
+
+
+def test_x4_source_under_gpp_ragged_counts_in_one_warp(tmp_path):
+    """One warp's lanes hold 1, 33, B (64) and more than B (71, read as B)
+    blocks, and 0 (a lane with a message, counted out; and the padding
+    lanes): every lane walks to the largest count with the others and
+    keeps its state past its own. Rows past B are random words, so a
+    block read past a count would show."""
+    lib = _compile_sha256(tmp_path, (CSRC / "sha256.cu").read_text())
+    msgs = _msgs((40, 2048, 4087, 4087, 100), seed=8)
+    blocks, nblocks = tsha.pack_messages(msgs)
+    assert blocks.shape == (64, 16, 8)
+    assert nblocks.tolist() == [1, 33, 64, 64, 2, 0, 0, 0]
+    counts = nblocks.copy()
+    counts[3], counts[4] = 71, 0
+    room = (72, 16, 8)
+    buf = np.frombuffer(random.Random(9).randbytes(4 * np.prod(room)),
+                        np.uint32).reshape(room).copy()
+    buf[:64] = blocks
+    for dtype in (np.uint16, np.int32):
+        state = np.full((8, 8), 0xDEADBEEF, np.uint32)
+        nb = counts.astype(dtype)
+        assert lib.sha256_blocks(buf.ctypes.data, nb.ctypes.data,
+                                 int(dtype == np.uint16), state.ctypes.data,
+                                 64, 8, None) == 0
+        got = tsha._digests_from_state(state, 4)
+        assert got == _sha(msgs[:4])
+        plain = tsha.sha256_plain(torch.from_numpy(blocks),
+                                  torch.from_numpy(nb))
+        assert np.array_equal(state, plain.numpy())
+        iv = plain.numpy()[:, 5]
+        assert np.array_equal(state[:, 4], iv)  # counted out: the IV
 
 
 def test_x4_source_under_gpp_reads_no_block_past_the_bucket(tmp_path):

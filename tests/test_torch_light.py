@@ -207,7 +207,10 @@ def test_reference_outcomes_are_the_expected_ones(reference_outcomes):
 @pytest.mark.parametrize("flavor,cached", MODES)
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_light_outcome_matches_reference(chains, reference_outcomes, name,
-                                         flavor, cached):
+                                         flavor, cached, monkeypatch):
+    """Uncached: COMETBFT_TPU_PUBKEY_CACHE=0 and no cache given."""
+    if not cached:
+        monkeypatch.setenv("COMETBFT_TPU_PUBKEY_CACHE", "0")
     chain, trusted, target, after = SCENARIOS[name]
     blocks = chains[chain][1]
     now = blocks[max(target, trusted)].time_ns + after * SECOND

@@ -145,10 +145,13 @@ def test_canonical_vote_sign_bytes_identical(world, msg_type, nil_block):
 
 
 @pytest.mark.parametrize("fn", ["verify_commit", "verify_commit_light"])
-def test_good_commit_accepted_by_both(world, fn):
+def test_good_commit_accepted_by_both(world, fn, monkeypatch):
+    """Uncached (COMETBFT_TPU_PUBKEY_CACHE=0, no cache given) and through
+    a cache of the caller's."""
     getattr(jvalidation, fn)(
         CHAIN_ID, world["j_vals"], world["j_bid"], HEIGHT, world["j_good"]
     )
+    monkeypatch.setenv("COMETBFT_TPU_PUBKEY_CACHE", "0")
     cache = tverify.PubkeyTableCache(device="cpu", capacity=32)
     for pubkey_cache in (None, cache):
         getattr(tvalidation, fn)(
@@ -171,6 +174,98 @@ def test_tampered_commit_rejected_with_same_index(world, fn):
         )
     assert f"(#{TAMPERED})" in str(j_err.value)
     assert str(t_err.value) == str(j_err.value)
+
+
+def _recording(routes, fn=None):
+    """A stand-in for a verify launcher (verify_rsk_async or
+    verify_bytes_async) that records its name in ``routes`` and calls
+    ``fn``, or without one returns all-valid lanes unrun."""
+    def wrap(name):
+        def launcher(*args, **kwargs):
+            routes.append(name)
+            if fn is not None:
+                return fn[name](*args, **kwargs)
+            n = args[-1] if len(args) in (2, 5) else kwargs["n"]
+            return lambda: np.ones(n, bool)
+        return launcher
+    return wrap
+
+
+@pytest.mark.parametrize("cache_env", ["1", "0"])
+def test_default_commit_route_matches_reference(world, monkeypatch,
+                                                cache_env):
+    """A default-argument verify_commit after prestage_validators
+    (COMETBFT_TPU_PRESTAGE=1) runs the cached kernel's plain version on
+    the process-wide arena and builds nothing more; with
+    COMETBFT_TPU_PUBKEY_CACHE=0 prestaging does nothing and the uncached
+    one runs. The reference's verify_batch takes the same launcher on the
+    same commits, its arena counting the same hits, misses and builds
+    (its launchers are recorded, not run: they would compile for minutes
+    on a CPU), and the verdicts equal the reference's verify_commit:
+    the good commit passes, the tampered one names its index."""
+    monkeypatch.setenv("COMETBFT_TPU_PRESTAGE", "1")
+    monkeypatch.setenv("COMETBFT_TPU_PUBKEY_CACHE", cache_env)
+    monkeypatch.setattr(tverify, "_PUBKEY_CACHE", {})
+    j_cache = jverify.PubkeyTableCache(capacity=32)
+    monkeypatch.setattr(jverify, "_PUBKEY_CACHE", j_cache)
+    launchers = ("verify_rsk_async", "verify_bytes_async")
+    routes = {"port": [], "reference": []}
+    run = {name: getattr(tverify, name) for name in launchers}
+    for name in launchers:
+        monkeypatch.setattr(tverify, name, _recording(routes["port"],
+                                                      run)(name))
+        monkeypatch.setattr(jverify, name,
+                            _recording(routes["reference"])(name))
+    builds = (tbatch.prestage_validators(world["t_vals"], device="cpu"),
+              jbatch.prestage_validators(world["j_vals"]))
+    assert builds == ((1, 1) if cache_env == "1" else (0, 0))
+    for tag in ("good", "bad"):
+        commit = world["t_" + tag]
+        j_commit = world["j_" + tag]
+        errors = []
+        for mod, vals, bid, c in (
+                (tvalidation, world["t_vals"], world["t_bid"], commit),
+                (jvalidation, world["j_vals"], world["j_bid"], j_commit)):
+            try:
+                kw = {"device": "cpu"} if mod is tvalidation else {}
+                mod.verify_commit(CHAIN_ID, vals, bid, HEIGHT, c, **kw)
+                errors.append(None)
+            except (tvalidation.VerificationError,
+                    jvalidation.VerificationError) as e:
+                errors.append(str(e))
+        assert errors[0] == errors[1]
+        assert (errors[0] is None) == (tag == "good")
+        if tag == "bad":
+            assert f"(#{TAMPERED})" in errors[0]
+        jverify.verify_batch(
+            [v.pub_key.data for v in world["j_vals"].validators],
+            [j_commit.vote_sign_bytes(CHAIN_ID, i) for i in range(N_VALS)],
+            [cs.signature for cs in j_commit.signatures])
+    want = "verify_rsk_async" if cache_env == "1" else "verify_bytes_async"
+    assert routes == {"port": [want] * 2, "reference": [want] * 2}
+    if cache_env == "1":
+        cache = tverify._PUBKEY_CACHE[torch.device("cpu")]
+        assert cache is tverify.pubkey_cache("cpu")
+        stats = [(c.hits, c.misses, c.builds) for c in (cache, j_cache)]
+        assert stats == [(2 * N_VALS, N_VALS, 1)] * 2
+    else:
+        assert tverify._PUBKEY_CACHE == {}
+
+
+@pytest.mark.parametrize("mode", ["auto", "0"])
+def test_prestaging_skips_the_cpu_unless_forced(world, monkeypatch, mode):
+    """COMETBFT_TPU_PRESTAGE=auto warms only a CUDA device and 0 never:
+    on the CPU neither builds nor makes the process-wide cache. Forced
+    onto a CUDA device this machine lacks, the warm-up raises instead of
+    returning 0 as the reference's does."""
+    monkeypatch.setenv("COMETBFT_TPU_PRESTAGE", mode)
+    monkeypatch.setattr(tverify, "_PUBKEY_CACHE", {})
+    assert tbatch.prestage_validators(world["t_vals"], device="cpu") == 0
+    assert tverify._PUBKEY_CACHE == {}
+    if not torch.cuda.is_available():
+        monkeypatch.setenv("COMETBFT_TPU_PRESTAGE", "1")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tbatch.prestage_validators(world["t_vals"], device="cuda")
 
 
 def test_trusting_and_power_errors(world):

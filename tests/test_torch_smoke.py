@@ -53,3 +53,42 @@ def test_x4_check_covers_every_shape_the_hash_path_launches():
     assert cs.X4_LANE_BUCKETS[-1] == hashplane._DEFAULT_MAX_LANES
     assert sha256.lane_bucket(len(leaves)) == 512
     assert sha256.lane_bucket(cs.INGRESS_THREADS) == 8
+
+
+# cuobjdump -sass lines of X4 as the H100's toolkit prints them (register
+# numbers and encodings abridged), and a loop closed by a backward branch
+SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_19x4_sha256ItEEvPKjPKT_Pjiij
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   SHF.R.W.U32 R25, R10, 0x16, R10.reuse ;
+        /*0020*/                   SHF.L.W.U32.HI R6, R4, 0x1a, R4 ;
+        /*0030*/                   SHF.R.U32.HI R8, RZ, 0x3, R4 ;
+        /*0040*/                   SHF.R.W.U32 R9, R11, 0x12, R11.reuse ;
+        /*0050*/                   IMAD R7, R7, c[0x0][0x390], R6 ;
+        /*0060*/                   LDS.128 R12, [R3] ;
+        /*0070*/              @!P0 BRA `(.L_x_1) ;
+        /*0080*/                   EXIT ;
+		Function : other
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_report_sides_rotations_by_amount(monkeypatch):
+    """The SASS counts X4's rows in PERF.md read: a funnel shift of a
+    register with itself is a rotation whatever its direction or reuse
+    flag (rotr 22 and 6 are the rounds', rotr 18 and a shift right by 3
+    the schedule's), and a backward branch closes a loop."""
+    cs = _chip_smoke()
+    from cometbft_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "nvcc_path", lambda: "/nowhere/bin/nvcc")
+    monkeypatch.setattr(cs.subprocess, "run",
+                        lambda *a, **k: type("P", (), {"stdout": SASS})())
+    (name, report), = cs.sass_report("lib.so", "x4_sha256").items()
+    assert "x4_sha256It" in name
+    assert report["shf_by_side"] == {"round": 2, "schedule": 2}
+    (loop,) = report["loops"]
+    assert (loop["from"], loop["to"], loop["instructions"]) == (16, 112, 7)
+    assert (loop["lds"], loop["opcodes"]["IMAD"]) == (1, 1)
