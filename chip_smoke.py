@@ -20,12 +20,16 @@ each printing one JSON line:
              conformance classes (zip215_corpus) go through K1-K4 against
              their expected verdicts: the A-side classes (y = p + k,
              negative zero, small-order and off-curve A) decode inside
-             K1 and K3 only, the R-side ones in all four. Then K1-K4 are
-             timed at
-             3,334, 6,667 and 10,000 lanes, X1 at 10,000 (CUDA events
-             around 10 back-to-back launches, median of 5 after a
-             warm-up) beside the bound, the plain versions at 10,000, and
-             at each size K1/K3, K2/K4, K1/K2 and K3/K4 once more in turns
+             K1 and K3 only, the R-side ones in all four; X1's tables and
+             ok bits on them equal its plain version's. X1 is also
+             compared at every lane count the light path launches it at
+             (X1_LIGHT_LANES). Then K1-K4 are timed at 3,334, 6,667 and
+             10,000 lanes and X1 at each count its paths launch it at
+             (CUDA events around 10 back-to-back launches, median of 5
+             after a warm-up) beside the bound, X1 also beside its chain
+             bound (its SASS's dependent depths, clock_probe's latency
+             and clock), the plain versions at 10,000, and at each size
+             K1/K3, K2/K4, K1/K2 and K3/K4 once more in turns
              (kernels.ab).
 4. slice   — a seeded 10,000-validator ed25519 set with equal power signs a
              precommit Commit; verify_commit runs with the pubkey cache off
@@ -81,8 +85,9 @@ each printing one JSON line:
              torch.profiler, in a process of its own, for the card's idle
              share.
 
-In the slice and light phases K1-K4 must run only at lane counts the
-kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3 checks).
+In the slice and light phases K1-K4 and X1 must run only at lane counts
+the kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3
+checks; X1 builds a commit's missing keys).
 
 Then one line {"kernels": [...]} (K1-K4, X1 and X4), the card's nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failed check raises: the
@@ -116,6 +121,11 @@ N_TRUST = N_VALIDATORS // 3 + 1  # verify_commit_light_trusting's, at 1/3
 # K1-K4 run at no other count on the main paths
 COMPARED_LANES = (N_LANES, N_RAGGED, N_TIMED, N_LIGHT, N_TRUST)
 PATH_LANES = (N_TRUST, N_LIGHT, N_TIMED)  # K1-K4 are timed at each
+# X1 builds the keys a call misses: 10,000 on the slice path (prestaging,
+# the cold commit); on the light path the misses of each check, which the
+# seeded key groups fix. It is compared and timed at each.
+X1_LIGHT_LANES = (N_LIGHT, 3_344, 3_323)
+X1_PATH_LANES = (N_TIMED,) + X1_LIGHT_LANES
 RUNS = 5
 KERNEL_REPS = 10  # back-to-back launches between two CUDA events
 TAMPERED = 4321
@@ -424,6 +434,15 @@ def table8_bytes(torch, cuda_verify, s_bytes, name) -> int:
 # ----------------------------------------------------------------- phases
 
 
+def tally(torch, err, mismatches, name, got, plain) -> None:
+    """Kernel ``name``'s output against its plain version's: the largest
+    absolute difference into err, the elements that differ into
+    mismatches."""
+    diff = (got.to(torch.int64) - plain.to(torch.int64)).abs()
+    err[name] = max(err[name], int(diff.max()))
+    mismatches[name] += int((diff != 0).sum())
+
+
 def phase_kernels(torch, pool):
     from cometbft_tpu_torch.crypto import ed25519_ref as ref
     from cometbft_tpu_torch.ops import cuda_verify, curve
@@ -443,7 +462,7 @@ def phase_kernels(torch, pool):
     # evictions.
     slots = ov.PubkeyTableCache.CAPACITY + 1
     oracle = {}  # lane -> ed25519_ref verdict; larger sizes tile the lanes
-    timed_inputs = {}
+    timed_inputs, x1_inputs = {}, {}
     err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
     mismatches = dict(err)
     for n in COMPARED_LANES:
@@ -483,9 +502,7 @@ def phase_kernels(torch, pool):
             ("verify_kernel8_cached", k4,
              curve.verify_kernel8_slots(arena, arena_ok, idxs, **rsk8)),
         ):
-            diff = (got.to(torch.int64) - plain.to(torch.int64)).abs()
-            err[name] = max(err[name], int(diff.max()))
-            mismatches[name] += int((diff != 0).sum())
+            tally(torch, err, mismatches, name, got, plain)
         valid = k1.cpu().numpy() & host_ok[cols.cpu().numpy()]
         for i, verdict in expect.items():
             check(bool(valid[i]) == verdict, f"edge lane {i} verdict (n={n})")
@@ -505,16 +522,30 @@ def phase_kernels(torch, pool):
               len(expect) + len(sample), "valid_lanes": int(valid.sum())})
         if n in PATH_LANES:
             timed_inputs[n] = (a, rsk, a8, rsk8, arena, arena_ok, idxs,
-                               k1, k2, table, k3, k4)
+                               k1, k2, k3, k4)
+        if n in X1_PATH_LANES:
+            x1_inputs[n] = (a["y_a"], a["sign_a"], table)
+    # X1 at the counts only the light path launches it at, on the same
+    # tiled lanes
+    for n in sorted(set(X1_PATH_LANES) - set(COMPARED_LANES)):
+        cols = torch.arange(n, device=dev) % N_LANES
+        a = ov.unpack_on_device(wire[:, cols])
+        table, tab_ok = cuda_verify.build_pubkey_tables(a["y_a"], a["sign_a"])
+        for got, plain in zip((table, tab_ok), curve.build_pubkey_tables(
+                a["y_a"], a["sign_a"])):
+            tally(torch, err, mismatches, "build_pubkey_tables", got, plain)
+        emit({"phase": "kernels.compare", "kernel": "build_pubkey_tables",
+              "lanes": n, "mismatches": mismatches["build_pubkey_tables"]})
+        x1_inputs[n] = (a["y_a"], a["sign_a"], table)
     check_zip215(torch, dev, err, mismatches)
     check(not any(mismatches.values()), f"kernel != plain: {mismatches}")
 
-    # K1-K4 timed at each lane count the main paths launch them at, X1 and
-    # the plain versions at 10,000, on the inputs compared above; each
-    # timed kernel's last output must equal the one compared
+    # K1-K4 timed at each lane count the main paths launch them at, the
+    # plain versions at 10,000, on the inputs compared above; each timed
+    # kernel's last output must equal the one compared
     timed, by_lanes = {}, {}
     for n in PATH_LANES:
-        a, rsk, a8, rsk8, arena, arena_ok, idxs, k1, k2, table, k3, k4 = (
+        a, rsk, a8, rsk8, arena, arena_ok, idxs, k1, k2, k3, k4 = (
             timed_inputs[n])
         runs = {
             "verify_kernel": (
@@ -528,12 +559,6 @@ def phase_kernels(torch, pool):
                 lambda: curve.verify_kernel_slots(arena, arena_ok, idxs,
                                                   **rsk),
                 k2,
-            ),
-            "build_pubkey_tables": (
-                lambda: cuda_verify.build_pubkey_tables(a["y_a"],
-                                                        a["sign_a"])[0],
-                lambda: curve.build_pubkey_tables(a["y_a"], a["sign_a"]),
-                table,
             ),
             "verify_kernel8": (
                 lambda: cuda_verify.verify_kernel8(**a8),
@@ -549,8 +574,6 @@ def phase_kernels(torch, pool):
             ),
         }
         for name, (kernel, plain, compared) in runs.items():
-            if name == "build_pubkey_tables" and n != N_TIMED:
-                continue
             ms, out = time_ms(torch, kernel, KERNEL_REPS)
             check(torch.equal(out, compared), f"{name}: timed output changed")
             bound_ms, bound_by = bound(
@@ -563,8 +586,7 @@ def phase_kernels(torch, pool):
                            max_abs_err=err[name],
                            mismatches=mismatches[name])
                 timed[name] = dict(row)
-            if name in VERIFY_KERNELS:
-                by_lanes.setdefault(name, {})[n] = ms
+            by_lanes.setdefault(name, {})[n] = ms
             emit({"phase": "kernels.time", "kernel": name, "lanes": n, **row})
         # pairs once more in turns (a, b, b, a), on the same card and
         # inputs: each 8-bit kernel beside its 4-bit sibling, and each
@@ -581,7 +603,44 @@ def phase_kernels(torch, pool):
                   "ratio": (ms[1] + ms[2]) / (ms[0] + ms[3])})
     for name in VERIFY_KERNELS:
         timed[name]["ms_by_lanes"] = by_lanes[name]
+    timed["build_pubkey_tables"] = time_x1(torch, x1_inputs, err, mismatches)
     return timed
+
+
+def time_x1(torch, x1_inputs, err, mismatches):
+    """X1 timed at each lane count its paths launch it at, on the inputs
+    compared, beside its throughput bound and its chain bound (its SASS
+    and clock_probe, read here); its plain version at 10,000."""
+    from cometbft_tpu_torch.ops import build, cuda_verify, curve
+
+    name = "build_pubkey_tables"
+    probe = clock_probe(torch)
+    sass = x1_sass(build.BUILD_INFO["build_tables.cu"]["path"], probe)
+    chain_ms = x1_lane_ms(sass, probe)
+    emit({"phase": "kernels.x1.sass", **sass, "chain_bound_ms": chain_ms,
+          "warp_issue_ms": x1_lane_ms(sass, probe, "issue_cycles"),
+          "clock_probe": {k: v for k, v in probe.items() if k != "sass"}})
+    row, by_lanes = {}, {}
+    for n in sorted(set(X1_PATH_LANES)):
+        y_a, sign_a, table = x1_inputs[n]
+        ms, out = time_ms(
+            torch, lambda: cuda_verify.build_pubkey_tables(y_a, sign_a)[0],
+            KERNEL_REPS)
+        check(torch.equal(out, table), f"{name}: timed output changed")
+        bound_ms, bound_by = bound(cuda_verify, name, n)
+        line = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_share": bound_ms / ms, "chain_bound_ms": chain_ms,
+                "larger_bound_share": max(bound_ms, chain_ms) / ms}
+        if n == N_TIMED:
+            row = dict(line, plain_ms=time_ms(
+                torch, lambda: curve.build_pubkey_tables(y_a, sign_a))[0],
+                max_abs_err=err[name], mismatches=mismatches[name])
+        by_lanes[n] = ms
+        emit({"phase": "kernels.time", "kernel": name, "lanes": n, **line})
+    row["ms_by_lanes"] = by_lanes
+    row["sass"] = {k: sass[k] for k in ("instructions", "squaring",
+                                        "table_loop")}
+    return row
 
 
 def check_zip215(torch, dev, err, mismatches):
@@ -616,6 +675,9 @@ def check_zip215(torch, dev, err, mismatches):
     k3 = cuda_verify.verify_kernel8(**a8)
     k4 = cuda_verify.verify_kernel8_cached(arena, arena_ok, **rsk8, idxs=idxs)
     torch.cuda.synchronize()
+    for got, plain in zip((table, tab_ok),
+                          curve.build_pubkey_tables(a["y_a"], a["sign_a"])):
+        tally(torch, err, mismatches, "build_pubkey_tables", got, plain)
     for name, got, plain in (
         ("verify_kernel", k1, curve.verify_kernel(**a)),
         ("verify_kernel8", k3, curve.verify_kernel8(**a8)),
@@ -624,9 +686,7 @@ def check_zip215(torch, dev, err, mismatches):
         ("verify_kernel8_cached", k4,
          curve.verify_kernel8_slots(arena, arena_ok, idxs, **rsk8)),
     ):
-        diff = (got.to(torch.int64) - plain.to(torch.int64)).abs()
-        err[name] = max(err[name], int(diff.max()))
-        mismatches[name] += int((diff != 0).sum())
+        tally(torch, err, mismatches, name, got, plain)
         valid = got.cpu().numpy() & host_ok
         for i, vec in enumerate(names):
             check(bool(valid[i]) == expected[i], f"{name}: ZIP-215 {vec}")
@@ -817,7 +877,7 @@ def phase_slice(torch, pool, card):
           "device_busy_ms": busy_ms, "device_events": events,
           "idle_share": 1 - busy_ms / host_ms if events else None,
           "card": card})
-    return launches, cache, vals, commit
+    return launches, lanes, cache, vals, commit
 
 
 def make_light_chain(pool):
@@ -1069,7 +1129,7 @@ def phase_light(torch, pool, card, slice_cache):
           "device_events": events,
           "idle_share": 1 - busy_ms / host_ms if events else None,
           "card": card})
-    return launches
+    return launches, lanes
 
 
 def make_hash_block():
@@ -1126,16 +1186,84 @@ def _shift_side(opcode: str, operands: str) -> str:
     return "other"
 
 
-def _sass_summary(instrs):
+_REG = re.compile(r"\b(UR|R|UP|P)(\d+)(\.64)?")
+_NO_DEST = ("ST", "RED", "BRA", "EXIT", "BAR", "BSYNC", "BSSY", "WARPSYNC",
+            "NOP", "CALL", "RET", "YIELD", "MEMBAR", "DEPBAR", "ERRBAR")
+
+
+def _regs(operands, width=1):
+    """The registers an operand list names, a 64-bit one (R4.64) or one of
+    ``width`` as its first register and the next ones."""
+    out = []
+    for m in _REG.finditer(" ".join(operands)):
+        wide = 2 if m.group(3) else (width if m.group(1) in "RUR" else 1)
+        out += [f"{m.group(1)}{int(m.group(2)) + j}" for j in range(wide)]
+    return out
+
+
+def _dests_sources(opcode: str, operands: str):
+    """(registers written, registers read) of one SASS instruction: the
+    leading predicates and first register an instruction writes (with the
+    carry-out predicates after it), both predicates of a *SETP or PLOP3;
+    a .WIDE product writes and adds a register pair, a .64 or .128 load
+    or store moves 2 or 4."""
+    ops = [o.strip() for o in operands.split(",")] if operands.strip() else []
+    base = opcode.split(".")[0]
+    is_pred = lambda o: re.fullmatch(r"U?P(\d|T)", o) is not None
+    width = 4 if ".128" in opcode else (2 if ".64" in opcode else 1)
+    if base.startswith(_NO_DEST):
+        if base.startswith("ST") and ops:
+            return [], _regs(ops[:-1]) + _regs(ops[-1:], width)
+        return [], _regs(ops)
+    if "SETP" in base or base == "PLOP3":
+        k = 2
+    else:
+        k = 0
+        while k < len(ops) and is_pred(ops[k]):
+            k += 1
+        if k < len(ops) and re.fullmatch(r"U?R(\d+|Z)", ops[k]):
+            k += 1
+        while k < len(ops) and is_pred(ops[k]):
+            k += 1
+    if ".WIDE" in opcode:
+        return (_regs(ops[:k], 2),
+                _regs(ops[k:k + 2]) + _regs(ops[k + 2:k + 3], 2)
+                + _regs(ops[k + 3:]))
+    return _regs(ops[:k], width if base.startswith("LD") else 1), _regs(ops[k:])
+
+
+def sass_depth(instrs, cost=lambda opcode: 1):
+    """The longest chain of dependent instructions in [(addr, opcode,
+    operands)], read through registers and predicates (a loop body: one
+    turn, what enters it taken as ready): its instructions, or the sum of
+    ``cost(opcode)`` along the costliest chain."""
+    depth, best = {}, 0
+    for _, op, operands in instrs:
+        if op == "NOP":
+            continue
+        dests, srcs = _dests_sources(op, operands)
+        d = cost(op) + max((depth.get(r, 0) for r in srcs), default=0)
+        for r in dests:
+            depth[r] = d
+        best = max(best, d)
+    return best
+
+
+def _sass_summary(instrs, cost=None):
     """Counts over [(addr, opcode, operands)]: instructions (NOPs left
-    out), by opcode, SHFs by side, constant-bank-3 operands (the
-    __constant__ round constants), loads and stores, barriers."""
+    out), by opcode, 64-bit-result multiply-adds, SHFs by side,
+    constant-bank-3 operands (the __constant__ round constants), loads and
+    stores, barriers, and the longest dependent chain (sass_depth), also
+    in cycles where ``cost`` prices an opcode."""
     real = [(a, op, o) for a, op, o in instrs if op != "NOP"]
     by_op = collections.Counter(op.split(".")[0] for _, op, _ in real)
     shifts = collections.Counter(_shift_side(op, o) for _, op, o in real
                                  if op.startswith("SHF"))
     return {"instructions": len(real),
             "opcodes": dict(by_op.most_common()),
+            "imad_wide": sum(op.startswith("IMAD.WIDE") for _, op, _ in real),
+            "depth": sass_depth(real),
+            **({"chain_cycles": sass_depth(real, cost)} if cost else {}),
             "shf_by_side": dict(shifts),
             "shf_other_sample": [
                 f"{op} {o.strip()}" for _, op, o in real
@@ -1145,7 +1273,7 @@ def _sass_summary(instrs):
             "bar": by_op["BAR"]}
 
 
-def sass_report(lib_path, name_part: str) -> dict:
+def sass_report(lib_path, name_part: str, cost=None) -> dict:
     """``cuobjdump -sass`` of a built library: for each function whose
     name holds ``name_part``, _sass_summary of the whole function and of
     each loop (a backward branch: from its target to the branch)."""
@@ -1185,15 +1313,16 @@ def sass_report(lib_path, name_part: str) -> dict:
             if target is not None and target < addr:
                 body = [i for i in instrs if target <= i[0] <= addr]
                 loops.append({"from": target, "to": addr,
-                              **_sass_summary(body)})
-        report[fname] = {**_sass_summary(instrs), "loops": loops}
+                              **_sass_summary(body, cost)})
+        report[fname] = {**_sass_summary(instrs, cost), "loops": loops}
     return report
 
 
-# clock_chain.cu's modes: the latency chain (adds, IMAD adds), then the
-# rate of one instruction in eight independent chains
+# clock_chain.cu's modes: the latency chain (adds, IMAD adds), the rate of
+# one instruction in eight independent chains, the IMAD.WIDE chain
 CLOCK_MODES = ("latency", "latency_imad_adds", "rate_shf", "rate_lop3",
-               "rate_iadd3", "rate_imad")
+               "rate_iadd3", "rate_imad", "rate_imad_wide",
+               "latency_imad_wide")
 
 
 def clock_probe(torch):
@@ -1201,10 +1330,10 @@ def clock_probe(torch):
     csrc/probes/clock_chain.cu, its cycles read with clock64() and each
     launch timed with CUDA events (the median of RUNS after a warm-up):
     "latency_cycles", the dependent-issue latency of a chain of funnel
-    shifts, LOP3s and adds (and with IMAD adds), and "issue_cycles", the
-    cycles one warp takes a SHF, LOP3, IADD3 or IMAD when eight chains of
-    it run side by side. Also the probe's SASS, so each mode's
-    instructions can be checked."""
+    shifts, LOP3s and adds (and with IMAD adds; and of IMAD.WIDE.U32s),
+    and "issue_cycles", the cycles one warp takes a SHF, LOP3, IADD3, IMAD
+    or IMAD.WIDE.U32 when eight chains of it run side by side. Also the
+    probe's SASS, so each mode's instructions can be checked."""
     from cometbft_tpu_torch.ops import build
 
     lib = build.load_all(["probes/clock_chain.cu"])["clock_chain"]
@@ -1237,6 +1366,7 @@ def clock_probe(torch):
     so = build.BUILD_INFO["clock_chain.cu"]["path"]
     return {"latency_cycles": per["latency"],
             "latency_cycles_imad_adds": per["latency_imad_adds"],
+            "latency_cycles_imad_wide": per["latency_imad_wide"],
             "issue_cycles": {k[5:]: v for k, v in per.items()
                              if k.startswith("rate_")},
             "clock_ghz": statistics.median(ghz),
@@ -1268,6 +1398,62 @@ def x4_sass_counts(lib_path) -> dict:
         loops.append(row)
     return {"function": name,
             "instructions": report[name]["instructions"], "loops": loops}
+
+
+# X1's chain (csrc/build_tables.cu): A's decompression is 273 dependent
+# field operations (the sqrt chain: 255 squarings and 18 multiplications
+# from y^2 to the sqrt(-1) fix-up), then the table's 30 rounds of products,
+# 13 turns of its loop (two rounds each) and 4 rounds outside it
+X1_CHAIN_PRODUCTS = 273
+X1_TABLE_TURNS = 15
+
+
+def x1_sass(lib_path, probe) -> dict:
+    """X1's SASS: the kernel's instructions, its squaring loop (the sqrt
+    chain's fe_sq_n on fe26.cuh: a loop of 64-bit multiply-adds with no
+    shuffle, the deepest of them) and its table loop (the one with the
+    quad's shuffles), each with its instructions and its dependent chain,
+    in instructions and in cycles at clock_probe's latencies (an
+    IMAD.WIDE at its own, every other instruction at an integer add's or
+    IMAD's: a shuffle's longer latency is not counted)."""
+    wide = probe["latency_cycles_imad_wide"]
+    other = max(probe["latency_cycles"], probe["latency_cycles_imad_adds"])
+    report = sass_report(lib_path, "x1_build_tables",
+                         lambda op: wide if op.startswith("IMAD.WIDE")
+                         else other)
+    name = next(iter(report))
+    rate = probe["issue_cycles"]
+    for lp in report[name]["loops"]:
+        # one warp's issue of a turn: the FMA pipe's multiply-adds against
+        # every other instruction at its rate (an IADD3's where unprobed)
+        ops = lp["opcodes"]
+        fma = (lp["imad_wide"] * rate["imad_wide"]
+               + (ops.get("IMAD", 0) - lp["imad_wide"]) * rate["imad"])
+        rest = sum(n * rate.get(op.lower(), rate["iadd3"])
+                   for op, n in ops.items() if op != "IMAD")
+        lp["issue_cycles"] = max(fma, rest)
+    keys = ("instructions", "depth", "chain_cycles", "issue_cycles",
+            "imad_wide", "opcodes")
+    sq = [lp for lp in report[name]["loops"]
+          if not lp["opcodes"].get("SHFL") and lp["imad_wide"] >= 40]
+    table = [lp for lp in report[name]["loops"] if lp["opcodes"].get("SHFL")]
+    pick = lambda loops: ({k: max(loops, key=lambda lp: lp["depth"])[k]
+                           for k in keys} if loops else None)
+    return {"function": name, "instructions": report[name]["instructions"],
+            "squaring_loops": len(sq), "squaring": pick(sq),
+            "table_loop": pick(table)}
+
+
+def x1_lane_ms(sass, probe, key="chain_cycles") -> float:
+    """One lane's 273 sqrt-chain operations at a turn of the squaring loop
+    (fe26.cuh; a multiplication is no shorter) and its table's 30 rounds
+    at 15 turns of the table loop, each turn priced by ``key`` of x1_sass,
+    over the SM clock (clock_probe). With "chain_cycles" it is X1's chain
+    bound, the least time one lane's dependent chain allows a launch;
+    with "issue_cycles" what one warp takes to issue that stream."""
+    cycles = (X1_CHAIN_PRODUCTS * sass["squaring"][key]
+              + X1_TABLE_TURNS * sass["table_loop"][key])
+    return cycles / (probe["clock_ghz"] * 1e6)
 
 
 def x4_one_warp(torch, fn, leaves, clock_ghz, check_digests=True):
@@ -1646,13 +1832,18 @@ def phase_hash(torch, card, vals, commit):
 
 
 def check_lanes(cuda_verify, path):
-    """{kernel: sorted lane counts} of K1-K4's launches on ``path`` since
-    the last reset; each count must be one the kernels phase compared."""
-    lanes = {k: sorted(cuda_verify.LAUNCH_LANES[k]) for k in VERIFY_KERNELS}
+    """{kernel: {lane count: launches}} of K1-K4's and X1's launches on
+    ``path`` since the last reset; each count must be one the kernels
+    phase compared the kernel at."""
+    lanes = {k: dict(sorted(cuda_verify.LAUNCH_LANES[k].items()))
+             for k in cuda_verify.LAUNCH_LANES}
     for name, counts in lanes.items():
-        check(set(counts) <= set(COMPARED_LANES),
-              f"{path}: {name} ran at {counts} lanes, compared at "
-              f"{COMPARED_LANES} only")
+        compared = set(COMPARED_LANES)
+        if name == "build_pubkey_tables":
+            compared |= set(X1_PATH_LANES)
+        check(set(counts) <= compared,
+              f"{path}: {name} ran at {sorted(counts)} lanes, compared at "
+              f"{sorted(compared)} only")
     return lanes
 
 
@@ -1713,9 +1904,10 @@ def main() -> int:
 
     with get_context("spawn").Pool(WORKERS) as pool:
         timed = phase_kernels(torch, pool)
-        slice_launches, slice_cache, vals, commit = phase_slice(torch, pool,
-                                                                smi)
-        light_launches = phase_light(torch, pool, smi, slice_cache)
+        slice_launches, slice_lanes, slice_cache, vals, commit = phase_slice(
+            torch, pool, smi)
+        light_launches, light_lanes = phase_light(torch, pool, smi,
+                                                  slice_cache)
         pool.close()
         pool.join()
     hash_launches, x4_row = phase_hash(torch, smi, vals, commit)
@@ -1729,6 +1921,12 @@ def main() -> int:
     }
     # launches: on the path that runs the kernel (the slice phase for the
     # 4-bit kernels, the light phase for the 8-bit ones; X1 runs on both)
+    usage = {k: v for info in build.BUILD_INFO.values()
+             for k, v in build.ptxas_usage(info["ptxas"]).items()}
+    timed["build_pubkey_tables"].update(usage.get("x1_build_tables", {}))
+    by_lanes = {name: dict(collections.Counter(slice_lanes[name])
+                           + collections.Counter(light_lanes[name]))
+                for name in cuda_verify.LAUNCHES}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "cometbft_tpu_torch/ops/csrc/" + cuda_verify.SOURCES[name],
@@ -1736,6 +1934,7 @@ def main() -> int:
          "launches": slice_launches[name] + light_launches[name],
          "launches_by_path": {"slice": slice_launches[name],
                               "light": light_launches[name]},
+         "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",
                      "build_pubkey_tables", "verify_kernel8_cached",

@@ -1,9 +1,10 @@
 // GF(2^255 - 19) in a Hopper radix, and edwards25519 point code run by a
 // quad of threads per signature lane, for the four verify kernels: K1
 // (verify_uncached.cu), K2 (verify_cached.cu), K3 (verify8_uncached.cu)
-// and K4 (verify8_cached.cu). Only the arena builder X1 stays on the
-// reference's 13-bit limbs (ed25519.cuh), whose arena it writes bit for
-// bit.
+// and K4 (verify8_cached.cu). The arena builder X1 (build_tables.cu) runs
+// its decompression here too (decompress_xc), up to the canonical x, and
+// builds the table on the reference's 13-bit limbs (ed25519.cuh), whose
+// arena it writes bit for bit.
 //
 // ------------------------------------------------------------- the field
 // A field element is 10 limbs of 26 bits in uint32, value = sum v[i] <<
@@ -240,7 +241,7 @@ __device__ __forceinline__ bool fe_eq(const fe& a, const fe& b) {
   return fe_is_zero(fe_sub(a, b));
 }
 
-// z ** (2^252 - 3), the addition chain of ed25519.cuh's fe_pow22523.
+// z ** (2^252 - 3), the curve25519 addition chain (field.pow_2_252_m3).
 __device__ __forceinline__ fe fe_pow22523(const fe& z) {
   fe z2 = fe_sq(z);
   fe z8 = fe_sq_n(z2, 2);
@@ -301,25 +302,36 @@ __device__ __forceinline__ void stage_consts26(uint32_t* sm,
 }
 
 // ZIP-215 decompression (curve.decompress) of y (limbs <= LAZY; y >= p and
-// "negative zero" are accepted): x with the sign bit's parity, and
-// whether y decodes. Every thread of a quad runs it on the same inputs.
-__device__ __forceinline__ bool decompress_x(fe& x_out, const fe& y,
-                                             int32_t sign,
-                                             const uint32_t* sm) {
+// "negative zero" are accepted) up to the canonical x, before the sign
+// bit's parity is applied, and whether y decodes. d and sqrt(-1) are
+// paired constants (shared memory).
+__device__ __forceinline__ bool decompress_xc(fe& xc_out, const fe& y,
+                                              const uint32_t* d,
+                                              const uint32_t* sqrtm1) {
   const fe one = fe_small(1);
   const fe yy = fe_sq(y);
   const fe u = fe_sub(yy, one);
-  const fe v = fe_add(fe_mul(fe_const(sm + C_D), yy), one);
+  const fe v = fe_add(fe_mul(fe_const(d), yy), one);
   const fe v3 = fe_mul(fe_sq(v), v);
   const fe v7 = fe_mul(fe_sq(v3), v);
   fe x = fe_mul(fe_mul(u, v3), fe_pow22523(fe_mul(u, v7)));
   const fe vxx = fe_mul(v, fe_sq(x));
   const bool root_ok = fe_eq(vxx, u);
   const bool flip_ok = fe_eq(vxx, fe_neg(u));
-  x = fe_select(flip_ok, fe_mul(x, fe_const(sm + C_SQRTM1)), x);
-  const fe xc = fe_canonical(x);
-  x_out = fe_select((int32_t)(xc.v[0] & 1) != sign, fe_neg(xc), xc);
+  x = fe_select(flip_ok, fe_mul(x, fe_const(sqrtm1)), x);
+  xc_out = fe_canonical(x);
   return root_ok || flip_ok;
+}
+
+// decompress_xc, then x with the sign bit's parity. Every thread of a quad
+// runs it on the same inputs.
+__device__ __forceinline__ bool decompress_x(fe& x_out, const fe& y,
+                                             int32_t sign,
+                                             const uint32_t* sm) {
+  fe xc;
+  const bool ok = decompress_xc(xc, y, sm + C_D, sm + C_SQRTM1);
+  x_out = fe_select((int32_t)(xc.v[0] & 1) != sign, fe_neg(xc), xc);
+  return ok;
 }
 
 // ------------------------------------------------------------ quad ops

@@ -17,20 +17,22 @@ ops.curve.base_table8, which both kernels read paired to 26-bit limbs
 
 K1-K4 run on the 26-bit radix of csrc/fe26.cuh, four threads a lane, and
 K1 and K3 keep A's table in shared memory, so no wrapper allocates
-scratch; X1 stays on the reference's 13-bit limbs of csrc/ed25519.cuh, one
-thread a lane, since it writes the reference's arena. All five take the
-13-bit arrays above.
+scratch. X1 decompresses on fe26.cuh, one thread a lane, and builds the
+table four threads a lane on the reference's 13-bit limbs
+(csrc/ed25519.cuh), op for op, since it writes the reference's arena. All
+five take the 13-bit arrays above.
 
 A CPU tensor goes to the plain PyTorch version in ops/curve.py. A CUDA
 tensor launches the kernel on the current stream or raises: there is no
 fallback. Every input is checked for device, dtype, shape and contiguity,
 outputs are allocated here with ``torch.empty``, ``LAUNCHES`` counts
-each kernel's launches (and nothing else) and ``LAUNCH_LANES`` keeps the
-lane counts they ran at.
+each kernel's launches (and nothing else) and ``LAUNCH_LANES`` counts
+them by the lane count they ran at.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from functools import lru_cache
 
@@ -52,16 +54,16 @@ SOURCES = {"verify_kernel": "verify_uncached.cu",
            "verify_kernel8": "verify8_uncached.cu",
            "verify_kernel8_cached": "verify8_cached.cu"}
 
-# (field multiplications, field squarings) per lane, counted from
-# csrc/ed25519.cuh: a decompression is 19 and 255 (251 squarings in the
+# (field multiplications, field squarings) per lane, counted from the
+# reference's formulas (ops/curve.py): a decompression is 19 and 255 (251 squarings in the
 # sqrt chain; the sqrt(-1) fix-up multiply that about half the lanes take
 # is left out), the ladder 2,004 and 1,036 (64 windows of four doublings
 # at 4 + 4, a Niels add at 8 and an affine add at 7; then -R and three
 # doublings), a table build 111 and 4. The 8-bit ladder is 1,789 and
 # 1,036: the same 64 windows of four doublings and one Niels add (the B
 # add leaves the window), 32 affine adds of the fixed-base sum, one
-# complete add at 9, then -R and three doublings. The kernels in
-# csrc/fe26.cuh do the same field operations.
+# complete add at 9, then -R and three doublings. The kernels do the same
+# field operations.
 _DECOMPRESS, _LADDER, _TABLE = (19, 255), (2004, 1036), (111, 4)
 _LADDER8 = (64 * (4 * 4 + 8) + 32 * 7 + 9 + 8 + 3 * 4, 64 * 4 * 4 + 3 * 4)
 # Each operation is priced at the fewest 32-bit multiply-adds a 255-bit
@@ -104,8 +106,9 @@ TABLE8_ENTRY_BYTES = {"verify_kernel8": 4 * 3 * NLIMB // 2,
                       "verify_kernel8_cached": 4 * 3 * NLIMB // 2}
 
 
-# the lane counts each kernel was launched at since the last reset
-LAUNCH_LANES: dict[str, set[int]] = {k: set() for k in LAUNCHES}
+# each kernel's launches since the last reset, by lane count
+LAUNCH_LANES: dict[str, collections.Counter] = {
+    k: collections.Counter() for k in LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -187,7 +190,7 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")
     LAUNCHES[kernel] += 1
-    LAUNCH_LANES[kernel].add(args[-1])
+    LAUNCH_LANES[kernel][args[-1]] += 1
 
 
 def _p(t: torch.Tensor):

@@ -1,8 +1,8 @@
 """Batched GF(2^255 - 19) field arithmetic in PyTorch (int32 limbs).
 
-The plain tensor version of the field code inside the arena builder X1
-(csrc/ed25519.cuh), with the same representation so that limbs compare
-one for one (the verify kernels pair these limbs into the 26-bit ones of
+The plain tensor version of the field code of the arena builder X1's
+table (csrc/ed25519.cuh), with the same representation so that limbs
+compare one for one (the verify kernels pair these limbs into the 26-bit ones of
 csrc/fe26.cuh on load):
 
 * A field element is ``(20, *batch)`` int32 limbs of 13 bits each,

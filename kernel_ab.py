@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Variants of the verify kernels K1-K4, and an older commit's X4, beside
-the tree's, on one CUDA card.
+"""Variants of the verify kernels K1-K4, and an older commit's X4 and X1,
+beside the tree's, on one CUDA card.
 
     python3 kernel_ab.py [--sizes 3334,6667,10000] [--probe NAME ...]
-                         [--parent REV] [--only verify|x4]
+                         [--parent REV] [--only verify|x4|x1]
                          [NAME=SOURCE.cu ...]
     python3 kernel_ab.py --parent REV --extract-only
 
@@ -43,7 +43,18 @@ leaves (chip_smoke.x4_one_warp: cycles a compression), and their SASS
 is counted (chip_smoke.x4_sass_counts), with a copy of the parent's
 source whose message schedule is cut ("X4@parent_no_schedule", built
 for its SASS only): the parent's loop less that one's is its schedule.
---only verify or --only x4 runs one of the two parts.
+
+--parent REV also takes REV's csrc/build_tables.cu (with the headers it
+includes) as "X1@parent" (the C entry ed25519_build_tables has not
+changed). X1, X1@parent and the x1 probes are held against X1's plain
+version (tables limb for limb, ok bits) on chip_smoke's seeded lanes at
+1,000 lanes and at 10,000 and 5,000 (a light-phase key group), then
+timed in turns at 10,000 and 5,000 beside the throughput bound and the
+chain bound (chip_smoke.x1_lane_ms, on X1's SASS and on
+clock_probe's latency and clock from the same run); their SASS is
+summarised (chip_smoke.x1_sass).
+
+--only verify, --only x4 or --only x1 runs one of the three parts.
 
 Probes are variants generated from the tree's own sources:
 
@@ -58,6 +69,17 @@ Probes are variants generated from the tree's own sources:
                  by the C entry) in place of shared memory
   k2_block64, k4_block64    K2, K4 in two-warp blocks
   k2_block128, k4_block128  K2, K4 in four-warp blocks
+  x1_warps1, x1_warps2, x1_warps8  X1 in blocks of one, two or eight
+                 warps (8, 16 or 64 lanes; the first warp decompresses the
+                 block's lanes, so one warp decompresses 8 lanes in
+                 x1_warps1, the cost of one lane a quad throughout)
+  x1_no_adds     X1 without the table's 13 affine adds
+  x1_no_sqrt     X1 without A's sqrt chain
+  x1_dec_rot     X1 with warp ((%warpid of warp 0) / 4) % 4 decompressing
+  x1_regs255     X1 allowed 255 registers (two blocks an SM)
+  x1_phases      X1 with clock64() stamps a block: kernel_ab reads them
+                 back and reports its blocks' decompression and table
+                 cycles by how many blocks shared their SM
 
 A probe that changes what the kernel computes reports its mismatches and is
 timed all the same. Prints one JSON line a step; the last is the summary,
@@ -251,9 +273,81 @@ for _k, _src in (("k2", "verify_cached.cu"), ("k4", "verify8_cached.cu")):
             ("int BLOCK = 32;", f"int BLOCK = {_threads};"),
             ("__launch_bounds__(BLOCK, 12)",
              f"__launch_bounds__(BLOCK, {_blocks})")])
-# the parent's uncached kernels and what they include
+# X1's block of 1, 2 or 8 warps in place of 4 (and the blocks an SM
+# must hold for 10,000 lanes in one wave)
+for _warps, _blocks in ((1, 10), (2, 5), (8, 2)):
+    PROBES[f"x1_warps{_warps}"] = ("build_tables.cu", [
+        ("constexpr int WARPS = 4;", f"constexpr int WARPS = {_warps};"),
+        ("__launch_bounds__(BLOCK, 3)", f"__launch_bounds__(BLOCK, {_blocks})")])
+# X1 with a part cut, for what the other part costs (their tables are
+# wrong): the table's 13 affine adds, or A's sqrt chain (x is y's
+# canonical value)
+PROBES["x1_no_adds"] = ("build_tables.cu", [
+    ("for (int e = 2; e < 15; ++e) {", "for (int e = 2; e < 2; ++e) {")])
+PROBES["x1_no_sqrt"] = ("build_tables.cu", [(
+    """    const bool dec = f26::decompress_xc(xc, f26::fe_load13(y_a + ln, n),
+                                        s26 + S_D, s26 + S_SQRTM1);""",
+    """    xc = f26::fe_canonical(f26::fe_load13(y_a + ln, n));
+    const bool dec = true;""")])
+# X1 with the decompressing warp chosen by the block's place on its SM
+# (the hardware warp slot %warpid of warp 0, over 4), in place of warp 0
+PROBES["x1_dec_rot"] = ("build_tables.cu", [
+    ("""  const int t = threadIdx.x;
+""", """  const int t = threadIdx.x;
+  __shared__ int dec_warp;
+  if (t == 0) {
+    unsigned slot;
+    asm volatile("mov.u32 %0, %%warpid;" : "=r"(slot));
+    dec_warp = (slot >> 2) & 3;
+  }
+"""),
+    ("""  if (t < LANES) {
+    const size_t lane = base + t;""", """  if ((t >> 5) == dec_warp) {
+    const size_t lane = base + (t & 31);"""),
+    ("xs[i * LANES + t] = x.v[i];", "xs[i * LANES + (t & 31)] = x.v[i];")])
+# X1 with clock64() stamps a block (its SM, warp 0's hardware slot, its
+# start, the end of its decompression, each warp's end), read back by
+# x1_read_stamps: where a block's time goes and which blocks share an SM
+PROBES["x1_phases"] = ("build_tables.cu", [
+    ("""namespace {
+""", """__device__ long long g_stamps[4096][8];
+
+extern "C" int x1_read_stamps(long long* host, int blocks) {
+  return (int)cudaMemcpyFromSymbol(host, g_stamps,
+                                   sizeof(long long) * 8 * blocks);
+}
+
+namespace {
+"""),
+    ("""  const int t = threadIdx.x;
+""", """  const int t = threadIdx.x;
+  long long* const stamp = g_stamps[blockIdx.x];
+  if (t == 0) {
+    unsigned sm, slot;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    asm volatile("mov.u32 %0, %%warpid;" : "=r"(slot));
+    stamp[0] = clock64();
+    stamp[6] = sm;
+    stamp[7] = slot;
+  }
+"""),
+    ("""    if (lane < (size_t)n) ok[lane] = dec ? 1 : 0;
+  }
+""", """    if (lane < (size_t)n) ok[lane] = dec ? 1 : 0;
+    if (t == 0) stamp[1] = clock64();
+  }
+"""),
+    ("""  store(15, round_a(p, m, c, r, dz));
+}""", """  store(15, round_a(p, m, c, r, dz));
+  if ((t & 31) == 0) stamp[2 + (t >> 5)] = clock64();
+}""")])
+# X1 with the register cap of two blocks an SM (255) in place of three
+PROBES["x1_regs255"] = ("build_tables.cu", [
+    ("__launch_bounds__(BLOCK, 3)", "__launch_bounds__(BLOCK, 2)")])
+# the parent's uncached kernels, X4, X1 and what they include
 PARENT_FILES = ("verify_uncached.cu", "verify8_uncached.cu",
-                "kernel_common.cuh", "ed25519.cuh", "sha256.cu")
+                "kernel_common.cuh", "ed25519.cuh", "sha256.cu",
+                "build_tables.cu")
 # the one-thread X4's schedule, cut for a SASS count without it
 X4_NO_SCHEDULE = ("    if (t >= 16) {\n", "    if (false) {\n")
 # X4's path shapes: (name, block bucket, lane bucket)
@@ -280,20 +374,28 @@ def probe_source(name: str, csrc: Path) -> Path:
 
 
 def parent_sources(rev: str) -> Path:
-    """The parent's K1/K3 sources and headers under build/ab/parent-REV/,
-    from `git show` unless they are there already."""
+    """The parent's K1/K3, X4 and X1 sources and headers under
+    build/ab/parent-REV/, from `git show` unless they are there already
+    (the file FILES lists what was extracted). A header REV does not have
+    (kernel_common.cuh went in PR 7) is left out."""
     out = OUT / f"parent-{rev}"
-    if all((out / f).exists() for f in PARENT_FILES):
+    if (out / "FILES").exists():
         return out
     if not (ROOT / ".git").exists():
         raise SystemExit(f"{out} is missing and {ROOT} is no git checkout: "
                          f"run --parent {rev} --extract-only where it is")
     out.mkdir(parents=True, exist_ok=True)
+    got = []
     for f in PARENT_FILES:
-        text = subprocess.run(["git", "show", f"{rev}:{CSRC_REL}/{f}"],
-                              cwd=ROOT, capture_output=True, check=True,
-                              text=True).stdout
-        (out / f).write_text(text)
+        proc = subprocess.run(["git", "show", f"{rev}:{CSRC_REL}/{f}"],
+                              cwd=ROOT, capture_output=True, text=True)
+        if proc.returncode == 0:
+            (out / f).write_text(proc.stdout)
+            got.append(f)
+        elif f != "kernel_common.cuh":
+            raise SystemExit(f"git show {rev}:{CSRC_REL}/{f}: "
+                             f"{proc.stderr.strip()}")
+    (out / "FILES").write_text("\n".join(got) + "\n")
     return out
 
 
@@ -466,6 +568,137 @@ def x4_ab(torch, cs, dev, x4_libs, smi):
     cs.emit({"x4_summary": summary, "card": smi})
 
 
+def x1_entry(lib_path, consts):
+    """fn(y_a, sign_a) -> (table (16, 4, 20, M), ok (M,)) through the C
+    entry ed25519_build_tables of a built X1 library, on the current
+    stream."""
+    import torch
+
+    fn = ctypes.CDLL(str(lib_path)).ed25519_build_tables
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(y_a, sign_a):
+        m = y_a.shape[1]
+        table = torch.empty((16, 4, 20, m), dtype=torch.int32,
+                            device=y_a.device)
+        ok = torch.empty(m, dtype=torch.bool, device=y_a.device)
+        stream = torch.cuda.current_stream(y_a.device).cuda_stream
+        err = fn(y_a.data_ptr(), sign_a.data_ptr(), consts.data_ptr(),
+                 table.data_ptr(), ok.data_ptr(), m, stream)
+        if err:
+            raise RuntimeError(f"{lib_path.name}: cudaError {err}")
+        return table, ok
+    return run
+
+
+X1_SIZES = (10_000, 5_000)  # the slice path's builds, a light key group
+
+
+def x1_phases(lib_path, n, probe):
+    """The x1_phases probe's stamps of its last launch at n lanes: each
+    block's decompression (start to warp 0's end of it) and table (that to
+    the last warp's end) in cycles, by how many blocks shared its SM, the
+    longest span of an SM's blocks, and how often co-resident blocks'
+    warp 0 sat on the same slot modulo 4 (SM clocks are not synchronised,
+    so only cycles on one SM are compared)."""
+    import collections
+    import statistics
+
+    blocks = (n + 31) // 32
+    buf = (ctypes.c_longlong * (8 * blocks))()
+    fn = ctypes.CDLL(str(lib_path)).x1_read_stamps
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    if fn(ctypes.addressof(buf), blocks):
+        raise RuntimeError("x1_read_stamps failed")
+    rows = [buf[8 * b: 8 * b + 8] for b in range(blocks)]
+    by_sm = collections.defaultdict(list)
+    for r in rows:
+        by_sm[r[6]].append(r)
+    out = {}
+    for k in sorted({len(v) for v in by_sm.values()}):
+        group = [r for v in by_sm.values() if len(v) == k for r in v]
+        dec = [r[1] - r[0] for r in group]
+        table = [max(r[2:6]) - r[1] for r in group]
+        span = [max(max(r[2:6]) for r in v) - min(r[0] for r in v)
+                for v in by_sm.values() if len(v) == k]
+        same = sum(len({r[7] % 4 for r in v}) < len(v)
+                   for v in by_sm.values() if len(v) == k)
+        out[f"{k}_blocks_an_sm"] = {
+            "sms": sum(len(v) == k for v in by_sm.values()),
+            "dec_cycles_median": statistics.median(dec),
+            "dec_cycles_max": max(dec),
+            "table_cycles_median": statistics.median(table),
+            "table_cycles_max": max(table),
+            "sm_span_cycles_max": max(span),
+            "sms_with_warp0_slots_sharing_mod4": same}
+    out["clock_ghz"] = probe["clock_ghz"]
+    return out
+
+
+def x1_ab(torch, cs, dev, x1_libs, smi):
+    """The tree's X1 against X1@parent and the x1 probes: held against the
+    plain version at 1,000 lanes and at X1_SIZES, then timed in turns at
+    X1_SIZES beside the throughput and chain bounds."""
+    from cometbft_tpu_torch.ops import build, cuda_verify, curve
+    from cometbft_tpu_torch.ops import verify as ov
+
+    probe = cs.clock_probe(torch)
+    tree_lib = build.BUILD_INFO["build_tables.cu"]["path"]
+    sass = {"X1": cs.x1_sass(tree_lib, probe),
+            **{k: cs.x1_sass(so, probe) for k, so in x1_libs.items()}}
+    chain_ms = cs.x1_lane_ms(sass["X1"], probe)
+    cs.emit({"x1": "sass", **sass, "chain_bound_ms": chain_ms, "card": smi,
+             "warp_issue_ms": cs.x1_lane_ms(sass["X1"], probe, "issue_cycles"),
+             "clock_probe": {k: v for k, v in probe.items() if k != "sass"}})
+    consts = cuda_verify._consts(dev)
+    runs = {"X1": x1_entry(tree_lib, consts),
+            **{k: x1_entry(so, consts) for k, so in x1_libs.items()}}
+    probes = [k for k in x1_libs if k.startswith("x1")]
+    with get_context("spawn").Pool(cs.WORKERS) as pool:
+        pks, msgs, sigs, _ = cs.make_lanes(pool)
+    buf, _ = ov.pack_bytes(pks, msgs, sigs)
+    wire = torch.from_numpy(buf).to(dev)
+    summary = {}
+    for n in (cs.N_RAGGED,) + X1_SIZES:
+        cols = torch.arange(n, device=dev) % cs.N_LANES
+        a = ov.unpack_on_device(wire[:, cols])
+        y_a, sign_a = a["y_a"], a["sign_a"]
+        plain = curve.build_pubkey_tables(y_a, sign_a)
+        outs = {k: fn(y_a, sign_a) for k, fn in runs.items()}
+        torch.cuda.synchronize()
+        mismatches = {k: sum(int((o != p).sum()) for o, p in zip(out, plain))
+                      for k, out in outs.items()}
+        cs.emit({"x1": "compare", "lanes": n, "mismatches": mismatches})
+        cs.check(not (mismatches["X1"] or mismatches["X1@parent"]),
+                 f"X1 != plain: {mismatches}")
+        if n == cs.N_RAGGED:
+            continue
+        group = ["X1", *probes, "X1@parent"]
+        ms = {}
+        for name in group + group[::-1]:
+            t, out = cs.time_ms(torch, lambda fn=runs[name]: fn(y_a, sign_a)[0],
+                                cs.KERNEL_REPS)
+            cs.check(name in probes or torch.equal(out, outs[name][0]),
+                     f"{name} at {n}: timed output changed")
+            ms.setdefault(name, []).append(t)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        bound_ms, bound_by = cs.bound(cuda_verify, "build_pubkey_tables", n)
+        summary[n] = {
+            "ms": mean, "new_over_parent": mean["X1"] / mean["X1@parent"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "chain_bound_ms": chain_ms, "share_of_larger_bound": {
+                k: max(bound_ms, chain_ms) / v for k, v in mean.items()}}
+        cs.emit({"x1": "time", "lanes": n, "order": group + group[::-1],
+                 "ms_in_turns": ms, **summary[n]})
+        if "x1_phases" in x1_libs:
+            runs["x1_phases"](y_a, sign_a)
+            torch.cuda.synchronize()
+            cs.emit({"x1": "phases", "lanes": n,
+                     **x1_phases(x1_libs["x1_phases"], n, probe)})
+    cs.emit({"x1_summary": summary, "card": smi})
+
+
 def verify_ab(torch, cs, dev, entries, parents, sizes, smi):
     """K1-K4 and their variants: held against the plain versions, then
     timed in turns at each size."""
@@ -583,9 +816,9 @@ def main() -> int:
     ap.add_argument("--probe", action="append", default=[],
                     choices=sorted(PROBES))
     ap.add_argument("--parent", metavar="REV",
-                    help="also time K1, K3 and X4 of commit REV")
-    ap.add_argument("--only", choices=("verify", "x4"),
-                    help="run only the verify kernels' or X4's part")
+                    help="also time K1, K3, X4 and X1 of commit REV")
+    ap.add_argument("--only", choices=("verify", "x4", "x1"),
+                    help="run only the verify kernels', X4's or X1's part")
     ap.add_argument("--extract-only", action="store_true",
                     help="write the --parent sources and exit")
     ap.add_argument("variants", nargs="*", metavar="NAME=SOURCE.cu")
@@ -608,29 +841,34 @@ def main() -> int:
     for name in variants:
         if not name.startswith(("k1", "k2", "k3", "k4")):
             raise SystemExit(f"{name}: a variant's name starts with k1-k4")
-    x4_probes = {}
+    x4_probes, x1_probes = {}, {}
     for name in args.probe:
         if name.startswith("x4"):
             x4_probes[name] = probe_source(name, build.CSRC)
+        elif name.startswith("x1"):
+            x1_probes[name] = probe_source(name, build.CSRC)
         else:
             variants[name] = probe_source(name, build.CSRC)
-    if (x4_probes or args.only == "x4") and not (
-            args.parent and args.only != "verify"):
-        raise SystemExit("X4's part (--only x4, an x4 probe) needs "
-                         "--parent REV")
-    parents, x4_sources = [], {}
+    for part, probes in (("x4", x4_probes), ("x1", x1_probes)):
+        if (probes or args.only == part) and not (
+                args.parent and args.only in (None, part)):
+            raise SystemExit(f"{part}'s part (--only {part}, an {part} "
+                             "probe) needs --parent REV")
+    parents, x4_sources, x1_sources = [], {}, {}
     if args.parent:
         pdir = parent_sources(args.parent)
-        if args.only != "x4":
+        if args.only in (None, "verify"):
             variants["K1@parent"] = pdir / "verify_uncached.cu"
             variants["K3@parent"] = pdir / "verify8_uncached.cu"
             parents = ["K1@parent", "K3@parent"]
-        if args.only != "verify":
+        if args.only in (None, "x4"):
             x4_sources = {"X4@parent": pdir / "sha256.cu",
                           "X4@parent_no_schedule": no_schedule_source(pdir),
                           **x4_probes}
-    if args.only == "x4" and variants:
-        raise SystemExit("--only x4 takes no verify variants")
+        if args.only in (None, "x1"):
+            x1_sources = {"X1@parent": pdir / "build_tables.cu", **x1_probes}
+    if args.only in ("x4", "x1") and variants:
+        raise SystemExit(f"--only {args.only} takes no verify variants")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -641,11 +879,14 @@ def main() -> int:
     t0 = time.perf_counter()
     if args.only == "x4":
         build.load_all(["sha256.cu"])
+    elif args.only == "x1":
+        build.load_all(["build_tables.cu"])
     else:
         cuda_verify._entries()
-    with ThreadPoolExecutor(max(1, len(variants) + len(x4_sources))) as pool:
+    others = {**variants, **x4_sources, **x1_sources}
+    with ThreadPoolExecutor(max(1, len(others))) as pool:
         built = list(pool.map(lambda kv: nvcc(build, build.CSRC, *kv),
-                              {**variants, **x4_sources}.items()))
+                              others.items()))
     cs.emit({"build_s": time.perf_counter() - t0,
              "tree": {k: v for info in build.BUILD_INFO.values()
                       for k, v in build.ptxas_usage(info["ptxas"]).items()},
@@ -654,12 +895,15 @@ def main() -> int:
              "variants": {n: {"nvcc_s": s, "ptxas": u}
                           for n, _, s, u in built}})
     entries = {name: bind(name, ctypes.CDLL(str(so)))
-               for name, so, _, _ in built if name not in x4_sources}
+               for name, so, _, _ in built if name in variants}
     x4_libs = {name: so for name, so, _, _ in built if name in x4_sources}
-    if args.only != "x4":
+    x1_libs = {name: so for name, so, _, _ in built if name in x1_sources}
+    if args.only in (None, "verify"):
         verify_ab(torch, cs, dev, entries, parents, sizes, smi)
     if x4_sources:
         x4_ab(torch, cs, dev, x4_libs, smi)
+    if x1_sources:
+        x1_ab(torch, cs, dev, x1_libs, smi)
     return 0
 
 

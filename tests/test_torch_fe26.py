@@ -13,7 +13,8 @@
     that yields at each ``__shfl_sync`` and ``__syncthreads``, so the quad
     kernels K1-K4 themselves run on a few lanes against their plain
     versions and the oracle. (tests/test_torch_hashplane.py runs X4 on the
-    same stub, whose named barriers it emulates too.)
+    same stub, whose named barriers it emulates too, and
+    tests/test_torch_x1.py the arena builder X1.)
 """
 
 import ctypes

@@ -92,3 +92,63 @@ def test_sass_report_sides_rotations_by_amount(monkeypatch):
     (loop,) = report["loops"]
     assert (loop["from"], loop["to"], loop["instructions"]) == (16, 112, 7)
     assert (loop["lds"], loop["opcodes"]["IMAD"]) == (1, 1)
+
+
+def _x1_sass():
+    """An X1-like listing: a loop of 64-bit multiply-adds (three chained
+    through R4:R5, 37 on their own, then an add of the result) and a loop
+    with a shuffle feeding two multiply-adds and a store."""
+    lines = ["\t\tFunction : x1_build_tables",
+             "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+             ".L_x_1:"]
+    body = ["IMAD.WIDE.U32 R4, R10, R11, R4"] * 3
+    body += [f"IMAD.WIDE.U32 R{20 + 2 * k}, R10, R11, RZ" for k in range(37)]
+    body += ["IADD3 R6, R4, R5, RZ", "@!P0 BRA `(.L_x_1)",
+             "SHFL.IDX PT, R30, R6, R7, 0x1c1f", "IMAD R31, R30, R30, RZ",
+             "IMAD R32, R31, R31, RZ", "STG.E desc[UR4][R2.64], R32",
+             "@!P1 BRA `(.L_x_2)", "EXIT"]
+    for i, ins in enumerate(body, start=1):
+        if ins.startswith("SHFL"):
+            lines.append(".L_x_2:")
+        lines.append(f"        /*{16 * i:04x}*/                   {ins} ;")
+    return "\n".join(lines) + "\n"
+
+
+def test_x1_chain_bound_reads_register_dependences(monkeypatch):
+    """X1's chain bound in PERF.md: a SASS loop's longest chain follows the
+    registers an instruction writes and reads (a .WIDE pair, a .64
+    address, predicates), each step priced at its opcode's latency, and
+    one warp's issue of a turn is the busier of the FMA pipe and the rest;
+    273 squaring turns and 15 table turns over the clock."""
+    cs = _chip_smoke()
+    from cometbft_tpu_torch.ops import build
+
+    assert cs._dests_sources("IMAD.WIDE.U32", "R4, R6, R7, R4") == (
+        ["R4", "R5"], ["R6", "R7", "R4", "R5"])
+    assert cs._dests_sources("IADD3", "R4, P0, PT, R6, R7, RZ") == (
+        ["R4", "P0"], ["R6", "R7"])
+    assert cs._dests_sources("IADD3.X", "R5, R6, R7, RZ, P0, !PT") == (
+        ["R5"], ["R6", "R7", "P0"])
+    assert cs._dests_sources("SHFL.IDX", "PT, R5, R4, R3, 0x1c1f") == (
+        ["R5"], ["R4", "R3"])
+    assert cs._dests_sources("ISETP.GE.AND", "P0, PT, R2, R3, PT") == (
+        ["P0"], ["R2", "R3"])
+    assert cs._dests_sources("STS.128", "[R3], R8") == (
+        [], ["R3", "R8", "R9", "R10", "R11"])
+    monkeypatch.setattr(build, "nvcc_path", lambda: "/nowhere/bin/nvcc")
+    monkeypatch.setattr(cs.subprocess, "run",
+                        lambda *a, **k: type("P", (), {"stdout": _x1_sass()})())
+    probe = {"latency_cycles": 5.0, "latency_cycles_imad_adds": 4.0,
+             "latency_cycles_imad_wide": 10.0, "clock_ghz": 2.0,
+             "issue_cycles": {"shf": 2.0, "lop3": 3.0, "iadd3": 2.0,
+                              "imad": 2.0, "imad_wide": 6.0}}
+    sass = cs.x1_sass("lib.so", probe)
+    sq, table = sass["squaring"], sass["table_loop"]
+    assert sass["squaring_loops"] == 1
+    assert (sq["instructions"], sq["imad_wide"], sq["depth"]) == (42, 40, 4)
+    assert sq["chain_cycles"] == 3 * 10.0 + 5.0
+    assert sq["issue_cycles"] == 40 * 6.0
+    assert (table["instructions"], table["depth"]) == (5, 4)
+    assert table["chain_cycles"] == 4 * 5.0
+    assert table["issue_cycles"] == 3 * 2.0
+    assert cs.x1_lane_ms(sass, probe) == (273 * 35.0 + 15 * 20.0) / 2e6
