@@ -55,7 +55,38 @@ each printing one JSON line:
              keys make the arena evict), and with a tampered signature in
              1010's commit, which must fail 1009 -> 1010. K3, K4 and X1 must
              each launch in this phase, K1 and K2 not at all.
-6. hash    — the SHA-256 hash plane on one seeded default block: 21 MiB
+6. vote    — the steady-state vote path on the slice phase's commit cell.
+             First a warm default-argument verify_commit and both packers
+             on its 10,000 lanes (native ops.verify.pack_bytes and the
+             Python loop pack_bytes_plain, bytes equal, times printed);
+             then the crossover sweep: host_batch.verify_many against one
+             coalescer-shaped device window (native pack, arena lookup, K2
+             through a LaneArena, readback) at 8-2,048 lanes of the
+             prestaged set, in turns, RUNS each, medians and the first
+             count where the card wins (crypto.batch's seed cut). Then the
+             path, through pushed VerifyCoalescer(device="cuda")s: (3) the
+             commit's 10,000 precommits, one tampered, each through
+             Vote.verify from 64 threads, verdicts equal to
+             host_batch.verify_many's and the tampered one rejected, once
+             with the card's cut adapting (the default) and once held at
+             its seed (which must put windows on the card), each with the
+             crossover's fit before and after; (4)
+             BASELINE config 3: a fresh prestaged 1,000-validator set's
+             prevote and precommit rounds (one tampered vote each), each
+             vote through add_vote from 50 peer threads, then the same
+             votes through add_votes_batch in 50-vote chunks on a second
+             set, decisions equal, 2/3 reached, and make_commit passing
+             verify_commit; (5) BASELINE config 2: a 150-validator commit
+             unrouted and routed, a tampered signature named alike. Each
+             prints its windows on the card and on the host, windows by
+             lane count and its host ms. Every K1/K2 launch of the path is
+             recorded (WindowRecorder) and held against the plain version
+             on its own window's lanes (the windows that share an arena
+             through one plain call, each compared on its slice); K1/K2
+             may launch on the path only at counts so compared. Last,
+             part 3 at the seed once more under torch.profiler in a
+             process of its own, for the card's idle share.
+7. hash    — the SHA-256 hash plane on one seeded default block: 21 MiB
              (BlockParams.max_bytes, 22,020,096 B, 336 parts of 64 KiB) of
              10,752 txs of 2,048 B. First X4's kernels check (the lines
              kernels.x4*): X4 against hashlib on every lane and
@@ -87,7 +118,8 @@ each printing one JSON line:
 
 In the slice and light phases K1-K4 and X1 must run only at lane counts
 the kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3
-checks; X1 builds a commit's missing keys).
+checks; X1 builds a commit's missing keys); in the vote phase K1 and K2
+only at the counts of its own compared windows.
 
 Then one line {"kernels": [...]} (K1-K4, X1 and X4), the card's nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failed check raises: the
@@ -1132,6 +1164,548 @@ def phase_light(torch, pool, card, slice_cache):
     return launches, lanes
 
 
+# ------------------------------------------------------------------- vote
+# The steady-state vote path: Vote.verify, VoteSet.add_vote and
+# add_votes_batch through a pushed VerifyCoalescer(device="cuda").
+SWEEP_LANES = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+VOTE_THREADS = 64  # single-vote callers of part 3
+VOTE_TAMPERED = 2718
+ROUND_VALIDATORS = 1_000  # BASELINE config 3
+PEER_THREADS = 50
+GOSSIP_CHUNK = 50
+ROUND_TAMPERED = 777
+SMALL_VALIDATORS = 150  # BASELINE config 2
+SMALL_TAMPERED = 77
+
+
+class WindowRecorder:
+    """Records every launch of ops.verify's two launchers while it is
+    entered: the kernel, its wire inputs and the verdicts read back, so
+    that each device window of the vote path is held against the plain
+    version on its own lanes afterwards (compare_windows)."""
+
+    KERNELS = {"verify_rsk_async": "verify_kernel_cached",
+               "verify_bytes_async": "verify_kernel"}
+
+    def __init__(self, ov):
+        self.ov = ov
+        self.records = []
+        self._saved = {}
+
+    def __enter__(self):
+        for name in self.KERNELS:
+            self._saved[name] = getattr(self.ov, name)
+            setattr(self.ov, name, self._wrap(name, self._saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.ov, name, fn)
+
+    def _wrap(self, name, real):
+        def launcher(*args, **kwargs):
+            flavor = kwargs.get("flavor")
+            if name == "verify_rsk_async":
+                buf, idxs, arena, arena_ok, n = args[:5]
+                flavor = args[5] if len(args) > 5 else flavor
+                rec = {"kernel": self.KERNELS[name], "lanes": n, "buf": buf,
+                       "idxs": idxs, "arena": arena, "arena_ok": arena_ok,
+                       "device": arena.device}
+            else:
+                buf, n = args[:2]
+                flavor = args[3] if len(args) > 3 else flavor
+                rec = {"kernel": self.KERNELS[name], "lanes": n, "buf": buf,
+                       "device": args[2] if len(args) > 2
+                       else kwargs.get("device", "cuda")}
+            rec["flavor"] = self.ov.kernel_flavor(flavor)
+            finish = real(*args, **kwargs)
+            self.records.append(rec)
+
+            def materialize():
+                rec["got"] = out = finish()
+                return out
+            return materialize
+        return launcher
+
+
+def window_record(rec) -> dict:
+    """What the vote phase prints of one recorded window."""
+    return {"kernel": rec["kernel"], "lanes": rec["lanes"],
+            "flavor": rec["flavor"], "read_back": "got" in rec,
+            "mismatches": rec.get("mismatches")}
+
+
+def compare_windows(torch, records, err, mismatches):
+    """Each recorded window against its kernel's plain version on the
+    card, on the window's own wire rows (and arena): the elements that
+    differ into rec["mismatches"] and ``mismatches``, the largest
+    difference into ``err``. The plain versions' cost is their launches,
+    not their lanes, so the windows that share an arena (or, uncached, a
+    device) run through one plain call, each compared on its own slice.
+    Returns {kernel: set of lane counts compared}."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import curve
+    from cometbft_tpu_torch.ops import verify as ov
+
+    groups = collections.defaultdict(list)
+    for rec in records:
+        check("got" in rec, f"a {rec['kernel']} window was never read back")
+        check(rec["flavor"] == "4", "the vote path runs the 4-bit flavor")
+        key = id(rec["arena"]) if "arena" in rec else str(rec["device"])
+        groups[(rec["kernel"], key)].append(rec)
+    compared = collections.defaultdict(set)
+    for (name, _), recs in groups.items():
+        dev = recs[0]["device"]
+        rows = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+            [r["buf"] for r in recs], axis=1))).to(dev)
+        if name == "verify_kernel_cached":
+            idxs = torch.from_numpy(np.concatenate(
+                [np.asarray(r["idxs"], np.uint16) for r in recs])
+                .view(np.int16)).to(dev)
+            plain = curve.verify_kernel_slots(
+                recs[0]["arena"], recs[0]["arena_ok"], idxs,
+                **ov._unpack_rsk_on_device(rows)).cpu()
+        else:
+            plain = curve.verify_kernel(**ov.unpack_on_device(rows)).cpu()
+        lo = 0
+        for rec in recs:
+            got = torch.from_numpy(np.asarray(rec["got"], bool))
+            before = mismatches[name]
+            tally(torch, err, mismatches, name, got,
+                  plain[lo : lo + rec["lanes"]])
+            rec["mismatches"] = mismatches[name] - before
+            compared[name].add(rec["lanes"])
+            lo += rec["lanes"]
+    return compared
+
+
+def run_vote_callers(votes, keys, threads):
+    """Vote.verify(CHAIN_ID, key) of every vote from a pool of ``threads``:
+    (per vote True, or False where it raised VoteError; host seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cometbft_tpu_torch.types.vote import VoteError
+
+    def one(i):
+        try:
+            votes[i].verify(CHAIN_ID, keys[i])
+        except VoteError:
+            return False
+        return True
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        verdicts = list(ex.map(one, range(len(votes))))
+    return verdicts, time.perf_counter() - t
+
+
+def commit_votes(commit, tampered=None):
+    """The precommits a commit was made from, one Vote a signature; the
+    one at ``tampered`` with a flipped signature byte."""
+    from cometbft_tpu_torch.types.canonical import PRECOMMIT_TYPE
+    from cometbft_tpu_torch.types.vote import Vote
+
+    votes = []
+    for i, cs in enumerate(commit.signatures):
+        sig = cs.signature
+        if i == tampered:
+            sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+        votes.append(Vote(PRECOMMIT_TYPE, commit.height, commit.round,
+                          commit.block_id, cs.timestamp_ns,
+                          cs.validator_address, i, sig))
+    return votes
+
+
+def make_validators(pool, tag: bytes, n: int):
+    """(ValidatorSet of n seeded keys, power 100; seed by address)."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    seeds = [_seed(tag, i) for i in range(n)]
+    pubs = _pool_map(pool, _pubkey_chunk, seeds)
+    vals = ValidatorSet([Validator(Ed25519PubKey(p), 100) for p in pubs])
+    return vals, {Ed25519PubKey(p).address(): s for p, s in zip(pubs, seeds)}
+
+
+def make_round_votes(pool, vals, seed_of, msg_type, block_id, tampered):
+    """Every validator's signed vote of ``msg_type`` for ``block_id`` at
+    HEIGHT, round 0; the one at ``tampered`` with a flipped byte."""
+    from cometbft_tpu_torch.types.vote import Vote
+
+    votes = [Vote(msg_type, HEIGHT, 0, block_id,
+                  1_760_000_000_000_000_000 + 131 * i + msg_type,
+                  v.address, i) for i, v in enumerate(vals.validators)]
+    signed = _pool_map(pool, _sign_chunk, [
+        (seed_of[v.validator_address], v.sign_bytes(CHAIN_ID))
+        for v in votes])
+    for i, (v, (_, sig)) in enumerate(zip(votes, signed)):
+        v.signature = (sig if i != tampered else
+                       sig[:40] + bytes([sig[40] ^ 1]) + sig[41:])
+    return votes
+
+
+def make_small_commit(pool, vals, seed_of, block_id):
+    from cometbft_tpu_torch.types import block
+
+    unsigned = [block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, v.address,
+                                1_760_000_000_000_000_000 + 17 * i)
+                for i, v in enumerate(vals.validators)]
+    commit = block.Commit(HEIGHT, 0, block_id, unsigned)
+    signed = _pool_map(pool, _sign_chunk, [
+        (seed_of[cs.validator_address], commit.vote_sign_bytes(CHAIN_ID, i))
+        for i, cs in enumerate(unsigned)])
+    commit.signatures = [
+        block.CommitSig(cs.block_id_flag, cs.validator_address,
+                        cs.timestamp_ns, sig)
+        for cs, (_, sig) in zip(unsigned, signed)]
+    return commit
+
+
+def crossing(sweep):
+    """The first swept lane count at which the device window's median is
+    below the host batch's, or None when the host wins at every count."""
+    for n, host_ms, device_ms in sweep:
+        if device_ms < host_ms:
+            return n
+    return None
+
+
+def vote_sweep(torch, vals, commit):
+    """host_batch.verify_many against one coalescer-shaped device window
+    (native pack, arena lookup, K2 through a lane arena, readback) on the
+    first n lanes of the prestaged commit, in turns, RUNS each: [(n, host
+    median ms, device median ms)]."""
+    from cometbft_tpu_torch.crypto import host_batch
+    from cometbft_tpu_torch.ops import verify as ov
+
+    pubs = [v.pub_key.data for v in vals.validators]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pubs))]
+    sigs = [cs.signature for cs in commit.signatures]
+    cache = ov.pubkey_cache("cuda")
+    lanes = ov.LaneArena("cuda")
+
+    def host(n):
+        return host_batch.verify_many(pubs[:n], msgs[:n], sigs[:n])
+
+    def device(n):
+        buf, ok = ov.pack_bytes(pubs[:n], msgs[:n], sigs[:n])
+        idxs, arena, arena_ok = cache.lookup(pubs[:n])
+        return ov.verify_rsk_async(buf[32:], idxs, arena, arena_ok, n,
+                                   lanes=lanes)() & ok
+
+    sweep = []
+    for n in SWEEP_LANES:
+        check(all(host(n)) and bool(device(n).all()),
+              f"sweep: a valid lane rejected at {n}")
+        times = {"host": [], "device": []}
+        for turn in range(RUNS):
+            order = ("host", "device") if turn % 2 == 0 else ("device", "host")
+            for side in order:
+                t = time.perf_counter()
+                (host if side == "host" else device)(n)
+                times[side].append(1e3 * (time.perf_counter() - t))
+        sweep.append((n, statistics.median(times["host"]),
+                      statistics.median(times["device"])))
+    return sweep
+
+
+def _traced_votes(pubs, votes):
+    """Worker: the 10,000 single-vote callers once more, through a warm
+    pushed VerifyCoalescer(device="cuda") with the cut held at its seed,
+    under torch.profiler: (host ms, card-busy ms, device events, windows
+    on the card, windows, the cut)."""
+    import torch
+
+    os.environ["COMETBFT_TPU_ADAPTIVE_THRESHOLD"] = "0"
+
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.crypto import coalesce
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.ops import verify as ov
+
+    keys = [Ed25519PubKey(p) for p in pubs]
+    ov.prestage_pubkeys(pubs, device="cuda")
+    co = coalesce.VerifyCoalescer(device="cuda")
+    co.start()
+    coalesce.push_active(co)
+    try:
+        run_vote_callers(votes[:2000], keys[:2000], VOTE_THREADS)  # warm
+        windows0, device0 = co.windows, co.device_windows
+        traced = device_busy_ms(
+            torch, lambda: run_vote_callers(votes, keys, VOTE_THREADS))
+        return (*traced, co.device_windows - device0, co.windows - windows0,
+                crypto_batch.host_batch_threshold("cuda"))
+    finally:
+        coalesce.pop_active(co)
+        co.stop()
+
+
+def phase_vote(torch, pool, card, vals, commit):
+    """The steady-state vote path (see the module docstring, phase 6).
+    Returns ({kernel: launches}, {kernel: {lanes: launches}}, the window
+    comparisons' (err, mismatches))."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.crypto import coalesce, host_batch
+    from cometbft_tpu_torch.ops import cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.types import block, canonical, validation
+    from cometbft_tpu_torch.types.vote_set import VoteSet
+
+    # 1. the native packer on the commit path: a warm default-argument
+    # verify_commit, then both packers on its 10,000 lanes
+    pubs = [v.pub_key.data for v in vals.validators]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pubs))]
+    sigs = [cs.signature for cs in commit.signatures]
+    t = time.perf_counter()
+    validation.verify_commit(CHAIN_ID, vals, commit.block_id, HEIGHT, commit)
+    commit_ms = 1e3 * (time.perf_counter() - t)
+    packs = {}
+    for name, fn in (("pack_bytes", ov.pack_bytes),
+                     ("pack_bytes_plain", ov.pack_bytes_plain)):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            packs[name] = fn(pubs, msgs, sigs)
+            times.append(1e3 * (time.perf_counter() - t))
+        packs[name + "_ms"] = statistics.median(times)
+    check(packs["pack_bytes"][0].tobytes() == packs["pack_bytes_plain"][0]
+          .tobytes() and (packs["pack_bytes"][1]
+                          == packs["pack_bytes_plain"][1]).all(),
+          "native pack_bytes != the Python loop")
+    emit({"phase": "vote.pack", "lanes": len(pubs),
+          "verify_commit_ms": commit_ms,
+          "pack_bytes_ms": packs["pack_bytes_ms"],
+          "pack_bytes_plain_ms": packs["pack_bytes_plain_ms"],
+          "bytes_equal": True, "card": card})
+
+    # 2. the crossover sweep on the prestaged set
+    sweep = vote_sweep(torch, vals, commit)
+    cut = crossing(sweep)
+    emit({"phase": "vote.sweep", "rows": [
+        {"lanes": n, "host_ms": h, "device_ms": d} for n, h, d in sweep],
+        "crossing_lanes": cut,
+        "seed_host_batch_threshold": crypto_batch.HOST_BATCH_THRESHOLD,
+        "card": card})
+
+    # the sets of parts 4 and 5, made and prestaged before the path
+    t0 = time.perf_counter()
+    round_vals, round_seeds = make_validators(pool, b"round-validator",
+                                              ROUND_VALIDATORS)
+    round_bid = block.BlockID(hashlib.sha256(b"round-block").digest(),
+                              block.PartSetHeader(1, hashlib.sha256(
+                                  b"round-parts").digest()))
+    rounds = {t: make_round_votes(pool, round_vals, round_seeds, t,
+                                  round_bid, ROUND_TAMPERED)
+              for t in (canonical.PREVOTE_TYPE, canonical.PRECOMMIT_TYPE)}
+    small_vals, small_seeds = make_validators(pool, b"small-validator",
+                                              SMALL_VALIDATORS)
+    small_commit = make_small_commit(pool, small_vals, small_seeds, round_bid)
+    small_bad = block.Commit(HEIGHT, 0, round_bid,
+                             list(small_commit.signatures))
+    cs = small_bad.signatures[SMALL_TAMPERED]
+    small_bad.signatures[SMALL_TAMPERED] = block.CommitSig(
+        cs.block_id_flag, cs.validator_address, cs.timestamp_ns,
+        cs.signature[:40] + bytes([cs.signature[40] ^ 1])
+        + cs.signature[41:])
+    with env("COMETBFT_TPU_PRESTAGE", "auto"):
+        built = (crypto_batch.prestage_validators(round_vals),
+                 crypto_batch.prestage_validators(small_vals))
+    votes = commit_votes(commit, VOTE_TAMPERED)
+    keys = [v.pub_key for v in vals.validators]
+    want = host_batch.verify_many(
+        pubs, [v.sign_bytes(CHAIN_ID) for v in votes],
+        [v.signature for v in votes])
+    check([i for i, ok in enumerate(want) if not ok] == [VOTE_TAMPERED],
+          "host batch: the tampered vote is not the only invalid one")
+    emit({"phase": "vote.sets", "round_validators": len(round_vals),
+          "small_validators": len(small_vals), "prestage_builds": built,
+          "seconds": time.perf_counter() - t0})
+
+    def windows_of(co):
+        return {"device_windows": co.device_windows,
+                "host_windows": co.windows - co.device_windows,
+                "lanes_by_window": {
+                    tier: dict(sorted(c.items()))
+                    for tier, c in co.window_lanes.items()},
+                "flushes": co.flushes}
+
+    torch.cuda.synchronize()
+    cuda_verify.reset_launches()  # the vote path starts here
+    with WindowRecorder(ov) as recorder:
+        # 3. 10,000 single-vote callers under a pushed coalescer: with the
+        # card's cut adapting (the default), then with it held at the seed
+        for mode, adaptive in (("adaptive", "auto"), ("seed", "0")):
+            co = coalesce.VerifyCoalescer(device="cuda")
+            co.start()
+            coalesce.push_active(co)
+            fit0 = crypto_batch.crossover("cuda").fit_summary()
+            try:
+                with env("COMETBFT_TPU_ADAPTIVE_THRESHOLD", adaptive):
+                    got, seconds = run_vote_callers(votes, keys,
+                                                    VOTE_THREADS)
+                    cut = crypto_batch.host_batch_threshold("cuda")
+            finally:
+                coalesce.pop_active(co)
+                co.stop()
+            check(got == want,
+                  "Vote.verify verdicts != host_batch.verify_many")
+            check([i for i, ok in enumerate(got) if not ok]
+                  == [VOTE_TAMPERED],
+                  f"the tampered vote #{VOTE_TAMPERED} was not the one "
+                  "rejected")
+            if mode == "seed":
+                check(co.device_windows > 0, "no vote window ran on the card")
+            emit({"phase": "vote.callers", "mode": mode, "votes": len(votes),
+                  "threads": VOTE_THREADS, "host_ms": 1e3 * seconds,
+                  "rejected": [VOTE_TAMPERED], "cut_after": cut,
+                  **windows_of(co), "fit_before": fit0,
+                  "fit_after": crypto_batch.crossover("cuda").fit_summary(),
+                  "launches": dict(cuda_verify.LAUNCHES),
+                  "card": card})
+
+        # 4. BASELINE config 3: a prevote and a precommit round of a
+        # 1,000-validator set, add_vote from 50 peers, then add_votes_batch
+        # in 50-vote gossip chunks on a second pair of sets
+        from concurrent.futures import ThreadPoolExecutor
+
+        def decision(fn):
+            try:
+                return (fn(), None)
+            except Exception as e:  # the decision is the error's type
+                return (False, type(e).__name__)
+
+        for msg_type, rvotes in rounds.items():
+            runs = {}
+            for mode in ("add_vote", "add_votes_batch"):
+                vs = VoteSet(CHAIN_ID, HEIGHT, 0, msg_type, round_vals)
+                co = coalesce.VerifyCoalescer(device="cuda")
+                co.start()
+                coalesce.push_active(co)
+                try:
+                    t = time.perf_counter()
+                    with ThreadPoolExecutor(PEER_THREADS) as ex:
+                        if mode == "add_vote":
+                            out = list(ex.map(
+                                lambda v, vs=vs: decision(
+                                    lambda: vs.add_vote(v)), rvotes))
+                        else:
+                            chunks = [rvotes[i : i + GOSSIP_CHUNK] for i in
+                                      range(0, len(rvotes), GOSSIP_CHUNK)]
+                            out = []
+                            for added, errs in ex.map(vs.add_votes_batch,
+                                                      chunks):
+                                out += [(a, type(e).__name__ if e else None)
+                                        for a, e in zip(added, errs)]
+                    ms = 1e3 * (time.perf_counter() - t)
+                finally:
+                    coalesce.pop_active(co)
+                    co.stop()
+                check(vs.has_two_thirds_majority(),
+                      f"{mode}: no 2/3 majority")
+                runs[mode] = (out, vs)
+                emit({"phase": "vote.round", "msg_type": msg_type,
+                      "mode": mode, "votes": len(rvotes),
+                      "threads": PEER_THREADS, "host_ms": ms,
+                      "rejected": [i for i, (a, e) in enumerate(out) if e],
+                      **windows_of(co),
+                      "cut_after": crypto_batch.host_batch_threshold("cuda"),
+                      "card": card})
+            (single, vs1), (batched, vs2) = runs.values()
+            check(single == batched, "add_vote and add_votes_batch decided "
+                  "differently")
+            check([i for i, (a, e) in enumerate(single) if e]
+                  == [ROUND_TAMPERED] and single[ROUND_TAMPERED][1]
+                  == "VoteError", f"round decisions: {single[:3]}")
+            if msg_type == canonical.PRECOMMIT_TYPE:
+                made = vs1.make_commit()
+                check(made == vs2.make_commit(), "make_commit differs")
+                t = time.perf_counter()
+                validation.verify_commit(CHAIN_ID, round_vals, round_bid,
+                                         HEIGHT, made)
+                emit({"phase": "vote.round.commit", "signatures": sum(
+                    1 for s in made.signatures if s.signature),
+                      "verify_commit_ms": 1e3 * (time.perf_counter() - t),
+                      "card": card})
+
+        # 5. BASELINE config 2: a 150-validator commit unrouted, then
+        # routed through a coalescer
+        outcomes = {}
+        for mode in ("unrouted", "routed"):
+            co = None
+            if mode == "routed":
+                co = coalesce.VerifyCoalescer(device="cuda")
+                co.start()
+                coalesce.push_active(co)
+            try:
+                for tag, c in (("good", small_commit), ("tampered",
+                                                        small_bad)):
+                    before = sum(cuda_verify.LAUNCHES.values())
+                    windows0 = co.windows if co is not None else 0
+                    t = time.perf_counter()
+                    try:
+                        validation.verify_commit(CHAIN_ID, small_vals,
+                                                 round_bid, HEIGHT, c)
+                        error = None
+                    except validation.VerificationError as e:
+                        error = str(e)
+                    ms = 1e3 * (time.perf_counter() - t)
+                    on_card = sum(cuda_verify.LAUNCHES.values()) > before
+                    tier = "device" if on_card else "host"
+                    if co is not None and co.windows > windows0:
+                        tier = f"coalescer ({tier} window)"
+                    outcomes[(mode, tag)] = error
+                    emit({"phase": "vote.small_commit", "mode": mode,
+                          "commit": tag, "validators": SMALL_VALIDATORS,
+                          "ms": ms, "tier": tier, "error": error,
+                          "card": card})
+            finally:
+                if co is not None:
+                    coalesce.pop_active(co)
+                    co.stop()
+        check(outcomes[("unrouted", "good")] is None
+              and outcomes[("routed", "good")] is None,
+              "the 150-validator commit was rejected")
+        check(outcomes[("unrouted", "tampered")]
+              == outcomes[("routed", "tampered")]
+              and f"(#{SMALL_TAMPERED})" in outcomes[("routed", "tampered")],
+              f"tampered 150-validator commit: {outcomes}")
+    launches = dict(cuda_verify.LAUNCHES)  # read just after the vote path
+    torch.cuda.synchronize()
+    err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
+    mismatches = dict(err)
+    compared = compare_windows(torch, recorder.records, err, mismatches)
+    emit({"phase": "vote.windows", "windows": len(recorder.records),
+          "compared": {k: sorted(v) for k, v in compared.items()},
+          "mismatches": dict(mismatches), "max_abs_err": dict(err),
+          "first_records": [window_record(r) for r in recorder.records[:8]]})
+    check(not any(mismatches.values()),
+          f"vote windows != plain: {mismatches}")
+    lanes = check_lanes(cuda_verify, "vote", compared)
+    check(launches["verify_kernel_cached"] > 0,
+          "K2 was not launched on the vote path")
+    for name in ("build_pubkey_tables", "verify_kernel8",
+                 "verify_kernel8_cached"):
+        check(launches[name] == 0, f"{name} launched on the vote path")
+    emit({"phase": "vote", "launches": launches, "lanes": lanes,
+          "windows_compared": len(recorder.records)})
+
+    # the card's busy and idle share of part 3, warm, in a process of its
+    # own (as the hash phase traces its routed steps)
+    with get_context("spawn").Pool(1) as tracer:
+        host_ms, busy_ms, events, dev_windows, windows, traced_cut = (
+            tracer.apply(_traced_votes, (pubs, votes)))
+        tracer.close()
+        tracer.join()
+    check(events > 0, "the traced vote callers ran nothing on the card")
+    emit({"phase": "vote.trace", "step": "10,000 single-vote callers, "
+          "cut held at the seed, warm, profiled", "host_ms": host_ms, "device_busy_ms": busy_ms,
+          "device_events": events, "idle_share": 1 - busy_ms / host_ms,
+          "device_windows": dev_windows, "windows": windows,
+          "cut": traced_cut, "card": card})
+    return launches, lanes, (err, mismatches)
+
+
 def make_hash_block():
     """The seeded block: its txs (BLOCK_BYTES / TX_BYTES of TX_BYTES) and
     their bytes, which the part set splits (the port has no block codec
@@ -1831,16 +2405,20 @@ def phase_hash(torch, card, vals, commit):
     return launches, x4_row
 
 
-def check_lanes(cuda_verify, path):
+def check_lanes(cuda_verify, path, compared_on_path=None):
     """{kernel: {lane count: launches}} of K1-K4's and X1's launches on
     ``path`` since the last reset; each count must be one the kernels
-    phase compared the kernel at."""
+    phase compared the kernel at, or for a kernel in
+    ``compared_on_path`` ({kernel: lane counts}), exactly one that the
+    path's own windows were compared at."""
     lanes = {k: dict(sorted(cuda_verify.LAUNCH_LANES[k].items()))
              for k in cuda_verify.LAUNCH_LANES}
     for name, counts in lanes.items():
         compared = set(COMPARED_LANES)
         if name == "build_pubkey_tables":
             compared |= set(X1_PATH_LANES)
+        if compared_on_path is not None and name in compared_on_path:
+            compared = set(compared_on_path[name])
         check(set(counts) <= compared,
               f"{path}: {name} ran at {sorted(counts)} lanes, compared at "
               f"{sorted(compared)} only")
@@ -1908,6 +2486,8 @@ def main() -> int:
             torch, pool, smi)
         light_launches, light_lanes = phase_light(torch, pool, smi,
                                                   slice_cache)
+        vote_launches, vote_lanes, (vote_err, vote_mismatches) = phase_vote(
+            torch, pool, smi, vals, commit)
         pool.close()
         pool.join()
     hash_launches, x4_row = phase_hash(torch, smi, vals, commit)
@@ -1925,15 +2505,24 @@ def main() -> int:
              for k, v in build.ptxas_usage(info["ptxas"]).items()}
     timed["build_pubkey_tables"].update(usage.get("x1_build_tables", {}))
     by_lanes = {name: dict(collections.Counter(slice_lanes[name])
-                           + collections.Counter(light_lanes[name]))
+                           + collections.Counter(light_lanes[name])
+                           + collections.Counter(vote_lanes[name]))
                 for name in cuda_verify.LAUNCHES}
+    # the vote path's windows were compared too: their differences join
+    # the kernels phase's
+    for name in ("verify_kernel", "verify_kernel_cached"):
+        timed[name]["max_abs_err"] = max(timed[name]["max_abs_err"],
+                                         vote_err[name])
+        timed[name]["mismatches"] += vote_mismatches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "cometbft_tpu_torch/ops/csrc/" + cuda_verify.SOURCES[name],
          "replaces": replaces[name],
-         "launches": slice_launches[name] + light_launches[name],
+         "launches": (slice_launches[name] + light_launches[name]
+                      + vote_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
-                              "light": light_launches[name]},
+                              "light": light_launches[name],
+                              "vote": vote_launches[name]},
          "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",

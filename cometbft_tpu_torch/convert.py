@@ -16,7 +16,8 @@ commits, validator sets) is carried across by reading its fields:
 :func:`light_block_from` takes any object with the reference's attribute
 names and builds this package's types from its bytes and ints. Blocks and
 part sets come across the same way (:func:`block_from`,
-:func:`part_set_from`).
+:func:`part_set_from`), and so do votes and vote sets (:func:`vote_from`,
+:func:`vote_set_from`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from .types import block
 from .types.light_block import LightBlock, SignedHeader
 from .types.part_set import Part, PartSet
 from .types.validator_set import Validator, ValidatorSet
+from .types.vote import Vote
+from .types.vote_set import VoteSet, _BlockVotes
 
 
 def pubkey_cache_from_arrays(arena: np.ndarray, arena_ok: np.ndarray,
@@ -155,4 +158,59 @@ def part_set_from(ps) -> PartSet:
     for p in ps.parts:
         if p is not None:
             out.add_part(part_from(p))
+    return out
+
+
+def vote_from(v) -> Vote:
+    """This package's Vote with the fields of ``v``."""
+    return Vote(
+        msg_type=int(v.msg_type),
+        height=int(v.height),
+        round=int(v.round),
+        block_id=_block_id(v.block_id),
+        timestamp_ns=int(v.timestamp_ns),
+        validator_address=bytes(v.validator_address),
+        validator_index=int(v.validator_index),
+        signature=bytes(v.signature),
+        extension=bytes(v.extension),
+        extension_signature=bytes(v.extension_signature),
+    )
+
+
+def vote_set_from(vs, device="cuda") -> VoteSet:
+    """This package's VoteSet in the state of ``vs``: its validator set
+    (ed25519 keys), its admitted votes, per-block tallies, peer claims and
+    latched majority, carried as they are (nothing is verified again).
+    ``device`` is where the new set's batches verify."""
+    vals = validator_set_from_pairs(
+        (v.pub_key.data, v.voting_power) for v in vs.val_set.validators)
+    out = VoteSet(str(vs.chain_id), int(vs.height), int(vs.round),
+                  int(vs.signed_msg_type), vals,
+                  extensions_enabled=bool(vs.extensions_enabled),
+                  device=device)
+    votes = {}  # one port Vote per reference vote object
+
+    def carried(v):
+        if v is None:
+            return None
+        if id(v) not in votes:
+            votes[id(v)] = vote_from(v)
+        return votes[id(v)]
+
+    out.votes = [carried(v) for v in vs.votes]
+    for i, v in enumerate(out.votes):
+        if v is not None:
+            out.votes_bit_array.set_index(i, True)
+    out.sum = int(vs.sum)
+    out.maj23 = _block_id(vs.maj23) if vs.maj23 is not None else None
+    for key, bv in vs.votes_by_block.items():
+        nbv = _BlockVotes(bool(bv.peer_maj23), len(vals))
+        nbv.votes = [carried(v) for v in bv.votes]
+        for i, v in enumerate(nbv.votes):
+            if v is not None:
+                nbv.bit_array.set_index(i, True)
+        nbv.sum = int(bv.sum)
+        out.votes_by_block[bytes(key)] = nbv
+    out.peer_maj23s = {str(p): _block_id(b)
+                       for p, b in vs.peer_maj23s.items()}
     return out

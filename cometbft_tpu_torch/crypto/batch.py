@@ -3,18 +3,25 @@
 Reference surface: crypto/crypto.go:45-54 (BatchVerifier interface) and
 crypto/batch/batch.go:11-32 (CreateBatchVerifier / SupportsBatchVerifier).
 
-The ed25519 backend accumulates (pubkey, msg, sig) triples on the host
-and verifies them in one device pass (ops/verify.verify_batch). Every
-batch goes to the device: this package has no host batch path.
+The ed25519 backend accumulates (pubkey, msg, sig) triples on the host.
+A batch at or above the host/device cut (:func:`host_batch_threshold`)
+verifies in one device pass (ops/verify.verify_batch); a smaller one goes
+to the pushed verify coalescer (crypto/coalesce.verify_bytes), where
+concurrent small callers share windows, or with none pushed to the native
+RLC host batch (crypto/host_batch.verify_many). That is routing, not a
+rescue: a routed batch whose coalescer or kernel fails raises.
 
-:class:`AdaptiveCrossover` is the runtime host/device crossover fit; the
-hash plane (crypto/hashplane.py) keeps one per SHA block bucket.
+:class:`AdaptiveCrossover` is the runtime host/device crossover fit: one
+per device refines the verify cut from the batches and coalescer windows
+it sees; the hash plane (crypto/hashplane.py) keeps one per SHA block
+bucket.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -40,8 +47,38 @@ class BatchVerifier:
         raise NotImplementedError
 
 
+# The seed of the host/device cut: batches of fewer signatures verify on
+# the host (crypto/host_batch), larger ones on the device. Derived, first
+# match wins, from
+#   1. COMETBFT_TPU_HOST_THRESHOLD (an operator pin; it also turns
+#      adaptation off), then
+#   2. _DEFAULT_HOST_BATCH_THRESHOLD: the crossing of chip_smoke.py's vote
+#      phase sweep (host_batch.verify_many against one coalescer-shaped
+#      K2 window, pack + launch + readback, median of 5 each, at 8 to
+#      2,048 lanes) on NVIDIA H100 80GB HBM3, 700.00 W: the card won
+#      from the smallest swept count, 8 lanes (1.46 ms against 1.86).
+# Nothing here reads a TPU's chip table.
+_DEFAULT_HOST_BATCH_THRESHOLD = 8
+
+
+def _derive_host_threshold() -> int:
+    env = os.environ.get("COMETBFT_TPU_HOST_THRESHOLD")
+    if env:
+        try:
+            return max(2, int(env))
+        except ValueError:
+            pass
+    return _DEFAULT_HOST_BATCH_THRESHOLD
+
+
+HOST_BATCH_THRESHOLD = _derive_host_threshold()
+_ENV_PINNED = bool(os.environ.get("COMETBFT_TPU_HOST_THRESHOLD"))
+
+
 class Ed25519BatchVerifier(BatchVerifier):
-    """ed25519 batch verification on ``device`` (default the GPU).
+    """ed25519 batch verification, routed by size (see the module
+    docstring). A batch at or above the cut runs on ``device`` (default the
+    GPU).
 
     ``pubkey_cache`` (an ops.verify.PubkeyTableCache on the same device)
     routes the batch through the cached kernel; None takes the process-wide
@@ -70,12 +107,26 @@ class Ed25519BatchVerifier(BatchVerifier):
         return len(self._pubkeys)
 
     def verify(self) -> tuple[bool, list[bool]]:
+        n = len(self._pubkeys)
+        if n < host_batch_threshold(self.device):
+            from . import coalesce, host_batch
+
+            bits = coalesce.verify_bytes(self._pubkeys, self._msgs,
+                                         self._sigs)
+            if bits is None:  # no coalescer routed
+                t0 = time.perf_counter()
+                bits = host_batch.verify_many(self._pubkeys, self._msgs,
+                                              self._sigs)
+                note_host_window(n, time.perf_counter() - t0, self.device)
+            return all(bits), list(bits)
         from ..ops import verify as ov
 
+        t0 = time.perf_counter()
         ok_all, bitmap = ov.verify_batch(
             self._pubkeys, self._msgs, self._sigs,
             device=self.device, cache=self.pubkey_cache, flavor=self.flavor,
         )
+        note_device_window(n, time.perf_counter() - t0, self.device)
         return ok_all, list(np.asarray(bitmap, bool))
 
 
@@ -149,15 +200,17 @@ class AdaptiveCrossover:
     floor is the launch cost that dominates small batches, the host floor
     a fixed per-call cost. Observations feed decayed least-squares
     accumulators; the crossover solves ``h_floor + h_rate * n = d_floor +
-    d_slope * n`` and is clamped to [LO, HI]. Until both sides have
-    ``MIN_SAMPLES`` it answers None and the caller's seed holds.
+    d_slope * n`` and is clamped to [``lo``, HI] (``lo`` defaults to LO,
+    the reference's floor). Until both sides have ``MIN_SAMPLES`` it
+    answers None and the caller's seed holds.
     """
 
     DECAY = 0.98  # per-observation decay of the running moments
     MIN_SAMPLES = 5
     LO, HI = 64, 16384
 
-    def __init__(self) -> None:
+    def __init__(self, lo: int = LO) -> None:
+        self.lo = lo
         self._mtx = threading.Lock()
         # decayed least-squares moments of (n, seconds) pairs per side
         self._host = [0.0, 0.0, 0.0, 0.0, 0.0]  # sw, sx, sy, sxx, sxy
@@ -203,6 +256,24 @@ class AdaptiveCrossover:
             slope, floor = 0.0, my
         return floor, slope
 
+    def fit_summary(self) -> dict:
+        """The live fit: each side's floor (s), per-lane slope (s) and
+        samples, and the solved crossover. A side's floor and slope are
+        None while it has fewer than ``MIN_SAMPLES``."""
+        with self._mtx:
+            host_n, dev_n = self._host_n, self._dev_n
+            h = self._fit(self._host) if host_n >= self.MIN_SAMPLES else None
+            d = self._fit(self._dev) if dev_n >= self.MIN_SAMPLES else None
+        return {
+            "host_floor_s": h[0] if h else None,
+            "host_rate_s_per_lane": h[1] if h else None,
+            "host_samples": host_n,
+            "device_floor_s": d[0] if d else None,
+            "device_slope_s_per_lane": d[1] if d else None,
+            "device_samples": dev_n,
+            "crossover_lanes": self.threshold(),
+        }
+
     def threshold(self) -> int | None:
         """The calibrated crossover, or None while uncalibrated."""
         with self._mtx:
@@ -219,7 +290,7 @@ class AdaptiveCrossover:
             # past the floors the host wins at every size
             return self.HI
         n_star = (d_floor - h_floor) / (h_rate - d_slope)
-        return int(min(self.HI, max(self.LO, n_star)))
+        return int(min(self.HI, max(self.lo, n_star)))
 
 
 def _adaptive_enabled(device="cuda") -> bool:
@@ -233,3 +304,56 @@ def _adaptive_enabled(device="cuda") -> bool:
     if mode == "1":
         return True
     return torch.device(device).type == "cuda"
+
+
+# The process-wide verify crossovers, one per device, made at first use
+# (the reference's module-level CROSSOVER): batch verifiers and every
+# coalescer on a device feed one fit. Its floor is 2 lanes, not the
+# reference's 64: on the H100 one coalescer-shaped K2 window beats the host
+# batch from the smallest swept window (8 lanes, chip_smoke.py's vote
+# sweep), so a calibrated cut may settle below 64.
+_VERIFY_CUT_FLOOR = 2
+_CROSSOVERS: dict[torch.device, AdaptiveCrossover] = {}
+_CROSSOVERS_LOCK = threading.Lock()
+
+
+def crossover(device="cuda") -> AdaptiveCrossover:
+    """The process-wide verify :class:`AdaptiveCrossover` of ``device``
+    (raises for CUDA without a GPU)."""
+    from ..ops.verify import resolve_device
+
+    dev = resolve_device(device)
+    with _CROSSOVERS_LOCK:
+        xo = _CROSSOVERS.get(dev)
+        if xo is None:
+            xo = _CROSSOVERS[dev] = AdaptiveCrossover(lo=_VERIFY_CUT_FLOOR)
+        return xo
+
+
+def _verify_adaptive(device) -> bool:
+    """Adaptation of the verify cut: off under a COMETBFT_TPU_HOST_THRESHOLD
+    pin, else as :func:`_adaptive_enabled`."""
+    return not _ENV_PINNED and _adaptive_enabled(device)
+
+
+def host_batch_threshold(device="cuda") -> int:
+    """The live host/device cut of ``device``: the calibrated crossover
+    once it has samples of both sides and adaptation is on, else the seed
+    :data:`HOST_BATCH_THRESHOLD`."""
+    base = HOST_BATCH_THRESHOLD
+    if not _verify_adaptive(device):
+        return base
+    t = crossover(device).threshold()
+    return base if t is None else t
+
+
+def note_device_window(n: int, seconds: float, device="cuda") -> None:
+    """Feed the crossover of ``device`` a device batch or window."""
+    if _verify_adaptive(device):
+        crossover(device).observe_device(n, seconds)
+
+
+def note_host_window(n: int, seconds: float, device="cuda") -> None:
+    """Feed the crossover of ``device`` a host batch or window."""
+    if _verify_adaptive(device):
+        crossover(device).observe_host(n, seconds)

@@ -10,7 +10,8 @@ window by SHA block bucket (a 33-byte merkle leaf must not pad to a
 ops/sha256.sha256_many_async on the plane's own CUDA stream. A readback
 drain thread materializes dispatched windows in order, each behind its
 own event, while the executor packs the next one; ``max_inflight``
-bounds that pipeline.
+bounds that pipeline. The executor, drain and lifecycle are
+crypto/plane.WindowPlane's, which the verify coalescer shares.
 
 Routing, as in the reference: with no plane pushed (:func:`push_active`)
 hashing is unrouted and runs hashlib; a batch below its block bucket's
@@ -38,15 +39,15 @@ import hashlib
 import os
 import threading
 import time
-from collections import deque
 
 import torch
 
-from ..libs.service import BaseService, ServiceError
+from ..libs.service import ServiceError
 from ..ops import cuda_sha256
 from ..ops import sha256 as osha
 from ..ops.verify import resolve_device
 from . import batch as crypto_batch
+from .plane import WindowPlane
 
 # Deadline window before a sub-size window flushes anyway.
 _DEFAULT_WINDOW_US = 500
@@ -75,51 +76,6 @@ _WAIT_COST_FACTOR = 2.0
 class HashplaneStoppedError(ServiceError):
     """submit() after the drain began, or a ticket the plane stopped
     before its window ran."""
-
-
-class _Ticket:
-    """One submit()'s pending digests; settled exactly once (the first of
-    resolve and fail wins)."""
-
-    __slots__ = ("n", "blocks", "t_submit", "_done", "_lock", "_digests",
-                 "_exc")
-
-    def __init__(self, n: int, blocks: int = 0):
-        self.n = n
-        # total padded SHA blocks across the lanes: the deadline budget
-        self.blocks = blocks
-        self.t_submit = time.perf_counter()
-        self._done = threading.Event()
-        self._lock = threading.Lock()
-        self._digests: list[bytes] | None = None
-        self._exc: BaseException | None = None
-
-    def resolve(self, digests) -> None:
-        with self._lock:
-            if not self._done.is_set():
-                self._digests = list(digests)
-                self._done.set()
-
-    def fail(self, exc: BaseException) -> None:
-        with self._lock:
-            if not self._done.is_set():
-                self._exc = exc
-                self._done.set()
-
-    def done(self) -> bool:
-        return self._done.is_set()
-
-    def result(self, timeout: float | None = None) -> list[bytes]:
-        """Block for this submit's digests; raises the window's fault, or
-        TimeoutError after ``timeout`` seconds."""
-        if not self._done.wait(timeout):
-            raise TimeoutError(
-                f"coalesced hash not resolved within {timeout}s "
-                f"({self.n} lanes)"
-            )
-        if self._exc is not None:
-            raise self._exc
-        return list(self._digests)
 
 
 class _Inflight:
@@ -199,11 +155,11 @@ def reset_crossovers() -> None:
         _CROSSOVERS.clear()
 
 
-class HashCoalescer(BaseService):
+class HashCoalescer(WindowPlane):
     """Background hash executor coalescing concurrent digest callers on
-    ``device`` (see the module docstring)."""
+    ``device`` (see the module docstring and crypto/plane.py)."""
 
-    _JOIN_TIMEOUT_S = 10.0
+    STOPPED_ERROR = HashplaneStoppedError
 
     def __init__(
         self,
@@ -213,131 +169,45 @@ class HashCoalescer(BaseService):
         device="cuda",
         max_inflight: int | None = None,
     ):
-        super().__init__("HashCoalescer")
-        self.device = resolve_device(device)
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
-        self.window_s = (
-            _DEFAULT_WINDOW_US if window_us is None else window_us) / 1e6
-        # clamped to the kernel's per-launch cap
-        self.max_lanes = min(osha.MAX_LANES, max(
-            1, _DEFAULT_MAX_LANES if max_lanes is None else max_lanes))
+        super().__init__(
+            "HashCoalescer", device,
+            (_DEFAULT_WINDOW_US if window_us is None else window_us) / 1e6,
+            # clamped to the kernel's per-launch cap
+            min(osha.MAX_LANES,
+                _DEFAULT_MAX_LANES if max_lanes is None else max_lanes),
+            _DEFAULT_MAX_INFLIGHT if max_inflight is None else max_inflight,
+        )
         # None defers to the per-bucket crossover at flush time
         self.min_device_lanes = min_device_lanes
-        self.max_inflight = max(1, _DEFAULT_MAX_INFLIGHT
-                                if max_inflight is None else max_inflight)
         self.crossover = crossover(self.device)
-        self._mtx = threading.Lock()  # the pending queue and counters
-        self._cv = threading.Condition(self._mtx)
-        self._pending: deque[tuple] = deque()  # (ticket, msgs)
-        self._pending_lanes = 0
-        self._pending_blocks = 0
-        self._draining = False
-        self._accepting = False
-        self._thread: threading.Thread | None = None
-        self._staging: list[tuple] | None = None  # the window being launched
-        # executor -> drain handoff
-        self._rb_mtx = threading.Lock()
-        self._rb_cv = threading.Condition(self._rb_mtx)
-        self._readback: deque[_Inflight] = deque()
-        self._rb_busy = 0
-        self._rb_closed = False
-        self._rb_alive = False
-        self._rb_thread: threading.Thread | None = None
-        # windows flushed, by reason and those with a device bucket;
-        # tickets taken; lanes hashed on the device, with hashlib inside
-        # windows, and with hashlib inline by the routed helpers (below
-        # their cut)
-        self.flushes = {"size": 0, "deadline": 0, "drain": 0}
-        self.windows = 0
-        self.device_windows = 0
-        self.tickets = 0
+        # lanes hashed on the device, with hashlib inside windows, and
+        # with hashlib inline by the routed helpers (below their cut)
         self.device_lanes = 0
         self.host_lanes = 0
         self.inline_lanes = 0
 
-    # -- lifecycle ---------------------------------------------------------
-
-    def on_start(self) -> None:
+    def _prepare(self) -> None:
         if self.device.type == "cuda":
-            cuda_sha256.load()  # windows never wait on the build
-        with self._mtx:
-            self._draining = False
-        with self._rb_mtx:
-            self._rb_closed = False
-            self._rb_alive = True
-        self._rb_thread = threading.Thread(
-            target=self._drain_run, name="hash-readback", daemon=True)
-        self._rb_thread.start()
-        self._thread = threading.Thread(
-            target=self._run, name="hash-plane", daemon=True)
-        self._thread.start()
-        with self._mtx:
-            self._accepting = True
+            cuda_sha256.load()
 
-    def on_stop(self) -> None:
-        """Drain: pending tickets go through the device before stop
-        returns; what a dead or wedged executor left is failed."""
-        with self._mtx:
-            self._draining = True
-            self._accepting = False
-            self._cv.notify_all()
-        with self._rb_mtx:
-            self._rb_cv.notify_all()  # an executor at the depth bound
-        for t in (self._thread, self._rb_thread):
-            if t is not None and t is not threading.current_thread():
-                t.join(timeout=self._JOIN_TIMEOUT_S)
-        self._fail_leftovers()
+    def _group_size(self, msgs) -> tuple[int, int]:
+        try:
+            blocks = sum(osha.n_blocks(len(m)) for m in msgs)
+        except TypeError:
+            blocks = 0  # unsized lanes fail in _stage, per ticket
+        return len(msgs), blocks
 
-    def _fail_leftovers(self) -> None:
-        with self._mtx:
-            leftovers, self._pending = self._pending, deque()
-            self._pending_lanes = self._pending_blocks = 0
-        with self._rb_mtx:
-            flights, self._readback = list(self._readback), deque()
-        exc = HashplaneStoppedError(
-            f"{self._name} stopped before this window ran")
-        tickets = [t for t, _ in leftovers]
-        tickets += [t for t, _ in self._staging or ()]
-        tickets += [t for fl in flights for t, _ in fl.staged]
-        for ticket in tickets:
-            ticket.fail(exc)
+    def _window_budget(self) -> float:
+        """min(window, ~2x the pending lanes' host hashlib cost)."""
+        return min(self.window_s, _WAIT_COST_FACTOR * _HOST_S_PER_BLOCK
+                   * self._pending_weight)
 
     # -- submission --------------------------------------------------------
 
-    def submit(self, msgs) -> _Ticket:
+    def submit(self, msgs):
         """Queue message lanes; returns the ticket with their digests.
         Raises :class:`HashplaneStoppedError` once the drain began."""
         return self.submit_many([msgs])[0]
-
-    def submit_many(self, groups) -> list[_Ticket]:
-        """Submit several lane groups as one queue transaction, so a
-        chunked batch packs into consecutive windows."""
-        tickets: list[_Ticket] = []
-        staged: list[tuple] = []
-        for msgs in groups:
-            try:
-                blocks = sum(osha.n_blocks(len(m)) for m in msgs)
-            except TypeError:
-                blocks = 0  # unsized lanes fail in _stage, per ticket
-            t = _Ticket(len(msgs), blocks)
-            tickets.append(t)
-            if t.n == 0:
-                t.resolve([])
-            else:
-                staged.append((t, msgs))
-        if not staged:
-            return tickets
-        with self._mtx:
-            if self._draining or not self._accepting:
-                raise HashplaneStoppedError(self._name)
-            for g in staged:
-                self._pending.append(g)
-                self._pending_lanes += g[0].n
-                self._pending_blocks += g[0].blocks
-            self.tickets += len(staged)
-            self._cv.notify_all()
-        return tickets
 
     def try_hash_many(self, msgs) -> list[bytes]:
         """Submit and wait: the digests of ``msgs``, chunked into
@@ -374,74 +244,7 @@ class HashCoalescer(BaseService):
         with self._mtx:
             self.inline_lanes += lanes
 
-    def routable(self) -> bool:
-        """Accepting submits."""
-        return self._accepting
-
-    # -- the executor ------------------------------------------------------
-
-    def _run(self) -> None:
-        try:
-            while True:
-                groups, reason = self._collect()
-                if groups:
-                    self._staging = groups
-                    try:
-                        fl = self._launch(groups)
-                    except Exception as e:  # a dispatch fault: its window fails
-                        for ticket, _ in groups:
-                            ticket.fail(e)
-                        fl = None
-                    self._staging = None
-                    if fl is not None:
-                        self._hand_to_drain(fl)
-                if reason == "quit":
-                    return
-        finally:
-            self._close_readback()
-            rt = self._rb_thread
-            if rt is not None and rt is not threading.current_thread():
-                rt.join(timeout=self._JOIN_TIMEOUT_S)
-            with self._mtx:
-                self._accepting = False
-            self._fail_leftovers()
-
-    def _collect(self):
-        """Pop one flush window: (groups, reason), reason one of size,
-        deadline, drain or quit. The deadline is anchored at the oldest
-        pending ticket and its budget is min(window, ~2x the pending
-        lanes' host hashlib cost), recomputed as lanes arrive."""
-        with self._mtx:
-            while not self._pending and not self._draining:
-                self._cv.wait(0.2)
-            if not self._pending:
-                return None, "quit"
-            first_t = self._pending[0][0].t_submit
-            while self._pending_lanes < self.max_lanes and not self._draining:
-                budget = min(self.window_s, _WAIT_COST_FACTOR
-                             * _HOST_S_PER_BLOCK * self._pending_blocks)
-                rem = budget - (time.perf_counter() - first_t)
-                if rem <= 0:
-                    break
-                self._cv.wait(rem)
-            if self._draining:
-                reason = "drain"
-            elif self._pending_lanes >= self.max_lanes:
-                reason = "size"
-            else:
-                reason = "deadline"
-            self.flushes[reason] += 1
-            groups: list[tuple] = []
-            lanes = 0
-            while self._pending and (
-                not groups or lanes + self._pending[0][0].n <= self.max_lanes
-            ):
-                g = self._pending.popleft()
-                groups.append(g)
-                lanes += g[0].n
-                self._pending_blocks -= g[0].blocks
-            self._pending_lanes -= lanes
-            return groups, reason
+    # -- windows -----------------------------------------------------------
 
     def _device_cut(self, bucket: int) -> int:
         """Lane cut of a block bucket: the constructor's pin, else the
@@ -514,61 +317,6 @@ class HashCoalescer(BaseService):
             for j, i in enumerate(idxs):
                 fl.out[i] = digests[j]
         self._resolve(fl.staged, fl.out)
-
-    @staticmethod
-    def _resolve(staged, out) -> None:
-        for ticket, lo in staged:
-            ticket.resolve(out[lo : lo + ticket.n])
-
-    # -- the readback drain ------------------------------------------------
-
-    def _hand_to_drain(self, fl: _Inflight) -> None:
-        with self._rb_mtx:
-            handed = self._rb_alive and not self._rb_closed
-            if handed:
-                self._readback.append(fl)
-                self._rb_cv.notify_all()
-                while (self._rb_alive and not self._rb_closed
-                       and not self._draining
-                       and len(self._readback) + self._rb_busy
-                       >= self.max_inflight):
-                    self._rb_cv.wait(0.2)
-        if not handed:
-            self._finish_or_fail(fl)
-
-    def _close_readback(self) -> None:
-        with self._rb_mtx:
-            self._rb_closed = True
-            self._rb_cv.notify_all()
-
-    def _drain_run(self) -> None:
-        """Read back dispatched windows in submission order."""
-        try:
-            while True:
-                with self._rb_mtx:
-                    while not self._readback and not self._rb_closed:
-                        self._rb_cv.wait(0.2)
-                    if not self._readback:
-                        return
-                    fl = self._readback.popleft()
-                    self._rb_busy += 1
-                try:
-                    self._finish_or_fail(fl)
-                finally:
-                    with self._rb_mtx:
-                        self._rb_busy -= 1
-                        self._rb_cv.notify_all()
-        finally:
-            with self._rb_mtx:
-                self._rb_alive = False
-                self._rb_cv.notify_all()
-
-    def _finish_or_fail(self, fl: _Inflight) -> None:
-        try:
-            self._finish(fl)
-        except Exception as e:  # a readback fault: its window fails
-            for ticket, _ in fl.staged:
-                ticket.fail(e)
 
 
 # -- process-wide routing switch ------------------------------------------

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import os
 import threading
-from collections import OrderedDict
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -102,6 +102,9 @@ def bucket_size(n: int) -> int:
     return b
 
 
+_Z96 = bytes(96)
+
+
 def pack_bytes(pubkeys, msgs, sigs) -> tuple[np.ndarray, np.ndarray]:
     """Host-side packing to the compact device wire format.
 
@@ -109,7 +112,49 @@ def pack_bytes(pubkeys, msgs, sigs) -> tuple[np.ndarray, np.ndarray]:
     32-63 R, 64-95 S, 96-127 (-k mod L), all little-endian bytes.
     Malformed inputs (wrong lengths, non-canonical S >= L) get
     host_ok=False and zeroed rows.
+
+    The SHA-512 challenges and -k mod L come from the native engine
+    (crypto/host_batch.pack_challenges); Python keeps only the length
+    checks and bulk joins. An engine that does not build raises: there is
+    no fallback to :func:`pack_bytes_plain`, which gives the same bytes.
     """
+    from ..crypto import host_batch
+
+    n = len(pubkeys)
+    host_ok = np.ones(n, bool)
+    recs = []
+    msg_parts = []
+    lens = np.zeros(n, np.uint64)
+    for i in range(n):
+        p_i, s_i = pubkeys[i], sigs[i]
+        if len(p_i) != 32 or len(s_i) != 64:
+            host_ok[i] = False
+            recs.append(_Z96)
+            msg_parts.append(b"")
+            continue
+        recs.append(bytes(p_i) + bytes(s_i))
+        m = bytes(msgs[i])
+        msg_parts.append(m)
+        lens[i] = len(m)
+    recs_blob = b"".join(recs)
+    offs = np.zeros(n + 1, np.uint64)
+    np.cumsum(lens, out=offs[1:])
+    kneg_blob, s_ok = host_batch.pack_challenges(
+        recs_blob, b"".join(msg_parts), offs, n)
+    rec_arr = np.frombuffer(recs_blob, np.uint8).reshape(n, 96)
+    kneg_arr = np.frombuffer(kneg_blob, np.uint8).reshape(n, 32)
+    buf = np.ascontiguousarray(np.concatenate([rec_arr, kneg_arr], axis=1).T)
+    host_ok &= s_ok
+    bad = ~host_ok
+    if bad.any():  # malformed lanes ship zeroed rows
+        buf[:, bad] = 0
+    return buf, host_ok
+
+
+def pack_bytes_plain(pubkeys, msgs, sigs) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`pack_bytes` as one Python loop (hashlib SHA-512 and bigint
+    arithmetic): the plain version that tests and chip_smoke.py hold the
+    native packer against, byte for byte."""
     n = len(pubkeys)
     host_ok = np.ones(n, bool)
     pk_buf = bytearray(32 * n)
@@ -235,16 +280,90 @@ def unpack_ok_bits(packed: np.ndarray, n: int) -> np.ndarray:
 
 def _readback(ok: torch.Tensor, size: int):
     """Pad n verdicts to the wire bucket, bit-pack them on the device and
-    return the closure that reads them back: (n,) bool."""
+    return the closure that reads them back: (n,) bool. On CUDA the packed
+    bytes are copied into a pinned buffer on the launching stream behind
+    an event, so any thread may read them back: the closure waits on that
+    event alone."""
     n = ok.shape[0]
     full = torch.zeros(size, dtype=torch.bool, device=ok.device)
     full[:n] = ok
     packed = _pack_ok_bits(full)
-    return lambda: unpack_ok_bits(packed.cpu().numpy(), size)[:n]
+    if packed.device.type != "cuda":
+        return lambda: unpack_ok_bits(packed.numpy(), size)[:n]
+    host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(packed.device))
+
+    def materialize() -> np.ndarray:
+        done.synchronize()
+        return unpack_ok_bits(host.numpy(), size)[:n]
+
+    return materialize
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+class LaneArena:
+    """Persistent staging of launch wire rows for one stream's launches.
+
+    Per (kind, row shape, dtype, bucket) it keeps :attr:`PING_PONG` slots,
+    each a host buffer (pinned on CUDA) and a device buffer of the bucket's
+    size that live as long as the arena: :meth:`stage` fills the next
+    slot's host buffer, copies it to the device buffer asynchronously on
+    the current stream and records an event, and a slot is written again
+    only after its last copy's event. Window N+1 stages into the other
+    slot while window N's copy may still be in flight; the device buffers
+    are reused in stream order, so an arena serves one stream (the verify
+    coalescer's). A staging fault raises: a launch never goes ahead from
+    anything else.
+    """
+
+    PING_PONG = 2
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._slots: dict[tuple, deque] = {}  # of [host, dev, event]
+        self.stages = 0
+        self.allocs = 0  # slots made, at most PING_PONG a key
+
+    def stage(self, kind: str, rows: np.ndarray) -> torch.Tensor:
+        """``rows`` (..., n) staged on the device: a contiguous (..., n)
+        view of the next slot of ``kind``'s bucket."""
+        rows = np.ascontiguousarray(rows)
+        n = rows.shape[-1]
+        size = int(np.prod(rows.shape[:-1], dtype=np.int64)) * bucket_size(n)
+        key = (kind, rows.shape[:-1], rows.dtype.str, bucket_size(n))
+        cuda = self.device.type == "cuda"
+        with self._lock:
+            self.stages += 1
+            slots = self._slots.setdefault(key, deque())
+            if len(slots) < self.PING_PONG:
+                dtype = torch.from_numpy(rows[..., :0]).dtype
+                slot = [torch.empty(size, dtype=dtype, pin_memory=cuda),
+                        torch.empty(size, dtype=dtype, device=self.device),
+                        None]
+                self.allocs += 1
+            else:
+                slot = slots.popleft()  # the older of the two
+            slots.append(slot)
+            host, dev, copied = slot
+            if copied is not None:
+                copied.synchronize()  # its last copy has left the buffer
+            host[: rows.size].numpy()[:] = rows.reshape(-1)
+            view = dev[: rows.size].view(rows.shape)
+            view.copy_(host[: rows.size].view(rows.shape), non_blocking=cuda)
+            if cuda:
+                slot[2] = torch.cuda.Event()
+                slot[2].record(torch.cuda.current_stream(self.device))
+            return view
+
+    def buffers(self) -> int:
+        with self._lock:
+            return sum(len(v) for v in self._slots.values())
 
 
 # ------------------------------------------------------------------ cache
@@ -263,7 +382,11 @@ class PubkeyTableCache:
     scratch, and an arena carries over between the two shape for shape.
     Thread-safe. An update writes a NEW arena tensor (copy, then scatter),
     so a verify launched against the arena a lookup handed out keeps
-    reading the tables it was given.
+    reading the tables it was given: an eviction never rewrites a slot an
+    in-flight launch reads. On CUDA each write records an event on the
+    writer's stream, and :meth:`lookup` makes the caller's current stream
+    wait for it, so a launch on another stream (the verify coalescer's)
+    reads the tables written.
     """
 
     # One full _CHUNK of distinct signers stays cacheable: ~84 MB.
@@ -283,6 +406,8 @@ class PubkeyTableCache:
         self._arena_ok = torch.zeros(
             capacity + 1, dtype=torch.bool, device=self.device
         )
+        self._written = None
+        self._mark_written()
         self.hits = 0
         self.misses = 0
         self.builds = 0  # builder launches
@@ -290,7 +415,21 @@ class PubkeyTableCache:
 
     def arena(self) -> tuple[torch.Tensor, torch.Tensor]:
         with self._lock:
+            self._wait_written()
             return self._arena, self._arena_ok
+
+    def _mark_written(self) -> None:
+        """Record where the arena's last write ended on its stream (CUDA):
+        a launch on another stream waits for it. Caller holds the lock or
+        owns the cache."""
+        if self.device.type == "cuda":
+            self._written = torch.cuda.Event()
+            self._written.record(torch.cuda.current_stream(self.device))
+
+    def _wait_written(self) -> None:
+        """Make the current stream wait for the arena's last write."""
+        if self._written is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._written)
 
     def _build(self, keys: list[bytes]):
         """Decompress and expand ``keys`` on the device (X1):
@@ -336,6 +475,7 @@ class PubkeyTableCache:
                 if not to_build:
                     for batch_keys, tables, oks in built:
                         self._scatter(batch_keys, tables, oks, in_use)
+                    self._wait_written()
                     idxs = np.empty(len(keys), np.uint16)
                     for i, pk in enumerate(keys):
                         idxs[i] = self._slots[pk]
@@ -372,6 +512,7 @@ class PubkeyTableCache:
         idx = _to_device(slots, self.device)
         self._arena = self._arena.index_copy(3, idx, tables)
         self._arena_ok = self._arena_ok.index_copy(0, idx, oks)
+        self._mark_written()
 
     def load(self, slots: dict[bytes, int], arena: torch.Tensor,
              arena_ok: torch.Tensor) -> None:
@@ -390,6 +531,7 @@ class PubkeyTableCache:
             self._slots = OrderedDict(
                 sorted(slots.items(), key=lambda kv: kv[1])
             )
+            self._mark_written()
 
 
 # The process-wide caches, one per device, made at first use: the
@@ -444,42 +586,62 @@ def prestage_pubkeys(pubkeys, device="cuda") -> int:
 # ---------------------------------------------------------------- launches
 
 
-def verify_bytes_async(buf: np.ndarray, n: int, device="cuda", flavor=None):
+def _stage(lanes, kind: str, arr: np.ndarray, dev) -> torch.Tensor:
+    """``arr`` on ``dev``: through ``lanes`` (a LaneArena) when given,
+    else a plain copy."""
+    if lanes is None:
+        return _to_device(arr, dev)
+    if lanes.device != dev:
+        raise ValueError(f"lane arena lives on {lanes.device}, not {dev}")
+    return lanes.stage(kind, arr)
+
+
+def verify_bytes_async(buf: np.ndarray, n: int, device="cuda", flavor=None,
+                       lanes: LaneArena | None = None):
     """Launch the uncached kernel (K1, or K3 with ``flavor`` "8") on packed
-    (128, n) wire rows.
+    (128, n) wire rows, on the current stream.
 
     Returns a zero-arg closure that reads back the (n,) validity bitmap,
     so host work can overlap the kernel. Batches past _CHUNK split into
-    _CHUNK-lane launches.
+    _CHUNK-lane launches. ``lanes`` stages the rows through that
+    :class:`LaneArena` instead of a fresh copy.
     """
     dev = resolve_device(device)
     flavor = kernel_flavor(flavor)
     if n > _CHUNK:
         finals = [
             verify_bytes_async(buf[:, lo : min(lo + _CHUNK, n)],
-                               min(lo + _CHUNK, n) - lo, dev, flavor)
+                               min(lo + _CHUNK, n) - lo, dev, flavor, lanes)
             for lo in range(0, n, _CHUNK)
         ]
         return lambda: np.concatenate([f() for f in finals])
     kernel = (cuda_verify.verify_kernel8 if flavor == "8"
               else cuda_verify.verify_kernel)
-    ok = kernel(**unpack_on_device(_to_device(buf, dev), flavor))
+    ok = kernel(**unpack_on_device(_stage(lanes, "wire", buf, dev), flavor))
     return _readback(ok, bucket_size(n))
 
 
 def verify_rsk_async(buf: np.ndarray, idxs: np.ndarray, arena, arena_ok,
-                     n: int, flavor=None):
+                     n: int, flavor=None, lanes: LaneArena | None = None):
     """Launch the cached kernel (K2, or K4 with ``flavor`` "8"): (96, n)
     R|S|kneg rows plus uint16 arena slots. Same async contract as
     :func:`verify_bytes_async`; ``n`` must be <= _CHUNK."""
     dev = arena.device
     flavor = kernel_flavor(flavor)
+    if dev.type == "cuda":
+        # the arena may have been made on another stream: the allocator
+        # must not reuse it before this stream's kernel has read it
+        stream = torch.cuda.current_stream(dev)
+        arena.record_stream(stream)
+        arena_ok.record_stream(stream)
     # uint16 slots travel as int16 (2 B/lane); the kernel reads uint16
-    slot_dev = _to_device(np.asarray(idxs, np.uint16).view(np.int16), dev)
+    slot_dev = _stage(lanes, "idx",
+                      np.asarray(idxs, np.uint16).view(np.int16), dev)
     kernel = (cuda_verify.verify_kernel8_cached if flavor == "8"
               else cuda_verify.verify_kernel_cached)
     ok = kernel(arena, arena_ok,
-                **_unpack_rsk_on_device(_to_device(buf, dev), flavor),
+                **_unpack_rsk_on_device(_stage(lanes, "rsk", buf, dev),
+                                        flavor),
                 idxs=slot_dev)
     return _readback(ok, bucket_size(n))
 

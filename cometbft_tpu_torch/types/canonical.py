@@ -1,10 +1,12 @@
-"""Canonical vote sign bytes (consensus-critical, byte-exact).
+"""Canonical sign bytes (consensus-critical, byte-exact).
 
-Reference: types/canonical.go, proto/tendermint/types/canonical.proto and
-types/vote.go:139-161 (VoteSignBytes). Sign bytes are uvarint
+Reference: types/canonical.go, proto/tendermint/types/canonical.proto,
+types/vote.go:139-161 (VoteSignBytes, VoteExtensionSignBytes) and
+types/proposal.go:102-116 (ProposalSignBytes). Sign bytes are uvarint
 length-delimited protobuf (protoio.MarshalDelimited).
 
-Message types: prevote=1, precommit=2 (proto/tendermint/types/types.proto).
+Message types: prevote=1, precommit=2, proposal=32
+(proto/tendermint/types/types.proto).
 """
 
 from __future__ import annotations
@@ -15,6 +17,11 @@ from . import proto
 
 PREVOTE_TYPE = 1
 PRECOMMIT_TYPE = 2
+PROPOSAL_TYPE = 32
+
+
+def is_vote_type(msg_type: int) -> bool:
+    return msg_type in (PREVOTE_TYPE, PRECOMMIT_TYPE)
 
 
 def canonical_part_set_header(total: int, hash_: bytes) -> bytes:
@@ -65,4 +72,36 @@ def vote_sign_bytes(
         prefix
         + proto.field_message(5, proto.timestamp(timestamp_ns), always=True)
         + suffix
+    )
+
+
+def proposal_sign_bytes(
+    chain_id: str,
+    height: int,
+    round_: int,
+    pol_round: int,
+    block_id,
+    timestamp_ns: int,
+) -> bytes:
+    """CanonicalProposal sign bytes (types/proposal.go:110)."""
+    return proto.delimited(
+        proto.field_varint(1, PROPOSAL_TYPE)
+        + proto.field_sfixed64(2, height)
+        + proto.field_sfixed64(3, round_)
+        + proto.field_varint(4, pol_round)
+        + proto.field_message(5, canonical_block_id(block_id))
+        + proto.field_message(6, proto.timestamp(timestamp_ns), always=True)
+        + proto.field_string(7, chain_id)
+    )
+
+
+def vote_extension_sign_bytes(
+    chain_id: str, height: int, round_: int, extension: bytes
+) -> bytes:
+    """CanonicalVoteExtension sign bytes (canonical.proto:41-46)."""
+    return proto.delimited(
+        proto.field_bytes(1, extension)
+        + proto.field_sfixed64(2, height)
+        + proto.field_sfixed64(3, round_)
+        + proto.field_string(4, chain_id)
     )

@@ -236,16 +236,57 @@ def _verify_batch(
 def _verify_single(
     chain_id, vals, commit, needed, ignore, count, count_all, by_index
 ) -> None:
-    """Mirror of verifyCommitSingle (types/validation.go:266-330)."""
+    """Mirror of verifyCommitSingle (types/validation.go:266-330).
+
+    With a verify coalescer routed (crypto/coalesce), the eligible
+    signatures of the walk are deferred and submitted as one group, so
+    concurrent single-verify commit checks share windows; the tally, the
+    early stop and the error for the first invalid index are the unrouted
+    walk's. A raise inside the walk is held until the deferred lanes, all
+    of which precede it, are verified: an invalid deferred signature is
+    named before a later double vote or inline failure. A routed window
+    that fails raises; nothing is verified again on the host."""
+    from ..crypto import coalesce
+
+    co = coalesce.active()
     tallied = 0
-    for idx, val in _walk(vals, commit, ignore, by_index):
-        cs = commit.signatures[idx]
-        sign_bytes = commit.vote_sign_bytes(chain_id, idx)
-        if not val.pub_key.verify_signature(sign_bytes, cs.signature):
-            raise VerificationError(f"wrong signature (#{idx})")
+    deferred: list[tuple] = []  # (idx, pubkey, sign bytes, signature)
+    stopped_early = False
+    walk_exc: BaseException | None = None
+    walk = _walk(vals, commit, ignore, by_index)
+    while True:
+        try:
+            item = next(walk, None)
+            if item is None:
+                break
+            idx, val = item
+            cs = commit.signatures[idx]
+            sign_bytes = commit.vote_sign_bytes(chain_id, idx)
+        except Exception as e:  # held until the deferred lanes are read
+            walk_exc = e
+            break
+        if co is not None and coalesce.eligible(val.pub_key):
+            deferred.append((idx, val.pub_key, sign_bytes, cs.signature))
+        elif not val.pub_key.verify_signature(sign_bytes, cs.signature):
+            walk_exc = VerificationError(f"wrong signature (#{idx})")
+            break
         if count(cs):
             tallied += val.voting_power
         if not count_all and tallied > needed:
-            return
+            stopped_early = True
+            break
+    if deferred:
+        bits = co.try_verify(
+            [pk.data for _, pk, _, _ in deferred],
+            [sb for _, _, sb, _ in deferred],
+            [sig for _, _, _, sig in deferred],
+        )
+        for (idx, _, _, _), ok in zip(deferred, bits):
+            if not ok:
+                raise VerificationError(f"wrong signature (#{idx})")
+    if walk_exc is not None:
+        raise walk_exc
+    if stopped_early:
+        return
     if tallied <= needed:
         raise NotEnoughVotingPowerError(got=tallied, needed=needed)

@@ -109,6 +109,11 @@ class ValidatorSet:
             return -1, None
         return i, self.validators[i]
 
+    def get_by_index(self, index: int) -> Validator | None:
+        if 0 <= index < len(self.validators):
+            return self.validators[index]
+        return None
+
     def hash(self) -> bytes:
         return merkle.hash_from_byte_slices(
             [v.bytes() for v in self.validators]

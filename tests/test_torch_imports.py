@@ -2,7 +2,8 @@
 
 * No file of cometbft_tpu_torch/, and not chip_smoke.py, imports jax or
   the JAX package cometbft_tpu (the exact package: cometbft_tpu_torch is
-  the port itself).
+  the port itself), nor names a path into the JAX package: the native
+  host engine is built from the port's own copy.
 * Entry points default to the GPU and raise without one: they never run
   on the CPU unless asked.
 * On CPU tensors the kernel wrappers (and the hash plane on the CPU) take
@@ -20,7 +21,7 @@ import torch
 
 from cometbft_tpu_torch import light as tlight
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
-from cometbft_tpu_torch.crypto import hashplane
+from cometbft_tpu_torch.crypto import coalesce, hashplane
 from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
 from cometbft_tpu_torch.ops import cuda_sha256, cuda_verify
 from cometbft_tpu_torch.ops import sha256 as tsha
@@ -70,6 +71,36 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert not bad, sorted(bad)
 
 
+def _path_literals(path: Path):
+    """String constants of a file that could name a path into the JAX
+    package: the bare package name as a path segment, or a path through
+    cometbft_tpu/."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            v = node.value
+            if v == "cometbft_tpu" or v.startswith(("cometbft_tpu/",
+                                                    "cometbft_tpu\\")):
+                yield v
+
+
+def test_port_names_no_path_into_the_reference_package():
+    """Docstrings may cite the reference's files; code may not open one.
+    The host engine compiles from cometbft_tpu_torch/native/."""
+    from cometbft_tpu_torch.crypto import host_batch
+
+    bad = {
+        f"{f.relative_to(ROOT)}: {v!r}"
+        for f in _port_files()
+        for v in _path_literals(f)
+        if not v.startswith("cometbft_tpu/ops/")  # chip_smoke's "replaces"
+        or f.name != "chip_smoke.py"
+    }
+    assert not bad, sorted(bad)
+    assert host_batch.SRC == ROOT / "cometbft_tpu_torch" / "native" / (
+        "edbatch.cpp")
+
+
 def test_import_scan_catches_the_reference_package(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text(
@@ -79,6 +110,10 @@ def test_import_scan_catches_the_reference_package(tmp_path):
     assert set(_imported_roots(probe)) == {
         "cometbft_tpu_torch", "cometbft_tpu", "jax"
     }
+    probe.write_text('SRC = Path("cometbft_tpu/native/edbatch.cpp")\n'
+                     'ROOT = Path(x) / "cometbft_tpu" / "native"\n')
+    assert list(_path_literals(probe)) == [
+        "cometbft_tpu/native/edbatch.cpp", "cometbft_tpu"]
 
 
 def _one_signature():
@@ -106,6 +141,10 @@ def test_default_device_raises_without_cuda():
         tsha.sha256_many_async([b"default-device probe"])
     with pytest.raises(RuntimeError, match="CUDA"):
         hashplane.HashCoalescer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        coalesce.VerifyCoalescer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tverify.LaneArena()
 
 
 def _light_block(n_vals=2):

@@ -23,6 +23,7 @@ import helpers
 from cometbft_tpu import light as jlight
 from cometbft_tpu_torch import convert
 from cometbft_tpu_torch import light as tlight
+from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.ops import cuda_verify
 from cometbft_tpu_torch.ops import verify as tverify
 from cometbft_tpu_torch.types import block as tblock
@@ -34,6 +35,15 @@ CHAIN_ID = helpers.CHAIN_ID
 # and K1's; K3's and K2's are held in test_torch_kernel8 and
 # test_torch_verify
 MODES = [("8", True), ("4", False)]
+
+
+@pytest.fixture(autouse=True)
+def _device_route(monkeypatch):
+    """These commits are smaller than the port's host/device cut, which
+    would send them to the host tier (held in test_torch_host_batch.py and
+    test_torch_coalesce.py): pin the cut to 2 so they take the device
+    route, the kernels' plain versions, that this file holds."""
+    monkeypatch.setattr(tbatch, "HOST_BATCH_THRESHOLD", 2)
 
 
 @pytest.fixture(autouse=True, scope="module")

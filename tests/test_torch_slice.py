@@ -39,6 +39,15 @@ N_VALS = 16
 TAMPERED = 9
 
 
+@pytest.fixture(autouse=True)
+def _device_route(monkeypatch):
+    """These commits are smaller than the port's host/device cut, which
+    would send them to the host tier (held in test_torch_host_batch.py and
+    test_torch_coalesce.py): pin the cut to 2 so they take the device
+    route, the kernels' plain versions, that this file holds."""
+    monkeypatch.setattr(tbatch, "HOST_BATCH_THRESHOLD", 2)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """Tiny tensors: intra-op threads only add overhead."""

@@ -1,5 +1,6 @@
-"""chip_smoke.py's own copy of the ZIP-215 conformance corpus, and the
-shapes its X4 check compares.
+"""chip_smoke.py's own copy of the ZIP-215 conformance corpus, the
+shapes its X4 check compares, and the vote phase's bookkeeping: the
+window record, the lane check of the vote path and the sweep's crossing.
 
 The smoke script may import neither tests/ nor cometbft_tpu, so it builds
 the ZIP-215 equivalence classes itself with the port's ed25519_ref and
@@ -9,6 +10,8 @@ tests/test_zip215_conformance.py::build_corpus, vector for vector.
 
 import importlib.util
 from pathlib import Path
+
+import pytest
 
 from cometbft_tpu_torch.crypto import hashplane
 from cometbft_tpu_torch.ops import sha256
@@ -152,3 +155,83 @@ def test_x1_chain_bound_reads_register_dependences(monkeypatch):
     assert table["chain_cycles"] == 4 * 5.0
     assert table["issue_cycles"] == 3 * 2.0
     assert cs.x1_lane_ms(sass, probe) == (273 * 35.0 + 15 * 20.0) / 2e6
+
+
+def _launch_lanes(counts):
+    """A stand-in for ops.cuda_verify's launch counters."""
+    import collections
+    import types
+
+    lanes = {k: collections.Counter() for k in (
+        "verify_kernel", "verify_kernel_cached", "build_pubkey_tables",
+        "verify_kernel8", "verify_kernel8_cached")}
+    for name, by_lanes in counts.items():
+        lanes[name].update(by_lanes)
+    return types.SimpleNamespace(LAUNCH_LANES=lanes)
+
+
+def test_vote_lane_check_accepts_only_the_counts_compared():
+    """On the vote path K2 may launch only at the lane counts of its own
+    windows that were held against the plain version, not even at the
+    kernels phase's counts; the other kernels keep the kernels phase's."""
+    cs = _chip_smoke()
+    cv = _launch_lanes({"verify_kernel_cached": {37: 2, 64: 1}})
+    lanes = cs.check_lanes(cv, "vote", {"verify_kernel_cached": {37, 64}})
+    assert lanes["verify_kernel_cached"] == {37: 2, 64: 1}
+    with pytest.raises(RuntimeError, match="ran at \\[37, 64\\] lanes"):
+        cs.check_lanes(cv, "vote", {"verify_kernel_cached": {37}})
+    kernels_phase = _launch_lanes({"verify_kernel_cached": {cs.N_TIMED: 1}})
+    cs.check_lanes(kernels_phase, "slice")
+    with pytest.raises(RuntimeError):
+        cs.check_lanes(kernels_phase, "vote", {"verify_kernel_cached": {37}})
+    with pytest.raises(RuntimeError):  # X1 off its compared counts
+        cs.check_lanes(_launch_lanes({"build_pubkey_tables": {37: 1}}),
+                       "vote", {"verify_kernel_cached": {37}})
+
+
+def test_vote_crossing_is_the_first_count_the_card_wins():
+    cs = _chip_smoke()
+    assert cs.crossing([(8, 1.0, 2.0), (16, 2.0, 2.1), (32, 3.0, 2.5),
+                        (64, 1.0, 0.5)]) == 32
+    assert cs.crossing([(8, 1.0, 2.0), (16, 2.0, 2.1)]) is None
+
+
+def test_vote_window_record_holds_each_window_against_plain(monkeypatch):
+    """WindowRecorder wraps ops.verify's launchers while entered (and
+    restores them), keeps each window's wire rows and read-back verdicts,
+    and compare_windows holds them against the plain version on the
+    window's own lanes: equal here, and a flipped verdict is counted."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    seeds = [bytes([i]) * 32 for i in (1, 2)]
+    msgs = [b"window lane 0", b"window lane 1"]
+    pks = [ref.pubkey_from_seed(s) for s in seeds]
+    sigs = [ref.sign(s, m) for s, m in zip(seeds, msgs)]
+    sigs[1] = sigs[0]
+    real = ov.verify_rsk_async
+    with cs.WindowRecorder(ov) as rec:
+        assert ov.verify_rsk_async is not real
+        ok, bits = ov.verify_batch(pks, msgs, sigs, device="cpu")
+        ov.verify_batch(pks[::-1], msgs[::-1], sigs[::-1], device="cpu")
+    assert ov.verify_rsk_async is real
+    assert bits.tolist() == [True, False]
+    first, second = rec.records  # one arena: one plain call for both
+    assert cs.window_record(first) == {
+        "kernel": "verify_kernel_cached", "lanes": 2, "flavor": "4",
+        "read_back": True, "mismatches": None}
+    assert second["got"].tolist() == [False, True]
+    err = dict.fromkeys(("verify_kernel", "verify_kernel_cached"), 0)
+    mismatches = dict(err)
+    assert cs.compare_windows(torch, rec.records, err, mismatches) == {
+        "verify_kernel_cached": {2}}
+    assert mismatches["verify_kernel_cached"] == 0
+    second["got"] = np.array([True, True])
+    cs.compare_windows(torch, rec.records, err, mismatches)
+    assert (first["mismatches"], second["mismatches"]) == (0, 1)
+    assert err["verify_kernel_cached"] == 1
