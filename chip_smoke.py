@@ -6,7 +6,9 @@
 Run from the root of a checkout on a machine with one CUDA card. Phases,
 each printing one JSON line:
 
-1. device  — the card's name and power limit (nvidia-smi) and torch's view.
+1. device  — the card's name and power limit (nvidia-smi), torch's view,
+             and whether hashlib has RIPEMD-160 (secp256k1 addresses
+             otherwise use the package's own).
 2. build   — parallel nvcc builds of cometbft_tpu_torch/ops/csrc/*.cu,
              registers and spills per kernel (-Xptxas -v).
 3. kernels — K1, K2, X1, K3 and K4 against their plain PyTorch versions on
@@ -86,7 +88,31 @@ each printing one JSON line:
              may launch on the path only at counts so compared. Last,
              part 3 at the seed once more under torch.profiler in a
              process of its own, for the card's idle share.
-7. hash    — the SHA-256 hash plane on one seeded default block: 21 MiB
+7. mixed   — BASELINE config 5: a seeded set of 2,048 ed25519 and 2,048
+             sr25519 validators of equal power (the set's order of power,
+             then address, interleaves them) signs precommits at four
+             heights, every vote with its own sign bytes, like blocksync
+             catching up four blocks. With the cut held at its seed (8):
+             (1) verify_commit with the pubkey cache off, twice (K1 at
+             4,096); (2) prestage_validators (X1 on the 2,048 ed25519 keys
+             only), then a default-argument verify_commit (MixedBatchVerifier
+             -> verify_prepacked: X1 on exactly the 2,048 converted sr25519
+             keys, then K2 at 4,096), then the same call warm (K2 alone);
+             (3) verify_commit_light at each height, twice (K2 at 2,731);
+             (4) a tampered ed25519 signature, then an sr25519 one, each
+             named as the reference names it; (5) the sr25519 half through
+             Sr25519BatchVerifier, twice (K2 at 2,048); (6) a 6-lane mixed
+             batch below the cut, on the host tier (no launch); (7) one
+             height's 4,096 precommits through VoteSet.add_votes_batch in
+             50-vote chunks. Every K1, K2 and X1 launch of the phase is
+             recorded and held against its plain version on the card, and
+             the device verdicts of runs 1-4 against
+             host_batch.verify_quads on the same quads. Then a warm mixed
+             batch's steps are timed on their own at 4,096 and 2,731
+             lanes (mixed.breakdown), and one warm default-argument
+             verify_commit runs under torch.profiler for the card's idle
+             share (mixed.trace).
+8. hash    — the SHA-256 hash plane on one seeded default block: 21 MiB
              (BlockParams.max_bytes, 22,020,096 B, 336 parts of 64 KiB) of
              10,752 txs of 2,048 B. First X4's kernels check (the lines
              kernels.x4*): X4 against hashlib on every lane and
@@ -118,8 +144,9 @@ each printing one JSON line:
 
 In the slice and light phases K1-K4 and X1 must run only at lane counts
 the kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3
-checks; X1 builds a commit's missing keys); in the vote phase K1 and K2
-only at the counts of its own compared windows.
+checks; X1 builds a commit's missing keys); in the vote phase K1 and K2,
+and in the mixed phase K1, K2 and X1, only at the counts of the phase's
+own compared launches.
 
 Then one line {"kernels": [...]} (K1-K4, X1 and X4), the card's nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failed check raises: the
@@ -1182,13 +1209,16 @@ class WindowRecorder:
     """Records every launch of ops.verify's two launchers while it is
     entered: the kernel, its wire inputs and the verdicts read back, so
     that each device window of the vote path is held against the plain
-    version on its own lanes afterwards (compare_windows)."""
+    version on its own lanes afterwards (compare_windows). Given
+    ``cuda_verify``, it records X1's launches too (the arena builds): their
+    limbs in, their tables and ok bits out."""
 
     KERNELS = {"verify_rsk_async": "verify_kernel_cached",
                "verify_bytes_async": "verify_kernel"}
 
-    def __init__(self, ov):
+    def __init__(self, ov, cuda_verify=None):
         self.ov = ov
+        self.cuda_verify = cuda_verify
         self.records = []
         self._saved = {}
 
@@ -1196,11 +1226,24 @@ class WindowRecorder:
         for name in self.KERNELS:
             self._saved[name] = getattr(self.ov, name)
             setattr(self.ov, name, self._wrap(name, self._saved[name]))
+        if self.cuda_verify is not None:
+            real = self._x1 = self.cuda_verify.build_pubkey_tables
+
+            def recording_x1(y_a, sign_a):
+                out = real(y_a, sign_a)
+                self.records.append({
+                    "kernel": "build_pubkey_tables", "lanes": y_a.shape[-1],
+                    "y_a": y_a, "sign_a": sign_a, "got": out, "flavor": "4",
+                    "device": y_a.device})
+                return out
+            self.cuda_verify.build_pubkey_tables = recording_x1
         return self
 
     def __exit__(self, *exc):
         for name, fn in self._saved.items():
             setattr(self.ov, name, fn)
+        if self.cuda_verify is not None:
+            self.cuda_verify.build_pubkey_tables = self._x1
 
     def _wrap(self, name, real):
         def launcher(*args, **kwargs):
@@ -1249,12 +1292,21 @@ def compare_windows(torch, records, err, mismatches):
     from cometbft_tpu_torch.ops import verify as ov
 
     groups = collections.defaultdict(list)
+    compared = collections.defaultdict(set)
     for rec in records:
         check("got" in rec, f"a {rec['kernel']} window was never read back")
         check(rec["flavor"] == "4", "the vote path runs the 4-bit flavor")
+        if rec["kernel"] == "build_pubkey_tables":  # X1: tables, ok bits
+            before = mismatches["build_pubkey_tables"]
+            for got, plain in zip(rec["got"], curve.build_pubkey_tables(
+                    rec["y_a"], rec["sign_a"])):
+                tally(torch, err, mismatches, "build_pubkey_tables", got,
+                      plain)
+            rec["mismatches"] = mismatches["build_pubkey_tables"] - before
+            compared["build_pubkey_tables"].add(rec["lanes"])
+            continue
         key = id(rec["arena"]) if "arena" in rec else str(rec["device"])
         groups[(rec["kernel"], key)].append(rec)
-    compared = collections.defaultdict(set)
     for (name, _), recs in groups.items():
         dev = recs[0]["device"]
         rows = torch.from_numpy(np.ascontiguousarray(np.concatenate(
@@ -1263,11 +1315,17 @@ def compare_windows(torch, records, err, mismatches):
             idxs = torch.from_numpy(np.concatenate(
                 [np.asarray(r["idxs"], np.uint16) for r in recs])
                 .view(np.int16)).to(dev)
-            plain = curve.verify_kernel_slots(
-                recs[0]["arena"], recs[0]["arena_ok"], idxs,
-                **ov._unpack_rsk_on_device(rows)).cpu()
-        else:
-            plain = curve.verify_kernel(**ov.unpack_on_device(rows)).cpu()
+        parts = []  # the plain version a chunk of lanes at a time
+        for lo in range(0, rows.shape[1], ov._CHUNK):
+            hi = min(lo + ov._CHUNK, rows.shape[1])
+            if name == "verify_kernel_cached":
+                parts.append(curve.verify_kernel_slots(
+                    recs[0]["arena"], recs[0]["arena_ok"], idxs[lo:hi],
+                    **ov._unpack_rsk_on_device(rows[:, lo:hi])).cpu())
+            else:
+                parts.append(curve.verify_kernel(
+                    **ov.unpack_on_device(rows[:, lo:hi])).cpu())
+        plain = torch.cat(parts)
         lo = 0
         for rec in recs:
             got = torch.from_numpy(np.asarray(rec["got"], bool))
@@ -1704,6 +1762,369 @@ def phase_vote(torch, pool, card, vals, commit):
           "device_windows": dev_windows, "windows": windows,
           "cut": traced_cut, "card": card})
     return launches, lanes, (err, mismatches)
+
+
+MIXED_ED = 2_048  # BASELINE config 5: ed25519 validators ...
+MIXED_SR = 2_048  # ... and sr25519 ones, equal power
+MIXED_VALIDATORS = MIXED_ED + MIXED_SR
+MIXED_HEIGHTS = tuple(HEIGHT + 1 + i for i in range(4))  # catch-up blocks
+MIXED_LIGHT = 2 * MIXED_VALIDATORS // 3 + 1  # verify_commit_light's lanes
+MIXED_SMALL = 6  # a batch below the seed cut: the host tier
+MIXED_CHUNK = 50  # add_votes_batch's gossip chunk
+
+
+def _sr_pubkey_chunk(minis):
+    from cometbft_tpu_torch.crypto import sr25519
+
+    return [sr25519.public_from_mini(m) for m in minis]
+
+
+def _sr_sign_chunk(items):
+    """Worker: [(mini secret, msg)] -> [sr25519 signature]."""
+    from cometbft_tpu_torch.crypto import sr25519
+
+    return [sr25519.sign(m, msg) for m, msg in items]
+
+
+def make_mixed_commits(pool):
+    """The seeded mixed set (MIXED_ED ed25519 and MIXED_SR sr25519 keys,
+    power 100, in the set's order of power then address) and its
+    precommits at each of MIXED_HEIGHTS, every validator signing: (vals,
+    {height: commit}, seconds to sign)."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.crypto.sr25519 import Sr25519PubKey
+    from cometbft_tpu_torch.types import block
+    from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    ed_seeds = [_seed(b"mixed-ed", i) for i in range(MIXED_ED)]
+    sr_minis = [_seed(b"mixed-sr", i) for i in range(MIXED_SR)]
+    expanded = _pool_map(pool, _expand_chunk, ed_seeds)
+    sr_pubs = _pool_map(pool, _sr_pubkey_chunk, sr_minis)
+    secret = {}  # address -> ("ed", expanded key) or ("sr", mini)
+    validators = []
+    for key in expanded:
+        pk = Ed25519PubKey(key[2])
+        secret[pk.address()] = ("ed", key)
+        validators.append(Validator(pk, 100))
+    for mini, pub in zip(sr_minis, sr_pubs):
+        pk = Sr25519PubKey(pub)
+        secret[pk.address()] = ("sr", mini)
+        validators.append(Validator(pk, 100))
+    vals = ValidatorSet(validators)
+    commits, ed_items, sr_items, where = {}, [], [], []
+    for h in MIXED_HEIGHTS:
+        bid = block.BlockID(
+            hashlib.sha256(b"mixed-block %d" % h).digest(),
+            block.PartSetHeader(1, hashlib.sha256(b"mixed-parts %d" % h)
+                                .digest()))
+        commit = block.Commit(h, 0, bid, [
+            block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, v.address,
+                            1_760_000_000_000_000_000 + 1_000_003 * h + 13 * i)
+            for i, v in enumerate(vals.validators)])
+        commits[h] = commit
+        for i, v in enumerate(vals.validators):
+            kind, key = secret[v.address]
+            msg = commit.vote_sign_bytes(CHAIN_ID, i)
+            (ed_items if kind == "ed" else sr_items).append((key, msg))
+            where.append((h, i, kind))
+    t = time.perf_counter()
+    ed_sigs = iter(_pool_map(pool, _sign_expanded_chunk, ed_items))
+    sr_sigs = iter(_pool_map(pool, _sr_sign_chunk, sr_items))
+    seconds = time.perf_counter() - t
+    sigs = {}
+    for h, i, kind in where:
+        sigs[(h, i)] = next(ed_sigs if kind == "ed" else sr_sigs)
+    for h, commit in commits.items():
+        commit.signatures = [
+            block.CommitSig(cs.block_id_flag, cs.validator_address,
+                            cs.timestamp_ns, sigs[(h, i)])
+            for i, cs in enumerate(commit.signatures)]
+    return vals, commits, seconds
+
+
+def _tampered_commit(commit, idx):
+    from cometbft_tpu_torch.types import block
+
+    bad = block.Commit(commit.height, commit.round, commit.block_id,
+                       list(commit.signatures))
+    cs = bad.signatures[idx]
+    sig = cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:]
+    bad.signatures[idx] = block.CommitSig(cs.block_id_flag,
+                                          cs.validator_address,
+                                          cs.timestamp_ns, sig)
+    return bad
+
+
+def _mixed_verifier(vals, commit, lanes, device="cuda"):
+    """A MixedBatchVerifier holding the first ``lanes`` of ``commit``."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+
+    bv = crypto_batch.MixedBatchVerifier(device=device)
+    for i in range(lanes):
+        bv.add(vals.validators[i].pub_key,
+               commit.vote_sign_bytes(CHAIN_ID, i),
+               commit.signatures[i].signature)
+    return bv
+
+
+def mixed_breakdown(torch, vals, commit, lanes):
+    """A warm mixed batch of the first ``lanes`` of ``commit``, each step
+    on its own (host clock): sign bytes, the sr25519 lanes' Edwards
+    encodings and challenges, the whole row pack (which includes the
+    sr25519 step again, and pack_bytes on the ed25519 lanes), the arena
+    lookup, and the device part (K2 and its readback)."""
+    from cometbft_tpu_torch.crypto import sr25519
+    from cometbft_tpu_torch.ops import verify as ov
+
+    steps = {"lanes": lanes}
+    t = time.perf_counter()
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(lanes)]
+    steps["sign_bytes_ms"] = 1e3 * (time.perf_counter() - t)
+    bv = _mixed_verifier(vals, commit, lanes)
+    sr_idx = [i for i in range(lanes)
+              if vals.validators[i].pub_key.type == "sr25519"]
+    t = time.perf_counter()
+    quads = sr25519.verification_encs_batch(
+        [vals.validators[i].pub_key.data for i in sr_idx],
+        [msgs[i] for i in sr_idx],
+        [commit.signatures[i].signature for i in sr_idx])
+    steps["sr_encs_and_challenges_ms"] = 1e3 * (time.perf_counter() - t)
+    check(all(q is not None for q in quads), "an sr25519 lane was rejected")
+    t = time.perf_counter()
+    buf, host_ok, a_keys = bv._pack_rows()
+    steps["row_pack_ms"] = 1e3 * (time.perf_counter() - t)
+    cache = ov.pubkey_cache("cuda")
+    t = time.perf_counter()
+    idxs, arena, arena_ok = cache.lookup(a_keys)
+    steps["arena_lookup_ms"] = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ok = ov.verify_rsk_async(buf[32:], idxs, arena, arena_ok, lanes)()
+    steps["device_ms"] = 1e3 * (time.perf_counter() - t)
+    check(bool((ok & host_ok).all()), "breakdown: a valid lane rejected")
+    steps["sr_lanes"] = len(sr_idx)
+    return steps
+
+
+def phase_mixed(torch, pool, card):
+    """BASELINE config 5: a mixed ed25519 + sr25519 set through the batch
+    verifier (see the module docstring, phase 7). Returns ({kernel:
+    launches}, {kernel: {lanes: launches}}, the comparisons' (err,
+    mismatches))."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.crypto import host_batch
+    from cometbft_tpu_torch.ops import cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.types import canonical, validation
+    from cometbft_tpu_torch.types.vote_set import VoteSet
+
+    t0 = time.perf_counter()
+    vals, commits, sign_s = make_mixed_commits(pool)
+    types = [v.pub_key.type for v in vals.validators]
+    check(types.count("sr25519") == MIXED_SR
+          and types.count("ed25519") == MIXED_ED, "mixed set's key types")
+    ed_bad = next(i for i in range(MIXED_VALIDATORS // 4, MIXED_VALIDATORS)
+                  if types[i] == "ed25519")
+    sr_bad = next(i for i in range(3 * MIXED_VALIDATORS // 4,
+                                   MIXED_VALIDATORS)
+                  if types[i] == "sr25519")
+    h1 = MIXED_HEIGHTS[0]
+    bad = {"ed25519": (ed_bad, _tampered_commit(commits[h1], ed_bad)),
+           "sr25519": (sr_bad, _tampered_commit(commits[h1], sr_bad))}
+    # the host tier's verdicts on the same quads, for runs 1-4
+    host = {}
+    for key, c in [(h, commits[h]) for h in MIXED_HEIGHTS] + [
+            (kind, b) for kind, (_, b) in bad.items()]:
+        host[key] = host_batch.verify_quads(
+            _mixed_verifier(vals, c, MIXED_VALIDATORS, "cpu")._quads())
+    check(all(all(host[h]) for h in MIXED_HEIGHTS),
+          "host tier rejected a valid mixed commit")
+    for kind, (idx, _) in bad.items():
+        check([i for i, ok in enumerate(host[kind]) if not ok] == [idx],
+              f"host tier: the tampered {kind} lane is not the one rejected")
+    emit({"phase": "mixed.set", "validators": len(vals), "ed25519": MIXED_ED,
+          "sr25519": MIXED_SR, "heights": list(MIXED_HEIGHTS),
+          "interleaved_first_16": "".join(t[0] for t in types[:16]),
+          "tampered": {k: v[0] for k, v in bad.items()},
+          "sign_seconds": sign_s, "seconds": time.perf_counter() - t0,
+          "card": card})
+
+    runs = []  # (run, ms, launches, records of the run)
+    recorder = WindowRecorder(ov, cuda_verify)
+
+    def run(name, fn, cache_env="1", host_key=None):
+        before = dict(cuda_verify.LAUNCHES)
+        lanes_before = {k: collections.Counter(v)
+                        for k, v in cuda_verify.LAUNCH_LANES.items()}
+        first = len(recorder.records)
+        error = None
+        with env("COMETBFT_TPU_PUBKEY_CACHE", cache_env):
+            t = time.perf_counter()
+            try:
+                fn()
+            except validation.VerificationError as e:
+                error = str(e)
+            ms = 1e3 * (time.perf_counter() - t)
+        launches = {k: v - before[k] for k, v in cuda_verify.LAUNCHES.items()
+                    if v - before[k]}
+        lanes = {k: dict(v - lanes_before[k])
+                 for k, v in cuda_verify.LAUNCH_LANES.items()
+                 if v - lanes_before[k]}
+        runs.append((name, host_key, recorder.records[first:]))
+        emit({"phase": "mixed.run", "run": name, "ms": ms,
+              "launches": launches, "lanes": lanes, "error": error,
+              "card": card})
+        return error, launches, lanes
+
+    def commit_call(h, fn=validation.verify_commit, c=None):
+        return lambda: fn(CHAIN_ID, vals, commits[h].block_id, h,
+                          c if c is not None else commits[h])
+
+    torch.cuda.synchronize()
+    cuda_verify.reset_launches()  # the mixed path starts here
+    with env("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "0"), \
+            env("COMETBFT_TPU_KERNEL", "auto"), \
+            env("COMETBFT_TPU_PRESTAGE", "auto"), recorder:
+        # 1. verify_commit with the cache off: K1 at 4,096, cold and warm
+        for mode in ("cold", "warm"):
+            error, got, lanes = run(f"1 verify_commit cache off, {mode}",
+                                    commit_call(h1), "0", h1)
+            check(error is None and got.get("verify_kernel") == 1
+                  and set(got) == {"verify_kernel"},
+                  f"cache-off mixed commit: {error} {got}")
+        # 2. prestaging (ed25519 keys only), then default-argument
+        # verify_commit: X1 builds the sr25519 keys, K2 runs; then warm
+        error, got, lanes = run(
+            "2 prestage_validators",
+            lambda: check(crypto_batch.prestage_validators(vals) == 1,
+                          "prestaging built other than once"))
+        check(lanes == {"build_pubkey_tables": {MIXED_ED: 1}},
+              f"prestaging did not build the {MIXED_ED} ed25519 keys: "
+              f"{lanes}")
+        error, got, lanes = run("2 verify_commit default arguments, cold",
+                                commit_call(h1), host_key=h1)
+        check(error is None and lanes == {
+            "build_pubkey_tables": {MIXED_SR: 1},
+            "verify_kernel_cached": {MIXED_VALIDATORS: 1}},
+            f"default mixed commit did not build the {MIXED_SR} sr25519 "
+            f"keys and run K2: {error} {lanes}")
+        error, got, lanes = run("2 verify_commit default arguments, warm",
+                                commit_call(h1), host_key=h1)
+        check(error is None and lanes == {
+            "verify_kernel_cached": {MIXED_VALIDATORS: 1}},
+            f"warm mixed commit did not run K2 alone: {error} {lanes}")
+        # 3. verify_commit_light at the four heights, warm: K2 at 2,731
+        for mode in ("first", "second"):
+            for h in MIXED_HEIGHTS:
+                error, got, lanes = run(
+                    f"3 verify_commit_light height {h}, {mode}",
+                    commit_call(h, validation.verify_commit_light),
+                    host_key=h)
+                check(error is None and lanes == {
+                    "verify_kernel_cached": {MIXED_LIGHT: 1}},
+                    f"light mixed commit at {h}: {error} {lanes}")
+        # 4. one tampered ed25519 signature, then one sr25519: each named
+        for kind, (idx, c) in bad.items():
+            error, got, lanes = run(f"4 verify_commit tampered {kind}",
+                                    commit_call(h1, c=c), host_key=kind)
+            want = (f"wrong signature (#{idx}): "
+                    f"{c.signatures[idx].signature.hex()}")
+            check(error == want, f"tampered {kind} lane: {error!r}")
+        # 5. the sr25519 half alone through Sr25519BatchVerifier
+        sr_idx = [i for i, t in enumerate(types) if t == "sr25519"]
+
+        def sr_half():
+            bv = crypto_batch.Sr25519BatchVerifier()
+            for i in sr_idx:
+                bv.add(vals.validators[i].pub_key,
+                       commits[h1].vote_sign_bytes(CHAIN_ID, i),
+                       commits[h1].signatures[i].signature)
+            ok, bits = bv.verify()
+            check(ok and len(bits) == MIXED_SR, "the sr25519 half failed")
+        for mode in ("cold", "warm"):
+            error, got, lanes = run(f"5 Sr25519BatchVerifier, {mode}",
+                                    sr_half)
+            check(lanes == {"verify_kernel_cached": {MIXED_SR: 1}},
+                  f"the sr25519 half did not run K2 alone: {lanes}")
+
+        # 6. a 6-lane mixed batch, below the seed cut: the host tier
+        def small():
+            bv = _mixed_verifier(vals, commits[h1], MIXED_SMALL)
+            ok, bits = bv.verify()
+            check(ok and len(bits) == MIXED_SMALL, "the small batch failed")
+        check(crypto_batch.host_batch_threshold("cuda") > MIXED_SMALL,
+              "the cut is not above the small batch")
+        error, got, lanes = run("6 MixedBatchVerifier, 6 lanes", small)
+        check(not got, f"the 6-lane batch launched {got}")
+        # 7. one height's precommits through add_votes_batch, 50 a chunk
+        votes = commit_votes(commits[MIXED_HEIGHTS[-1]])
+        vs = VoteSet(CHAIN_ID, MIXED_HEIGHTS[-1], 0, canonical.PRECOMMIT_TYPE,
+                     vals)
+
+        def gossip():
+            for i in range(0, len(votes), MIXED_CHUNK):
+                added, errs = vs.add_votes_batch(votes[i : i + MIXED_CHUNK])
+                check(all(added) and not any(errs),
+                      f"add_votes_batch chunk {i}: {errs}")
+            check(vs.has_two_thirds_majority(), "no 2/3 majority")
+        error, got, lanes = run("7 add_votes_batch, 50-vote chunks", gossip)
+        cut = crypto_batch.host_batch_threshold("cuda")
+        chunks = collections.Counter(  # the chunks at or above the cut
+            n for n in (min(MIXED_CHUNK, len(votes) - i)
+                        for i in range(0, len(votes), MIXED_CHUNK))
+            if n >= cut)
+        check(lanes == {"verify_kernel_cached": dict(chunks)},
+              f"add_votes_batch launches {lanes}, chunks {dict(chunks)}")
+        launches = dict(cuda_verify.LAUNCHES)  # read just after the path
+        path_lanes = {k: dict(sorted(v.items()))
+                      for k, v in cuda_verify.LAUNCH_LANES.items()}
+        path_records = len(recorder.records)
+        steps = [mixed_breakdown(torch, vals, commits[h1], n)
+                 for n in (MIXED_VALIDATORS, MIXED_LIGHT)]
+        for row in steps:
+            emit({"phase": "mixed.breakdown", **row, "card": card})
+        # the card's busy and idle share of one warm default-argument
+        # verify_commit of the mixed set (host clock for the call, the
+        # torch.profiler trace for the card)
+        host_ms, busy_ms, events = device_busy_ms(torch, commit_call(h1))
+        emit({"phase": "mixed.trace", "call": "verify_commit", "mode":
+              "default arguments, warm, profiled", "host_ms": host_ms,
+              "device_busy_ms": busy_ms, "device_events": events,
+              "idle_share": 1 - busy_ms / host_ms if events else None,
+              "card": card})
+    torch.cuda.synchronize()
+
+    # every recorded launch against its plain version; runs 1-4's device
+    # verdicts against the host tier's on the same quads
+    err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
+    mismatches = dict(err)
+    compared = compare_windows(torch, recorder.records, err, mismatches)
+    host_lanes = 0
+    for name, key, recs in runs:
+        for rec in recs:
+            if key is None or rec["kernel"] == "build_pubkey_tables":
+                continue
+            want = host[key][: rec["lanes"]]
+            check(list(map(bool, rec["got"])) == want,
+                  f"{name}: device verdicts != host_batch.verify_quads")
+            host_lanes += rec["lanes"]
+    emit({"phase": "mixed.windows", "launches_recorded": path_records,
+          "with_breakdown": len(recorder.records),
+          "compared": {k: sorted(v) for k, v in compared.items()},
+          "mismatches": dict(mismatches), "max_abs_err": dict(err),
+          "lanes_held_against_host_tier": host_lanes})
+    check(not any(mismatches.values()),
+          f"mixed launches != plain: {mismatches}")
+    check_lanes(cuda_verify, "mixed", compared)  # the breakdown's too
+    for name in ("verify_kernel", "verify_kernel_cached",
+                 "build_pubkey_tables"):
+        check(launches[name] > 0, f"{name} was not launched on the mixed "
+              "path")
+    for name in ("verify_kernel8", "verify_kernel8_cached"):
+        check(launches[name] == 0, f"{name} launched on the mixed path")
+    emit({"phase": "mixed", "launches": launches, "lanes": path_lanes,
+          "seconds": time.perf_counter() - t0})
+    return launches, path_lanes, (err, mismatches)
 
 
 def make_hash_block():
@@ -2460,6 +2881,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     # the port itself: outside a checkout this fails before any output
+    from cometbft_tpu_torch.crypto import secp256k1
     from cometbft_tpu_torch.ops import build, cuda_verify
 
     smi = subprocess.run(
@@ -2470,7 +2892,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda,
+          "hashlib_ripemd160": secp256k1.HASHLIB_RIPEMD160})
 
     t0 = time.perf_counter()
     cuda_verify._entries()
@@ -2488,6 +2911,8 @@ def main() -> int:
                                                   slice_cache)
         vote_launches, vote_lanes, (vote_err, vote_mismatches) = phase_vote(
             torch, pool, smi, vals, commit)
+        mixed_launches, mixed_lanes, (mixed_err, mixed_mismatches) = (
+            phase_mixed(torch, pool, smi))
         pool.close()
         pool.join()
     hash_launches, x4_row = phase_hash(torch, smi, vals, commit)
@@ -2506,23 +2931,28 @@ def main() -> int:
     timed["build_pubkey_tables"].update(usage.get("x1_build_tables", {}))
     by_lanes = {name: dict(collections.Counter(slice_lanes[name])
                            + collections.Counter(light_lanes[name])
-                           + collections.Counter(vote_lanes[name]))
+                           + collections.Counter(vote_lanes[name])
+                           + collections.Counter(mixed_lanes[name]))
                 for name in cuda_verify.LAUNCHES}
-    # the vote path's windows were compared too: their differences join
-    # the kernels phase's
-    for name in ("verify_kernel", "verify_kernel_cached"):
-        timed[name]["max_abs_err"] = max(timed[name]["max_abs_err"],
-                                         vote_err[name])
-        timed[name]["mismatches"] += vote_mismatches[name]
+    # the vote and mixed paths' launches were compared too: their
+    # differences join the kernels phase's
+    for name in ("verify_kernel", "verify_kernel_cached",
+                 "build_pubkey_tables"):
+        for path_err, path_mismatches in ((vote_err, vote_mismatches),
+                                          (mixed_err, mixed_mismatches)):
+            timed[name]["max_abs_err"] = max(timed[name]["max_abs_err"],
+                                             path_err[name])
+            timed[name]["mismatches"] += path_mismatches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "cometbft_tpu_torch/ops/csrc/" + cuda_verify.SOURCES[name],
          "replaces": replaces[name],
          "launches": (slice_launches[name] + light_launches[name]
-                      + vote_launches[name]),
+                      + vote_launches[name] + mixed_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
                               "light": light_launches[name],
-                              "vote": vote_launches[name]},
+                              "vote": vote_launches[name],
+                              "mixed": mixed_launches[name]},
          "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",

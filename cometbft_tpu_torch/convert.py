@@ -17,7 +17,9 @@ commits, validator sets) is carried across by reading its fields:
 names and builds this package's types from its bytes and ints. Blocks and
 part sets come across the same way (:func:`block_from`,
 :func:`part_set_from`), and so do votes and vote sets (:func:`vote_from`,
-:func:`vote_set_from`).
+:func:`vote_set_from`). Keys of every registered type (ed25519, sr25519,
+secp256k1) come across by their ``type`` and bytes (:func:`pubkey_from`),
+so mixed validator sets do too (:func:`validator_set_from`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from .crypto import merkle
-from .crypto.keys import Ed25519PubKey
+from .crypto.keys import Ed25519PubKey, pubkey_from_type_and_bytes
 from .ops.verify import PubkeyTableCache
 from .types import block
 from .types.light_block import LightBlock, SignedHeader
@@ -57,6 +59,19 @@ def validator_set_from_pairs(pairs) -> ValidatorSet:
     return ValidatorSet(
         [Validator(Ed25519PubKey(bytes(pk)), int(power)) for pk, power in pairs]
     )
+
+
+def pubkey_from(pk):
+    """This package's public key of ``pk``'s type (its ``type`` and
+    ``data``: ed25519, sr25519 or secp256k1); ValueError for another."""
+    return pubkey_from_type_and_bytes(str(pk.type), bytes(pk.data))
+
+
+def validator_set_from(vs) -> ValidatorSet:
+    """A ValidatorSet with the keys and voting powers of ``vs``'s
+    validators, of any registered key type (a mixed set included)."""
+    return ValidatorSet([Validator(pubkey_from(v.pub_key), int(v.voting_power))
+                         for v in vs.validators])
 
 
 def _block_id(bid) -> block.BlockID:
@@ -103,15 +118,12 @@ def commit_from(c) -> block.Commit:
 
 def light_block_from(lb) -> LightBlock:
     """This package's LightBlock with the header, commit and validator set
-    of ``lb`` (ed25519 keys)."""
+    of ``lb``."""
     sh = lb.signed_header
     return LightBlock(
         signed_header=SignedHeader(header_from(sh.header),
                                    commit_from(sh.commit)),
-        validator_set=validator_set_from_pairs(
-            (v.pub_key.data, v.voting_power)
-            for v in lb.validator_set.validators
-        ),
+        validator_set=validator_set_from(lb.validator_set),
     )
 
 
@@ -178,12 +190,11 @@ def vote_from(v) -> Vote:
 
 
 def vote_set_from(vs, device="cuda") -> VoteSet:
-    """This package's VoteSet in the state of ``vs``: its validator set
-    (ed25519 keys), its admitted votes, per-block tallies, peer claims and
-    latched majority, carried as they are (nothing is verified again).
-    ``device`` is where the new set's batches verify."""
-    vals = validator_set_from_pairs(
-        (v.pub_key.data, v.voting_power) for v in vs.val_set.validators)
+    """This package's VoteSet in the state of ``vs``: its validator set,
+    its admitted votes, per-block tallies, peer claims and latched
+    majority, carried as they are (nothing is verified again). ``device``
+    is where the new set's batches verify."""
+    vals = validator_set_from(vs.val_set)
     out = VoteSet(str(vs.chain_id), int(vs.height), int(vs.round),
                   int(vs.signed_msg_type), vals,
                   extensions_enabled=bool(vs.extensions_enabled),

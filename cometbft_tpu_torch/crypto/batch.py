@@ -11,6 +11,15 @@ concurrent small callers share windows, or with none pushed to the native
 RLC host batch (crypto/host_batch.verify_many). That is routing, not a
 rescue: a routed batch whose coalescer or kernel fails raises.
 
+sr25519 rides the same kernels: :class:`MixedBatchVerifier` verifies a
+set of ed25519 and sr25519 keys as one batch, the sr25519 lanes' merlin
+challenges and ristretto -> Edwards conversion computed on the host
+(crypto/sr25519.py, in the native engine), all lanes packed into 128-byte
+rows for ops/verify.verify_prepacked; :class:`Sr25519BatchVerifier` is
+the same verifier restricted to sr25519 keys. It routes by the same cut:
+below it the native host batch (host_batch.verify_quads), at or above it
+the device.
+
 :class:`AdaptiveCrossover` is the runtime host/device crossover fit: one
 per device refines the verify cut from the batches and coalescer windows
 it sees; the hash plane (crypto/hashplane.py) keeps one per SHA block
@@ -26,8 +35,10 @@ import time
 import numpy as np
 import torch
 
-from . import keys
+from . import ed25519_ref, keys
 from .keys import Ed25519PubKey
+
+L = ed25519_ref.L
 
 
 class BatchVerifier:
@@ -130,8 +141,122 @@ class Ed25519BatchVerifier(BatchVerifier):
         return ok_all, list(np.asarray(bitmap, bool))
 
 
+class MixedBatchVerifier(BatchVerifier):
+    """One verifier for a set of ed25519 and sr25519 lanes. Both schemes
+    come down to the same 128-byte wire row A | R | S | (-k mod L) of
+    Edwards encodings and differ only in the challenge (SHA-512 or a merlin
+    transcript, both computed on the host), so a mixed batch is one device
+    launch, or one host RLC MSM. The Go engine cannot batch a mixed set:
+    its CreateBatchVerifier keys off one type and verifyCommitBatch falls
+    back to single verifies (types/validation.go:170-176).
+
+    Routed by size like :class:`Ed25519BatchVerifier`: below the cut the
+    host RLC batch (host_batch.verify_quads), at or above it ``device``;
+    ``pubkey_cache`` and ``flavor`` as there. The arena is keyed by the
+    Edwards encoding, so a converted sr25519 key and an ed25519 key share
+    it."""
+
+    _KEY_TYPES = (keys.ED25519_KEY_TYPE, keys.SR25519_KEY_TYPE)
+
+    def __init__(self, device="cuda", pubkey_cache=None, flavor=None) -> None:
+        self.device = device
+        self.pubkey_cache = pubkey_cache
+        self.flavor = flavor
+        self._types: list[str] = []
+        self._pubkeys: list[bytes] = []
+        self._msgs: list[bytes] = []
+        self._sigs: list[bytes] = []
+
+    def add(self, pub_key, msg: bytes, signature: bytes) -> None:
+        t = getattr(pub_key, "type", None)
+        if t not in self._KEY_TYPES:
+            raise TypeError(
+                f"{type(self).__name__} cannot batch key type {t!r}")
+        self._types.append(t)
+        self._pubkeys.append(pub_key.data)
+        self._msgs.append(bytes(msg))
+        self._sigs.append(bytes(signature))
+
+    def __len__(self) -> int:
+        return len(self._pubkeys)
+
+    def _pack_rows(self) -> tuple[np.ndarray, np.ndarray, list]:
+        """(buf (128, n), host_ok, a_keys): the device wire rows, each
+        scheme's lanes packed by ops/verify (ed25519 by pack_bytes, sr25519
+        by pack_parts over crypto/sr25519.verification_encs_batch) and
+        scattered into one buffer. a_keys are the lanes' Edwards A
+        encodings, b"" where the host rejected the lane (a zero row)."""
+        from ..ops import verify as ov
+        from . import sr25519 as sr
+
+        n = len(self._pubkeys)
+        rows = np.zeros((n, 128), np.uint8)  # lane-major, one row a lane
+        host_ok = np.zeros(n, bool)
+        for kind in self._KEY_TYPES:
+            idx = [i for i, t in enumerate(self._types) if t == kind]
+            if not idx:
+                continue
+            lanes = [[col[i] for i in idx]
+                     for col in (self._pubkeys, self._msgs, self._sigs)]
+            if kind == keys.ED25519_KEY_TYPE:
+                buf, ok = ov.pack_bytes(*lanes)
+            else:
+                buf, ok = ov.pack_parts(sr.verification_encs_batch(*lanes))
+            rows[idx] = buf.T
+            host_ok[idx] = ok
+        blob = rows.tobytes()
+        a_keys = [blob[128 * i : 128 * i + 32] if host_ok[i] else b""
+                  for i in range(n)]
+        return np.ascontiguousarray(rows.T), host_ok, a_keys
+
+    def _quads(self) -> list:
+        """Per-lane (A_enc, R_enc, s, k) read back from the wire rows, None
+        for a lane rejected on the host: the host tier's input."""
+        buf, host_ok, _ = self._pack_rows()
+        blob = np.ascontiguousarray(buf.T).tobytes()
+        quads: list = []
+        for i in range(len(host_ok)):
+            if not host_ok[i]:
+                quads.append(None)
+                continue
+            row = blob[128 * i : 128 * i + 128]
+            kneg = int.from_bytes(row[96:], "little")
+            quads.append((row[:32], row[32:64],
+                          int.from_bytes(row[64:96], "little"),
+                          (L - kneg) % L))
+        return quads
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        from . import host_batch
+
+        n = len(self._pubkeys)
+        if n < host_batch_threshold(self.device):
+            bits = host_batch.verify_quads(self._quads())
+            return all(bits), bits
+        from ..ops import verify as ov
+
+        buf, host_ok, a_keys = self._pack_rows()
+        done = ov.verify_prepacked(buf, a_keys, n, device=self.device,
+                                   cache=self.pubkey_cache,
+                                   flavor=self.flavor)
+        valid = done() & host_ok
+        return bool(valid.all()), list(np.asarray(valid, bool))
+
+
+class Sr25519BatchVerifier(MixedBatchVerifier):
+    """sr25519 batch verification on the ed25519 kernels (the reference's
+    crypto/sr25519/batch.go:14-46): each lane's merlin challenge k and its
+    points' Edwards encodings come from the host (crypto/sr25519.
+    verification_encs_batch), and the cofactored equation [8](sB - kA - R)
+    == O decides ristretto equality exactly. A :class:`MixedBatchVerifier`
+    that takes sr25519 keys only."""
+
+    _KEY_TYPES = (keys.SR25519_KEY_TYPE,)
+
+
 _BATCH_BACKENDS: dict[str, type] = {
     keys.ED25519_KEY_TYPE: Ed25519BatchVerifier,
+    keys.SR25519_KEY_TYPE: Sr25519BatchVerifier,
 }
 
 
@@ -139,7 +264,10 @@ def prestage_validators(validator_set, device="cuda") -> int:
     """Warm the process-wide pubkey arena of ``device`` with a validator
     set's ed25519 keys (ops.verify.prestage_pubkeys: COMETBFT_TPU_PRESTAGE
     decides whether it runs), so its next commit runs the cached kernel
-    with no builder launch. Returns the builder launches it took."""
+    with no X1 launch. Returns the X1 launches it took. sr25519
+    keys are skipped, as the reference skips them: their arena key is the
+    converted Edwards encoding, and the conversion is the costly host step,
+    so the first batch that needs them builds them."""
     keys_bytes = [
         v.pub_key.data
         for v in getattr(validator_set, "validators", [])
@@ -179,12 +307,18 @@ def create_batch_verifier(pub_key, device="cuda", pubkey_cache=None,
 def create_commit_batch_verifier(validator_set, device="cuda",
                                  pubkey_cache=None,
                                  flavor=None) -> BatchVerifier:
-    """Batch verifier for a validator set whose keys share one type."""
+    """Batch verifier for a validator set: its scheme's own backend when
+    every key has one type, :class:`MixedBatchVerifier` when the set mixes
+    types that each have a backend (one launch where the Go engine verifies
+    singly); ValueError otherwise (a secp256k1 key, an empty set)."""
     types = {
         getattr(v.pub_key, "type", None)
         for v in getattr(validator_set, "validators", [])
     }
     backend = _BATCH_BACKENDS.get(next(iter(types))) if len(types) == 1 else None
+    if backend is None and types and all(t in _BATCH_BACKENDS
+                                         for t in types):
+        backend = MixedBatchVerifier
     if backend is None:
         raise ValueError(
             f"batch verification unsupported for key types {sorted(types)!r}"

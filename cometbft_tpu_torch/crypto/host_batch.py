@@ -14,7 +14,12 @@ the Pippenger MSM, through ctypes (every call releases the GIL).
 
 It serves the batches below the device crossover (crypto/batch.py), the
 verify coalescer's small windows (crypto/coalesce.py), and the challenge
-packing of ops/verify.pack_bytes (:func:`pack_challenges`).
+packing of ops/verify.pack_bytes (:func:`pack_challenges`). Its sr25519
+half serves crypto/sr25519.py: the merlin challenges
+(:func:`sr_challenge_batch`), ristretto255 -> Edwards conversion
+(:func:`ristretto_to_edwards_batch`), the keccak-f[1600] permutation of
+the transcripts, the constant-time [s]B of signing, and the RLC verdict
+over precomputed (A, R, s, k) quads (:func:`verify_quads`).
 
 Soundness: an invalid signature passes the RLC check with probability
 ~2^-128 over the coefficient draw (z_i from ``secrets``). On a failing
@@ -63,7 +68,7 @@ def _load():
 
 
 def _bind(lib) -> None:
-    """ctypes signatures of the engine's ed25519 symbols."""
+    """ctypes signatures of the engine's symbols."""
     lib.edb_msm_is_identity_x8.restype = ctypes.c_long
     lib.edb_msm_is_identity_x8.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t
@@ -85,6 +90,22 @@ def _bind(lib) -> None:
     lib.edb_verify_batch.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_void_p,
         ctypes.c_char_p, ctypes.c_size_t,
+    ]
+    lib.edb_scalar_base_mult_xy.restype = None
+    lib.edb_scalar_base_mult_xy.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p
+    ]
+    lib.edb_keccak_f1600.restype = None
+    lib.edb_keccak_f1600.argtypes = [ctypes.c_void_p]
+    lib.edb_sr_challenge_batch.restype = ctypes.c_long
+    lib.edb_sr_challenge_batch.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
+    ]
+    lib.edb_ristretto_to_edwards.restype = None
+    lib.edb_ristretto_to_edwards.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+        ctypes.c_char_p,
     ]
 
 
@@ -127,6 +148,13 @@ def available() -> bool:
     return _load() is not None
 
 
+def _offsets(offs, n: int) -> np.ndarray:
+    offs_arr = np.ascontiguousarray(offs, np.uint64)
+    if offs_arr.shape != (n + 1,):
+        raise ValueError(f"offs must hold n + 1 = {n + 1} offsets")
+    return offs_arr
+
+
 def pack_challenges(recs: bytes, msgs_blob: bytes, offs, n: int):
     """Per-lane challenges for ops/verify.pack_bytes.
 
@@ -136,15 +164,83 @@ def pack_challenges(recs: bytes, msgs_blob: bytes, offs, n: int):
     lib = _load()
     out_kneg = ctypes.create_string_buffer(32 * n)
     out_ok = ctypes.create_string_buffer(n)
-    offs_arr = np.ascontiguousarray(offs, np.uint64)
-    if offs_arr.shape != (n + 1,):
-        raise ValueError(f"offs must hold n + 1 = {n + 1} offsets")
+    offs_arr = _offsets(offs, n)
     rc = lib.edb_pack_challenges(
         recs, msgs_blob, offs_arr.ctypes.data, n, out_kneg, out_ok
     )
     if rc != 0:
         raise RuntimeError(f"edb_pack_challenges failed ({rc})")
     return out_kneg.raw, np.frombuffer(out_ok.raw, np.uint8).astype(bool)
+
+
+def sr_challenge_batch(ctx_state: bytes, recs: bytes, msgs_blob: bytes,
+                       offs, n: int) -> bytes:
+    """Batched sr25519 (schnorrkel) verification challenges.
+
+    ``ctx_state``: the 203-byte serialized STROBE state of the merlin
+    transcript prefix Transcript("SigningContext") + append("", context)
+    (crypto/sr25519._context_prefix); ``recs``: n x 64 bytes (pk | R);
+    ``msgs_blob`` + ``offs`` (n+1 uint64 offsets): the concatenated sign
+    bytes. Returns n x 32 bytes, each challenge k_i mod L little-endian
+    (the reference's crypto/sr25519/batch.go:14-46)."""
+    if len(ctx_state) != 203:
+        raise ValueError("ctx_state must be the 203-byte STROBE state")
+    if len(recs) != 64 * n:
+        raise ValueError(f"recs must hold 64 * n = {64 * n} bytes")
+    lib = _load()
+    offs_arr = _offsets(offs, n)
+    if int(offs_arr[-1]) != len(msgs_blob):
+        raise ValueError("offs must end at len(msgs_blob)")
+    if n == 0:
+        return b""
+    out_k = ctypes.create_string_buffer(32 * n)
+    rc = lib.edb_sr_challenge_batch(
+        bytes(ctx_state), bytes(recs), bytes(msgs_blob),
+        offs_arr.ctypes.data, n, out_k
+    )
+    if rc != 0:
+        raise RuntimeError(f"edb_sr_challenge_batch failed ({rc})")
+    return out_k.raw
+
+
+def ristretto_to_edwards_batch(encs: bytes, m: int):
+    """Decode m ristretto255 encodings (RFC 9496) and compress each point
+    as an Edwards encoding: (32*m bytes of encodings, ok (m,) bool, True
+    where the input is a valid canonical ristretto encoding). Both sr25519
+    batch consumers, the host MSM and the device kernels, take compressed
+    Edwards points."""
+    if len(encs) != 32 * m:
+        raise ValueError(f"encs must hold 32 * m = {32 * m} bytes")
+    lib = _load()
+    if m == 0:
+        return b"", np.zeros(0, bool)
+    out_enc = ctypes.create_string_buffer(32 * m)
+    out_ok = ctypes.create_string_buffer(m)
+    lib.edb_ristretto_to_edwards(bytes(encs), m, out_enc, out_ok)
+    return out_enc.raw, np.frombuffer(out_ok.raw, np.uint8).astype(bool)
+
+
+def keccak_f1600_inplace(state: bytearray) -> None:
+    """The keccak-f[1600] permutation of a 200-byte state (little-endian
+    lanes), in place: the merlin/STROBE transcripts of crypto/sr25519.py
+    permute through it."""
+    if not isinstance(state, bytearray) or len(state) != 200:
+        raise ValueError("state must be a 200-byte bytearray")
+    lib = _load()
+    buf = (ctypes.c_ubyte * 200).from_buffer(state)
+    lib.edb_keccak_f1600(ctypes.addressof(buf))
+
+
+def scalar_base_mult(scalar: int):
+    """[s]B as an extended-coordinate point (x, y, 1, xy), the signing
+    primitive of sr25519: the engine selects table entries with arithmetic
+    masks, with no load or branch indexed by the secret scalar."""
+    lib = _load()
+    out = ctypes.create_string_buffer(64)
+    lib.edb_scalar_base_mult_xy((scalar % L).to_bytes(32, "little"), out)
+    x = int.from_bytes(out.raw[:32], "little")
+    y = int.from_bytes(out.raw[32:], "little")
+    return (x, y, 1, x * y % ref.P)
 
 
 def _msm_identity(points: bytes, coeffs: bytes, m: int) -> int:
@@ -238,6 +334,33 @@ def _attribute(lanes, out, idx_map) -> None:
     mid = len(lanes) // 2
     _attribute(lanes[:mid], out, idx_map[:mid])
     _attribute(lanes[mid:], out, idx_map[mid:])
+
+
+def verify_quads(quads) -> list[bool]:
+    """Per-lane verdicts of precomputed (A_enc, R_enc, s, k) quads, None
+    for a lane the caller rejected (False): one RLC MSM over the rest,
+    attributed by binary splitting when it fails. The sr25519 host tier:
+    merlin challenges (:func:`sr_challenge_batch`) on ristretto points
+    compressed as Edwards encodings, the cofactored equation deciding
+    ristretto equality (the reference's crypto/sr25519/batch.go:48-61
+    feeds the same verifier core as its ed25519 batch)."""
+    _load()
+    n = len(quads)
+    out = [False] * n
+    lanes, idx_map = [], []
+    for i, q in enumerate(quads):
+        if q is None:
+            continue
+        a_enc, r_enc, s, k = q
+        if len(a_enc) != 32 or len(r_enc) != 32:
+            raise ValueError(f"quad {i}: A and R must be 32-byte encodings")
+        z = 0
+        while z == 0:  # z == 0 voids the RLC: redraw (p = 2^-128)
+            z = int.from_bytes(secrets.token_bytes(16), "little")
+        lanes.append(_Lane(bytes(a_enc), bytes(r_enc), s, k, z))
+        idx_map.append(i)
+    _verdict_lanes(lanes, out, idx_map)
+    return out
 
 
 def verify_many(pubkeys, msgs, sigs) -> list[bool]:

@@ -1,4 +1,5 @@
-"""ed25519 key types: the PubKey/PrivKey contracts for validator keys.
+"""Key types: ed25519 (validator keys), the PubKey/PrivKey contracts and
+the registry of every key type.
 
 Reference surface: crypto/crypto.go:22-54 (PubKey, PrivKey), with the
 ed25519 semantics of crypto/ed25519/ed25519.go — ZIP-215 verification,
@@ -6,7 +7,9 @@ SHA-256[:20] addresses, and a 64-byte private key laid out as
 seed || pubkey (RFC 8032 / golang crypto/ed25519).
 
 Single signatures verify on the host with the pure-Python oracle; batches
-go to the device through crypto/batch.
+go to the device through crypto/batch. sr25519 (crypto/sr25519.py) and
+secp256k1 (crypto/secp256k1.py) register in :data:`PUBKEY_TYPES` when the
+crypto package is imported (:func:`register_extra_key_types`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from . import ed25519_ref as ref
 from . import tmhash
 
 ED25519_KEY_TYPE = "ed25519"
+SECP256K1_KEY_TYPE = "secp256k1"
+SR25519_KEY_TYPE = "sr25519"
 
 PUBKEY_SIZE = 32
 PRIVKEY_SIZE = 64  # seed || pubkey
@@ -80,3 +85,24 @@ class Ed25519PrivKey:
 
     def pub_key(self) -> Ed25519PubKey:
         return Ed25519PubKey(self.data[32:])
+
+
+# Registry used by serialization and the batch dispatch
+# (crypto/batch/batch.go:11). sr25519 and secp256k1 register from the
+# crypto package's __init__, which keeps import cycles out of this module.
+PUBKEY_TYPES: dict[str, type] = {ED25519_KEY_TYPE: Ed25519PubKey}
+
+
+def register_extra_key_types() -> None:
+    from .secp256k1 import Secp256k1PubKey
+    from .sr25519 import Sr25519PubKey
+
+    PUBKEY_TYPES.setdefault(SR25519_KEY_TYPE, Sr25519PubKey)
+    PUBKEY_TYPES.setdefault(SECP256K1_KEY_TYPE, Secp256k1PubKey)
+
+
+def pubkey_from_type_and_bytes(key_type: str, data: bytes):
+    cls = PUBKEY_TYPES.get(key_type)
+    if cls is None:
+        raise ValueError(f"unknown pubkey type {key_type!r}")
+    return cls(data)

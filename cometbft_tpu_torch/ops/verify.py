@@ -103,6 +103,7 @@ def bucket_size(n: int) -> int:
 
 
 _Z96 = bytes(96)
+_Z128 = bytes(128)
 
 
 def pack_bytes(pubkeys, msgs, sigs) -> tuple[np.ndarray, np.ndarray]:
@@ -183,6 +184,34 @@ def pack_bytes_plain(pubkeys, msgs, sigs) -> tuple[np.ndarray, np.ndarray]:
         for b in (pk_buf, rr_buf, ss_buf, kneg_buf)
     ]
     return np.ascontiguousarray(np.concatenate(rows, axis=0)), host_ok
+
+
+def pack_part_row(a_enc, r_enc, s_int: int, k_int: int) -> bytes:
+    """One 128-byte wire row A | R | S | (-k mod L), little-endian, from a
+    verification quad. :func:`pack_parts` builds through it; it is the
+    layout :func:`pack_bytes` gives an ed25519 lane, and the tests hold the
+    two byte for byte."""
+    return (
+        bytes(a_enc)
+        + bytes(r_enc)
+        + s_int.to_bytes(32, "little")
+        + ((L - k_int) % L).to_bytes(32, "little")
+    )
+
+
+def pack_parts(parts) -> tuple[np.ndarray, np.ndarray]:
+    """Verification quads in the wire format: (buf (128, n) uint8,
+    host_ok (n,) bool). ``parts[i]`` is (A_edwards32, R_edwards32, s, k),
+    or None for a lane the host rejected (a zero row, host_ok False). For
+    schemes whose challenge is not SHA512(R || A || M): sr25519 computes k
+    from a merlin transcript on the host and rides the same cofactored
+    kernels (crypto/sr25519.py)."""
+    n = len(parts)
+    host_ok = np.array([part is not None for part in parts], bool)
+    blob = b"".join(_Z128 if part is None else pack_part_row(*part)
+                    for part in parts)
+    rows = np.frombuffer(blob, np.uint8).reshape(n, 128)
+    return np.ascontiguousarray(rows.T), host_ok
 
 
 # -- device-side byte unpacking (shared by the uncached, cached and
@@ -644,6 +673,49 @@ def verify_rsk_async(buf: np.ndarray, idxs: np.ndarray, arena, arena_ok,
                                         flavor),
                 idxs=slot_dev)
     return _readback(ok, bucket_size(n))
+
+
+def verify_prepacked(buf: np.ndarray, keys, n: int, *, device="cuda",
+                     cache: PubkeyTableCache | None = None, flavor=None):
+    """Launch the verify kernels on pre-packed (128, n) wire rows, routed
+    through the pubkey arena as :func:`verify_batch` routes: K2 (K4 with
+    ``flavor`` "8") on a cache hit, K1 (K3) with no cache or when the keys
+    overflow the arena. Returns the closure that reads back the (n,)
+    device verdicts.
+
+    ``keys``: each lane's 32-byte Edwards A encoding, the arena's key. For
+    schemes that pack their own challenge (sr25519: a merlin transcript's
+    k, crypto/sr25519.py) and share the cofactored kernels and the arena,
+    keyed by the Edwards encoding itself, so a converted sr25519 key and an
+    ed25519 key of the same point share a slot. A lane the host rejected
+    carries key b"" and a zero row: its slot's ok bit is False, but a zero
+    row uncached decodes to a small-order point the cofactored equation
+    accepts, so every caller ANDs its host checks into the verdicts.
+    """
+    dev = resolve_device(device)
+    flavor = kernel_flavor(flavor)
+    if cache is not None and cache.device != dev:
+        raise ValueError(f"cache lives on {cache.device}, not {dev}")
+    if buf.shape != (128, n) or len(keys) != n:
+        raise ValueError(f"buf must be (128, {n}) with {n} keys")
+    if n == 0:
+        return lambda: np.zeros(0, bool)
+    if cache is None and _cache_enabled():
+        cache = pubkey_cache(dev)
+    finals = []
+    for lo in range(0, n, _CHUNK):
+        hi = min(lo + _CHUNK, n)
+        hit = cache.lookup(keys[lo:hi]) if cache is not None else None
+        if hit is not None:
+            idxs, arena, arena_ok = hit
+            finals.append(verify_rsk_async(buf[32:, lo:hi], idxs, arena,
+                                           arena_ok, hi - lo, flavor))
+        else:
+            finals.append(verify_bytes_async(buf[:, lo:hi], hi - lo, dev,
+                                             flavor))
+    if len(finals) == 1:
+        return finals[0]
+    return lambda: np.concatenate([f() for f in finals])
 
 
 def verify_batch(pubkeys, msgs, sigs, *, device="cuda",

@@ -59,6 +59,10 @@ DEFAULT_TRUST_LEVEL = Fraction(1, 3)
 
 
 def _should_batch_verify(vals: ValidatorSet, commit: Commit) -> bool:
+    # Unlike Go (which keys off one type and verifies a mixed set singly,
+    # types/validation.go:170-176), a set of ed25519 and sr25519 keys
+    # batches too, in one crypto_batch.MixedBatchVerifier; a secp256k1 key
+    # has no batch backend, so its set verifies singly.
     return (
         len(commit.signatures) >= BATCH_VERIFY_THRESHOLD
         and crypto_batch.supports_commit_batch(vals)

@@ -30,9 +30,13 @@ def _clip(v: int) -> int:
 
 
 def pubkey_proto_encode(pub_key) -> bytes:
-    """tendermint.crypto.PublicKey oneof body (keys.proto: ed25519=1)."""
+    """tendermint.crypto.PublicKey oneof body (keys.proto: ed25519=1,
+    secp256k1=2). The proto has no sr25519 field: such a key raises, as it
+    does in the reference, so a set holding one has no hash."""
     if pub_key.type == "ed25519":
         return proto.field_bytes(1, pub_key.bytes())
+    if pub_key.type == "secp256k1":
+        return proto.field_bytes(2, pub_key.bytes())
     raise ValueError(f"unsupported key type {pub_key.type}")
 
 

@@ -62,6 +62,11 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    # the sr25519, secp256k1 and mixed-set modules are scanned too
+    for rel in ("crypto/sr25519.py", "crypto/secp256k1.py",
+                "crypto/host_batch.py", "crypto/batch.py", "crypto/keys.py",
+                "crypto/__init__.py", "ops/verify.py", "convert.py"):
+        assert ROOT / "cometbft_tpu_torch" / rel in files, rel
     bad = {
         f"{f.relative_to(ROOT)}: {mod}"
         for f in files
@@ -99,6 +104,19 @@ def test_port_names_no_path_into_the_reference_package():
     assert not bad, sorted(bad)
     assert host_batch.SRC == ROOT / "cometbft_tpu_torch" / "native" / (
         "edbatch.cpp")
+
+
+def test_port_reads_no_sr25519_host_escape_and_needs_no_crypto_wheel():
+    """The reference's COMETBFT_TPU_SR_HOST sends every sr25519 batch to
+    the host, and without the cryptography wheel its secp256k1 keys
+    verify every signature False. The port reads no such variable, and
+    its secp256k1 module imports nothing outside the standard library and
+    the package."""
+    assert not [str(f.relative_to(ROOT)) for f in _port_files()
+                if "COMETBFT_TPU_SR_HOST" in f.read_text()]
+    secp = ROOT / "cometbft_tpu_torch" / "crypto" / "secp256k1.py"
+    assert set(_imported_roots(secp)) <= {"__future__", "hashlib", "hmac",
+                                          "dataclasses", ""}
 
 
 def test_import_scan_catches_the_reference_package(tmp_path):
@@ -145,6 +163,34 @@ def test_default_device_raises_without_cuda():
         coalesce.VerifyCoalescer()
     with pytest.raises(RuntimeError, match="CUDA"):
         tverify.LaneArena()
+
+
+def test_sr25519_and_mixed_entry_points_default_to_cuda():
+    """Sr25519BatchVerifier, MixedBatchVerifier and verify_prepacked
+    default to the GPU and raise without one, below the cut as at it;
+    with device="cpu" the same lanes verify."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from cometbft_tpu_torch.crypto import batch as tbatch
+    from cometbft_tpu_torch.crypto import sr25519 as tsr
+
+    mini = bytes(range(32))
+    pk = tsr.Sr25519PubKey(tsr.public_from_mini(mini))
+    sig = tsr.sign(mini, b"default-device probe")
+    for cls in (tbatch.Sr25519BatchVerifier, tbatch.MixedBatchVerifier):
+        bv = cls()
+        assert bv.device == "cuda"
+        bv.add(pk, b"default-device probe", sig)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bv.verify()
+        on_cpu = cls(device="cpu")
+        on_cpu.add(pk, b"default-device probe", sig)
+        assert on_cpu.verify() == (True, [True])
+    quad = tsr.verification_encs_batch([pk.data], [b"default-device probe"],
+                                       [sig])
+    buf, _ = tverify.pack_parts(quad)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tverify.verify_prepacked(buf, [quad[0][0]], 1)
 
 
 def _light_block(n_vals=2):

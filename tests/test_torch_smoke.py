@@ -235,3 +235,97 @@ def test_vote_window_record_holds_each_window_against_plain(monkeypatch):
     cs.compare_windows(torch, rec.records, err, mismatches)
     assert (first["mismatches"], second["mismatches"]) == (0, 1)
     assert err["verify_kernel_cached"] == 1
+
+
+def test_recorder_holds_x1_builds_against_plain(monkeypatch):
+    """Given cuda_verify, WindowRecorder also records X1's launches (the
+    arena builds), and compare_windows holds their tables and ok bits
+    against the plain version: equal here, a changed limb counted."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.ops import cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    pks = [ref.pubkey_from_seed(bytes([i]) * 32) for i in (3, 4, 5)]
+    real = cuda_verify.build_pubkey_tables
+    cache = ov.pubkey_cache("cpu")
+    with cs.WindowRecorder(ov, cuda_verify) as rec:
+        idxs, _, arena_ok = cache.lookup(pks + [b""])
+    assert cuda_verify.build_pubkey_tables is real
+    (x1,) = rec.records
+    assert (x1["kernel"], x1["lanes"]) == ("build_pubkey_tables", 4)
+    # the b"" key builds from zero bytes, which decode (a point of order
+    # 4); the arena's ok bit is the build's AND the key's length check
+    assert x1["got"][1].tolist() == [True] * 4
+    assert arena_ok[idxs.astype(int)].tolist() == [True, True, True, False]
+    err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
+    mismatches = dict(err)
+    assert cs.compare_windows(torch, rec.records, err, mismatches) == {
+        "build_pubkey_tables": {4}}
+    assert not any(mismatches.values())
+    x1["got"] = (x1["got"][0].clone(), x1["got"][1])
+    x1["got"][0][0, 0, 0, 1] += 1
+    cs.compare_windows(torch, rec.records, err, mismatches)
+    assert x1["mismatches"] == 1 and err["build_pubkey_tables"] == 1
+
+
+class _SerialPool:
+    """The pool chip_smoke maps its signing over, in this process."""
+
+    @staticmethod
+    def map(fn, chunks):
+        return [fn(c) for c in chunks]
+
+
+def test_mixed_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
+    """chip_smoke.phase_mixed end to end at 2 x 12 validators: "cuda"
+    mapped to the CPU, the plain versions counted as launches. Every run's
+    route and launch count, the tampered lanes named, every launch held
+    against its plain version and runs 1-4 against the host tier."""
+    import torch
+
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    n = 12
+    for name, value in (("MIXED_ED", n), ("MIXED_SR", n),
+                        ("MIXED_VALIDATORS", 2 * n),
+                        ("MIXED_LIGHT", 2 * (2 * n) // 3 + 1),
+                        ("MIXED_CHUNK", 10)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "device_busy_ms", lambda torch, fn: (
+        fn(), (1.0, 0.0, 0))[1])
+    monkeypatch.setattr(cs, "emit", lambda obj: None)
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    real_resolve = ov.resolve_device
+    monkeypatch.setattr(ov, "resolve_device", lambda d: real_resolve(
+        "cpu" if torch.device(d).type == "cuda" else d))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for name in ("verify_kernel", "verify_kernel_cached",
+                 "build_pubkey_tables"):
+        def counted(*a, _real=getattr(cv, name), _name=name, **k):
+            lanes = (k["y_r"] if "y_r" in k else k["y_a"] if "y_a" in k
+                     else a[0]).shape[-1]
+            cv.LAUNCHES[_name] += 1
+            cv.LAUNCH_LANES[_name][lanes] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(cv, name, counted)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, lanes, (err, mismatches) = cs.phase_mixed(
+            torch, _SerialPool(), "cpu")
+    finally:
+        torch.set_num_threads(threads)
+        cv.reset_launches()
+    assert lanes["verify_kernel"] == {2 * n: 2}
+    assert lanes["build_pubkey_tables"] == {n: 2}
+    # runs 2 and 4 at 24 lanes, 3 at 17 (twice at 4 heights), 5 at 12,
+    # 7 in chunks of 10 (the last 4 lanes below the cut, on the host)
+    assert lanes["verify_kernel_cached"] == {2 * n: 4, 17: 8, n: 2, 10: 2}
+    assert launches["verify_kernel8"] == launches["verify_kernel8_cached"] == 0
+    assert not any(mismatches.values()) and not any(err.values())
