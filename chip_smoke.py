@@ -112,7 +112,35 @@ each printing one JSON line:
              lanes (mixed.breakdown), and one warm default-argument
              verify_commit runs under torch.profiler for the card's idle
              share (mixed.trace).
-8. hash    — the SHA-256 hash plane on one seeded default block: 21 MiB
+8. rlc     — the RLC batch equation (ops/rlc.py: X5, csrc/rlc.cu) on the
+             slice phase's 10,000-validator set, which also signs
+             precommits at heights 1001-1003: 40,000 lanes over 10,000
+             keys, blocksync catch-up folded into one batch. First X5's
+             check (rlc.kernels): X5 against its plain version on the
+             card (the bool, every window sum and the pre-cofactor total
+             as encodings), and against the native engine's MSM
+             (host_batch._msm_identity) on the same points and scalars, on
+             batches at buckets 8 and 16, one with an undecodable R, one
+             with a tampered signature, one whose only fault is an extra
+             undecodable R of scalar 0, the ZIP-215 classes as one-lane
+             batches (each against its verdict; the plain version on all
+             of them at once through torch.func.vmap), and both full
+             widths, the z drawn from a seed. Then X5 timed at both full
+             widths (rlc.time: CUDA events, its four stages, the
+             throughput bound of the products the plans need and the
+             chain bound, the plain version, K2 on the
+             same lanes and a warm verify_batch). Then the path, through
+             verify_batch_rlc (rlc.run): (1) the commit's 10,000 lanes
+             and (2) the 40,000, twice each, True with X5 alone launched;
+             (3) a tampered signature, (4) an undecodable R and a short
+             signature, each named as ops.verify.verify_batch names it
+             (its bitmaps taken before the path's counts are zeroed; K2
+             attributes the first two, once each, and no other K2 launch
+             is counted on the path). X5 may launch on the path
+             only at (A bucket, R bucket) shapes the check compared. Last
+             a warm 10,000- and 40,000-lane call step by step
+             (rlc.breakdown) and one under torch.profiler (rlc.trace).
+9. hash    — the SHA-256 hash plane on one seeded default block: 21 MiB
              (BlockParams.max_bytes, 22,020,096 B, 336 parts of 64 KiB) of
              10,752 txs of 2,048 B. First X4's kernels check (the lines
              kernels.x4*): X4 against hashlib on every lane and
@@ -146,11 +174,12 @@ In the slice and light phases K1-K4 and X1 must run only at lane counts
 the kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3
 checks; X1 builds a commit's missing keys); in the vote phase K1 and K2,
 and in the mixed phase K1, K2 and X1, only at the counts of the phase's
-own compared launches.
+own compared launches; X5 only in the rlc phase, at compared shapes.
 
-Then one line {"kernels": [...]} (K1-K4, X1 and X4), the card's nvidia-smi
-line, and last {"ok": true, "device": {...}}. Any failed check raises: the
-script exits nonzero and prints no last line. Without CUDA it exits 2.
+Then one line {"kernels": [...]} (K1-K4, X1, X5 and X4), the card's
+nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
+raises: the script exits nonzero and prints no last line. Without CUDA
+it exits 2.
 """
 
 import collections
@@ -2127,6 +2156,485 @@ def phase_mixed(torch, pool, card):
     return launches, path_lanes, (err, mismatches)
 
 
+# ------------------------------------------------------------------ rlc
+
+RLC_HEIGHTS = tuple(HEIGHT + i for i in range(4))  # blocksync catch-up
+RLC_SMALL = (5, 13)  # lanes of the bucket-8 and bucket-16 batches
+RLC_BAD_LANE = 3  # the lane spoiled in the small check batches
+RLC_TAMPERED = 2024  # on the path: a tampered signature's lane ...
+RLC_UNDECODABLE = 3141  # ... an R that does not decode ...
+RLC_SHORT = 5926  # ... and a signature cut short (host-malformed)
+RLC_SEED = 10
+
+
+def make_catchup_commits(pool, vals, commit):
+    """The slice phase's set signing precommits at RLC_HEIGHTS: ``commit``
+    at HEIGHT, seeded blocks at the next three ({height: commit}, seconds
+    to sign)."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.types import block
+
+    seeds = [_seed(b"validator", i) for i in range(N_VALIDATORS)]
+    expanded = _pool_map(pool, _expand_chunk, seeds)
+    key_of = {Ed25519PubKey(key[2]).address(): key for key in expanded}
+    commits, items = {HEIGHT: commit}, []
+    for h in RLC_HEIGHTS[1:]:
+        bid = block.BlockID(
+            hashlib.sha256(b"catch-up block %d" % h).digest(),
+            block.PartSetHeader(2, hashlib.sha256(b"catch-up parts %d" % h)
+                                .digest()))
+        commits[h] = block.Commit(h, 0, bid, [
+            block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, v.address,
+                            1_760_000_000_000_000_000 + 1_000_003 * h + 13 * i)
+            for i, v in enumerate(vals.validators)])
+        items += [(key_of[v.address], commits[h].vote_sign_bytes(CHAIN_ID, i))
+                  for i, v in enumerate(vals.validators)]
+    t = time.perf_counter()
+    sigs = iter(_pool_map(pool, _sign_expanded_chunk, items))
+    seconds = time.perf_counter() - t
+    for h in RLC_HEIGHTS[1:]:
+        commits[h].signatures = [
+            block.CommitSig(cs.block_id_flag, cs.validator_address,
+                            cs.timestamp_ns, next(sigs))
+            for cs in commits[h].signatures]
+    return commits, seconds
+
+
+def commit_lanes(vals, commits):
+    """(pubkeys, sign bytes, signatures) of every precommit of
+    ``commits``, height after height."""
+    pubs, msgs, sigs = [], [], []
+    for c in commits:
+        for i, cs in enumerate(c.signatures):
+            pubs.append(vals.validators[i].pub_key.data)
+            msgs.append(c.vote_sign_bytes(CHAIN_ID, i))
+            sigs.append(cs.signature)
+    return pubs, msgs, sigs
+
+
+def msm_oracle(host_batch, folded) -> int:
+    """The native engine's verdict on one folded batch equation
+    (host_batch._msm_identity: 1 holds, 0 fails, below 0 a point does not
+    decode), on the points and scalars X5 is given."""
+    a_encs, a_sc, r_encs, r_sc, b = folded
+    return host_batch._msm_identity(
+        b"".join(list(a_encs) + list(r_encs) + [host_batch._B_ENC]),
+        b"".join(s.to_bytes(32, "little")
+                 for s in list(a_sc) + list(r_sc) + [b]),
+        len(a_encs) + len(r_encs) + 1)
+
+
+def _undecodable_r() -> bytes:
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+
+    y = next(y for y in range(2, 300)
+             if ref.decompress(y.to_bytes(32, "little")) is None)
+    return y.to_bytes(32, "little")
+
+
+def _spoil(lanes, idx, how):
+    """``lanes`` with lane ``idx``'s signature tampered (a byte of S
+    flipped), its R undecodable, or cut short."""
+    pubs, msgs, sigs = (list(x) for x in lanes)
+    sig = sigs[idx]
+    sigs[idx] = {"tampered": sig[:40] + bytes([sig[40] ^ 1]) + sig[41:],
+                 "undecodable": _undecodable_r() + sig[32:],
+                 "short": sig[:63]}[how]
+    return pubs, msgs, sigs
+
+
+def x5_compare(rlc, inp, got, plain) -> dict:
+    """X5's parts (window sums, pre-cofactor total, bool) against the
+    plain version's, points as encodings: the differing ones, and the
+    bools' difference."""
+    diff = 0
+    for i in range(3):
+        g = got[i] if i < 2 else got[i][:, :, None]
+        p = plain[i] if i < 2 else plain[i][:, :, None]
+        diff += sum(a != b for a, b in zip(rlc.encode(g), rlc.encode(p)))
+    err = abs(int(bool(got[3])) - int(bool(plain[3])))
+    return {"mismatches": diff + err, "max_abs_err": err,
+            "x5": bool(got[3]), "plain": bool(plain[3])}
+
+
+def check_x5(torch, lanes10, lanes40):
+    """X5 against its plain version on the card (the rlc kernels check),
+    the native MSM and the ZIP-215 verdicts. Returns (the comparisons'
+    totals, the (A bucket, R bucket) shapes compared, which are the ones
+    X5 may run at on the path, and the two full-width batches as (launch
+    inputs, lanes))."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import host_batch
+    from cometbft_tpu_torch.ops import cuda_rlc, rlc
+    from cometbft_tpu_torch.ops import verify as ov
+
+    dev = ov.resolve_device("cuda")
+    rng = np.random.default_rng(RLC_SEED)
+    totals = {"mismatches": 0, "max_abs_err": 0, "launches": 0}
+    shapes, full = set(), []
+
+    def case(name, lanes, expect, undecodable_zero=False):
+        buf, host_ok = ov.pack_bytes(*lanes)
+        folded = rlc.fold(buf, host_ok, rng.bytes(16 * int(host_ok.sum())))
+        if undecodable_zero:  # one more R, undecodable, of scalar 0: the
+            # sums still hold, so only the ok bit can fail the equation
+            a_encs, a_sc, r_encs, r_sc, b = folded
+            folded = (a_encs, a_sc, r_encs + [_undecodable_r()], r_sc + [0],
+                      b)
+        inp = rlc.to_device(rlc.launch_inputs(*folded), dev)
+        got = cuda_rlc.rlc_equation(**inp, parts=True)
+        plain = rlc._rlc_parts(**inp)
+        line = x5_compare(rlc, inp, got, plain)
+        oracle = msm_oracle(host_batch, folded)
+        shape = (inp["y_a"].shape[1], inp["y_r"].shape[1])
+        emit({"phase": "rlc.kernels", "case": name, "lanes": len(lanes[0]),
+              "shape": list(shape), **line, "oracle": oracle,
+              "expect": expect})
+        check(line["mismatches"] == 0, f"X5 != plain on {name}")
+        check(line["x5"] == (oracle == 1) == expect,
+              f"X5 {line['x5']}, oracle {oracle}, expected {expect}: {name}")
+        totals["mismatches"] += line["mismatches"]
+        totals["max_abs_err"] = max(totals["max_abs_err"],
+                                    line["max_abs_err"])
+        totals["launches"] += 1
+        shapes.add(shape)
+        return inp
+
+    with torch.no_grad():
+        for n in RLC_SMALL:
+            small = tuple(x[:n] for x in lanes10)
+            case(f"{n} lanes", small, True)
+        small = tuple(x[:RLC_SMALL[1]] for x in lanes10)
+        case("undecodable R", _spoil(small, RLC_BAD_LANE, "undecodable"),
+             False)
+        case("tampered signature", _spoil(small, RLC_BAD_LANE, "tampered"),
+             False)
+        case("undecodable R of scalar 0", small, False, undecodable_zero=True)
+        # the ZIP-215 classes as one-lane batches: X5 one at a time, the
+        # plain version on all of them at once (torch.func.vmap)
+        eqs, names, expects, folded_all = [], [], [], []
+        for name, pk, msg, sig, expect in zip215_corpus():
+            buf, host_ok = ov.pack_bytes([pk], [msg], [sig])
+            if not host_ok[0]:
+                check(not expect, f"host rejected {name}")
+                continue
+            folded = rlc.fold(buf, host_ok, rng.bytes(16))
+            eqs.append(rlc.to_device(rlc.launch_inputs(*folded), dev))
+            names.append(name)
+            expects.append(expect)
+            folded_all.append(folded)
+        keys = ("y_a", "sign_a", "plan_a", "y_r", "sign_r", "plan_r",
+                "b_bytes")
+        stacked = [tuple(torch.stack([e[k][i] for e in eqs])
+                         for i in range(4)) if k.startswith("plan")
+                   else torch.stack([e[k] for e in eqs]) for k in keys]
+        c_a, c_r = eqs[0]["c_a"], eqs[0]["c_r"]
+        check(all((e["c_a"], e["c_r"]) == (c_a, c_r) for e in eqs),
+              "corpus equations differ in shape")
+        plains = torch.func.vmap(
+            lambda *a: rlc._rlc_parts(*a, c_a=c_a, c_r=c_r))(*stacked)
+        corpus = {"classes": len(eqs), "mismatches": 0, "verdicts_wrong": []}
+        for k, (inp, name, expect, folded) in enumerate(
+                zip(eqs, names, expects, folded_all)):
+            got = cuda_rlc.rlc_equation(**inp, parts=True)
+            line = x5_compare(rlc, inp, got, tuple(p[k] for p in plains))
+            oracle = msm_oracle(host_batch, folded)
+            corpus["mismatches"] += line["mismatches"]
+            totals["max_abs_err"] = max(totals["max_abs_err"],
+                                        line["max_abs_err"])
+            totals["launches"] += 1
+            if not line["x5"] == (oracle == 1) == expect:
+                corpus["verdicts_wrong"].append(name)
+        shapes.add((eqs[0]["y_a"].shape[1], eqs[0]["y_r"].shape[1]))
+        totals["mismatches"] += corpus["mismatches"]
+        emit({"phase": "rlc.kernels", "case": "ZIP-215 corpus", **corpus})
+        check(not corpus["mismatches"] and not corpus["verdicts_wrong"],
+              f"X5 on the ZIP-215 corpus: {corpus}")
+        for lanes, name in ((lanes10, f"{N_VALIDATORS} lanes"),
+                            (lanes40, f"{len(lanes40[0])} lanes over "
+                                      f"{N_VALIDATORS} keys")):
+            full.append((case(name, lanes, True), lanes))
+
+    return {"mismatches": totals["mismatches"],
+            "max_abs_err": totals["max_abs_err"],
+            "compared_launches": totals["launches"],
+            "compared_shapes": sorted("%dx%d" % s for s in shapes)}, \
+        shapes, full
+
+
+def time_x5(torch, card, full, lanes40):
+    """X5 timed at both full widths (CUDA events around KERNEL_REPS
+    launches, median of RUNS; its four stages between events), beside the
+    throughput bound (cuda_rlc.work), the chain bound
+    (cuda_rlc.chain_products at the cycles of one dependent product: a
+    turn of X1's squaring loop on fe26.cuh, at clock_probe's latencies and
+    clock; and at one warp's issue of that turn), the plain version, and
+    K2 on the same lanes: the kernel, one launch a height, and the host ms
+    of a warm verify_batch. Returns the kernels line's row (the
+    10,000-lane numbers of ``full``'s first batch, the 40,000-lane ones of
+    its second under "at_40000")."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import build, cuda_rlc, cuda_verify, rlc
+    from cometbft_tpu_torch.ops import verify as ov
+
+    dev = ov.resolve_device("cuda")
+    probe = clock_probe(torch)
+    sass = x1_sass(build.BUILD_INFO["build_tables.cu"]["path"], probe)
+    product_cycles = sass["squaring"]["chain_cycles"]
+    issue_cycles = sass["squaring"]["issue_cycles"]
+    cache = ov.pubkey_cache("cuda")
+    k2_lanes = []
+    for h in range(len(lanes40[0]) // N_VALIDATORS):
+        part = tuple(x[h * N_VALIDATORS:(h + 1) * N_VALIDATORS]
+                     for x in lanes40)
+        buf, _ = ov.pack_bytes(*part)
+        idxs, arena, arena_ok = cache.lookup(part[0])
+        k2_lanes.append((arena, arena_ok, ov._unpack_rsk_on_device(
+            torch.from_numpy(buf[32:]).to(dev)), torch.from_numpy(
+            np.asarray(idxs, np.uint16).view(np.int16)).to(dev)))
+
+    def k2(count):
+        return lambda: [cuda_verify.verify_kernel_cached(a, ok, **rsk, idxs=i)
+                        for a, ok, rsk, i in k2_lanes[:count]]
+
+    row, by_shape = {}, {}
+    for inp, lanes in full:
+        shape = (inp["y_a"].shape[1], inp["y_r"].shape[1])
+        n = len(lanes[0])
+        ms, _ = time_ms(torch, lambda: cuda_rlc.rlc_equation(**inp),
+                        KERNEL_REPS)
+        stages = []
+        for _ in range(RUNS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            cuda_rlc.rlc_equation(**inp, stage_events=ev)
+            ev[4].synchronize()
+            stages.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+        stage_ms = dict(zip(("decompress", "buckets", "runs", "finish"),
+                            (statistics.median(s) for s in zip(*stages))))
+        plain_ms = time_ms(torch, lambda: rlc._rlc_parts(**inp)[3])[0]
+        plans = ([a.cpu().numpy() for a in inp["plan_a"]],
+                 [a.cpu().numpy() for a in inp["plan_r"]],
+                 inp["c_a"], inp["c_r"])
+        ops, nbytes = cuda_rlc.work(*plans)
+        ops_ms, bytes_ms = (1e3 * ops / PEAK_OPS_PER_S,
+                            1e3 * nbytes / PEAK_BYTES_PER_S)
+        products = cuda_rlc.chain_products(*plans)
+        chain_ms = products * product_cycles / (probe["clock_ghz"] * 1e6)
+        # the same chain at one warp's issue of each product: the floor
+        # of X5's serial stages while one warp runs each
+        issue_ms = products * issue_cycles / (probe["clock_ghz"] * 1e6)
+        k2_ms = time_ms(torch, k2(n // N_VALIDATORS), KERNEL_REPS)[0]
+        ov.verify_batch(*lanes)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok, _ = ov.verify_batch(*lanes)
+        batch_ms = 1e3 * (time.perf_counter() - t)
+        check(ok, "verify_batch rejected the full-width lanes")
+        line = {"ms": ms, "stage_ms": stage_ms, "plain_ms": plain_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                "needed_products": ops // (2 * cuda_rlc.MULADDS_PER_PRODUCT),
+                "op_ledger_products": rlc.op_ledger(shape[1], shape[0])[
+                    "field_muls_total"],
+                "chain_products": products, "chain_bound_ms": chain_ms,
+                "warp_issue_ms": issue_ms,
+                "bound_share": max(ops_ms, bytes_ms) / ms,
+                "larger_bound_share": max(ops_ms, bytes_ms, chain_ms) / ms,
+                "k2_ms": k2_ms, "k2_launches": n // N_VALIDATORS,
+                "verify_batch_host_ms": batch_ms}
+        emit({"phase": "rlc.time", "lanes": n, "shape": list(shape), **line,
+              "product_cycles": product_cycles,
+              "product_issue_cycles": issue_cycles,
+              "clock_ghz": probe["clock_ghz"], "card": card})
+        by_shape["%dx%d" % shape] = ms
+        if n == N_VALIDATORS:
+            row = dict(line)
+        else:
+            row["at_40000"] = line
+    row["by_shape_ms"] = by_shape
+    return row
+
+
+def rlc_breakdown(torch, lanes):
+    """A warm verify_batch_rlc on ``lanes``, each step on its own (host
+    clock): pack, the fold loop, the encodings, the scalar rows, the
+    plans, h2d, and the device part (X5 and its one-byte readback), with
+    X5's four stages between CUDA events."""
+    import secrets
+
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import cuda_rlc, rlc
+    from cometbft_tpu_torch.ops import verify as ov
+
+    dev = ov.resolve_device("cuda")
+    steps = {"lanes": len(lanes[0])}
+    t = time.perf_counter()
+    buf, host_ok = ov.pack_bytes(*lanes)
+    steps["pack_ms"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    folded = rlc.fold(buf, host_ok,
+                      secrets.token_bytes(16 * int(host_ok.sum())))
+    steps["fold_ms"] = 1e3 * (time.perf_counter() - t)
+    a_encs, a_sc, r_encs, r_sc, b = folded
+    na, nr = rlc._bucket(len(a_encs)), rlc._bucket(len(r_encs))
+    c_a, c_r = rlc.window_bits(na, rlc.A_BITS), rlc.window_bits(nr, rlc.R_BITS)
+    t = time.perf_counter()
+    y_a, sign_a = rlc._enc_arrays(a_encs, na)
+    y_r, sign_r = rlc._enc_arrays(r_encs, nr)
+    steps["encodings_ms"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    rows_a, rows_r = rlc._scalar_rows(a_sc, na), rlc._scalar_rows(r_sc, nr)
+    steps["scalar_rows_ms"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    plan_a = rlc.plan_msm(rows_a, c_a, rlc.A_BITS)
+    plan_r = rlc.plan_msm(rows_r, c_r, rlc.R_BITS)
+    steps["plan_msm_ms"] = 1e3 * (time.perf_counter() - t)
+    host = {"y_a": y_a, "sign_a": sign_a,
+            "plan_a": tuple(plan_a[k] for k in rlc.PLAN_KEYS),
+            "y_r": y_r, "sign_r": sign_r,
+            "plan_r": tuple(plan_r[k] for k in rlc.PLAN_KEYS),
+            "b_bytes": np.frombuffer(b.to_bytes(32, "little"),
+                                     np.uint8).astype(np.int32)[:, None],
+            "c_a": c_a, "c_r": c_r}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    inp = rlc.to_device(host, dev)
+    torch.cuda.synchronize()
+    steps["h2d_ms"] = 1e3 * (time.perf_counter() - t)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    t = time.perf_counter()
+    ok = bool(cuda_rlc.rlc_equation(**inp, stage_events=ev))
+    steps["device_ms"] = 1e3 * (time.perf_counter() - t)
+    check(ok, "breakdown: the equation failed")
+    steps["x5_stage_ms"] = dict(zip(
+        ("decompress", "buckets", "runs", "finish"),
+        (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
+    return steps
+
+
+def phase_rlc(torch, pool, card, vals, commit):
+    """The RLC batch equation (X5, see the module docstring, phase 8) on
+    the slice phase's set and commit. Returns ({kernel: launches on the
+    path, "rlc": X5's}, check_lanes' {kernel: {lanes: launches}} with
+    X5's by shape under "rlc", X5's row of the kernels line)."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import cuda_rlc, cuda_verify, rlc
+    from cometbft_tpu_torch.ops import verify as ov
+
+    t0 = time.perf_counter()
+    commits, sign_s = make_catchup_commits(pool, vals, commit)
+    lanes10 = commit_lanes(vals, [commit])
+    lanes40 = commit_lanes(vals, [commits[h] for h in RLC_HEIGHTS])
+    emit({"phase": "rlc.set", "validators": len(vals),
+          "heights": list(RLC_HEIGHTS), "lanes": len(lanes40[0]),
+          "sign_seconds": sign_s, "seconds": time.perf_counter() - t0,
+          "card": card})
+    row, compared, full = check_x5(torch, lanes10, lanes40)
+    row.update(time_x5(torch, card, full, lanes40))
+    # the attribution runs K2 on the process-wide arena: the set's keys
+    # must be there (later phases may have evicted some)
+    crypto_batch.prestage_validators(vals)
+    torch.cuda.synchronize()
+
+    def run(name, lanes, want_ok, named=()):
+        before = dict(cuda_verify.LAUNCHES)
+        x5_before = dict(cuda_rlc.LAUNCH_SHAPES["rlc"])
+        t = time.perf_counter()
+        ok, bitmap = rlc.verify_batch_rlc(*lanes)
+        ms = 1e3 * (time.perf_counter() - t)
+        launches = {k: v - before[k] for k, v in cuda_verify.LAUNCHES.items()
+                    if v - before[k]}
+        x5 = {"%dx%d" % s: n - x5_before.get(s, 0)
+              for s, n in cuda_rlc.LAUNCH_SHAPES["rlc"].items()
+              if n - x5_before.get(s, 0)}
+        emit({"phase": "rlc.run", "run": name, "lanes": len(lanes[0]),
+              "ms": ms, "ok": ok, "rejected": [int(i) for i in
+                                                np.nonzero(~bitmap)[0]],
+              "x5": x5, "launches": launches, "card": card})
+        check(ok == want_ok and sorted(np.nonzero(~bitmap)[0].tolist())
+              == sorted(named), f"{name}: {ok}, rejected "
+              f"{np.nonzero(~bitmap)[0].tolist()[:8]}, expected {named}")
+        check(sum(x5.values()) == 1, f"{name}: X5 ran {x5}")
+        return bitmap, launches
+
+    # runs 3 and 4 and verify_batch's own bitmaps for them, taken before
+    # the counts are zeroed: only verify_batch_rlc's launches count
+    spoiled = []
+    with torch.no_grad():
+        for label, how, idx in (("3", "tampered", RLC_TAMPERED),
+                                ("4", "undecodable", RLC_UNDECODABLE),
+                                ("4", "short", RLC_SHORT)):
+            lanes = _spoil(lanes10, idx, how)
+            spoiled.append((label, how, idx, lanes,
+                            ov.verify_batch(*lanes)[1]))
+    torch.cuda.synchronize()
+    attributed = 0  # K2 launches of the runs' attributions
+    cuda_verify.reset_launches()
+    cuda_rlc.reset_launches()  # the rlc path starts here
+    with torch.no_grad():
+        for label, lanes in (("1", lanes10), ("2", lanes40)):
+            for mode in ("first", "second"):
+                _, launches = run(f"{label} verify_batch_rlc, "
+                                  f"{len(lanes[0])} lanes, {mode}", lanes,
+                                  True)
+                check(not launches, f"K1/K2/X1 ran beside X5: {launches}")
+        for label, how, idx, lanes, want in spoiled:
+            bitmap, launches = run(f"{label} verify_batch_rlc, {how} lane",
+                                   lanes, False, (idx,))
+            check(np.array_equal(bitmap, want),
+                  f"{how}: the bitmap is not verify_batch's")
+            if how != "short":  # the equation fails: verify_batch names it
+                check(launches == {"verify_kernel_cached": 1},
+                      f"{how}: the attribution ran {launches}")
+                attributed += launches["verify_kernel_cached"]
+            else:  # the host rejects it; X5 holds on the rest
+                check(not launches, f"short: {launches}")
+    launches = dict(cuda_verify.LAUNCHES)  # read just after the path
+    launches["rlc"] = cuda_rlc.LAUNCHES["rlc"]
+    lanes = check_lanes(cuda_verify, "rlc", rlc_compared=compared)
+    check(launches["verify_kernel_cached"] == attributed,
+          f"K2 ran {launches['verify_kernel_cached']} times on the rlc "
+          f"path, the runs' attributions {attributed}")
+    check(launches["rlc"] > 0, "X5 was not launched on the rlc path")
+    for name in ("verify_kernel", "build_pubkey_tables", "verify_kernel8",
+                 "verify_kernel8_cached"):
+        check(launches[name] == 0, f"{name} launched on the rlc path")
+    emit({"phase": "rlc", "launches": launches, "lanes": lanes,
+          "seconds": time.perf_counter() - t0})
+    for lanes_ in (lanes10, lanes40):
+        emit({"phase": "rlc.breakdown", **rlc_breakdown(torch, lanes_),
+              "card": card})
+    # the card's busy and idle share of one warm 10,000-lane call, in a
+    # process of its own: this one's profiler saw no device work here
+    with get_context("spawn").Pool(1) as tracer:
+        host_ms, busy_ms, events = tracer.apply(_traced_rlc, (lanes10,))
+        tracer.close()
+        tracer.join()
+    check(events > 0, "the traced verify_batch_rlc ran nothing on the card")
+    emit({"phase": "rlc.trace", "call": "verify_batch_rlc", "lanes":
+          N_VALIDATORS, "host_ms": host_ms, "device_busy_ms": busy_ms,
+          "device_events": events, "idle_share": 1 - busy_ms / host_ms,
+          "card": card})
+    return launches, lanes, row
+
+
+def _traced_rlc(lanes):
+    """Worker: verify_batch_rlc on ``lanes``, once to warm, then under
+    torch.profiler: (host ms, card-busy ms, device events)."""
+    import torch
+
+    from cometbft_tpu_torch.ops import rlc
+
+    check(rlc.verify_batch_rlc(*lanes)[0], "the traced batch failed")
+    return device_busy_ms(torch, lambda: rlc.verify_batch_rlc(*lanes))
+
+
 def make_hash_block():
     """The seeded block: its txs (BLOCK_BYTES / TX_BYTES of TX_BYTES) and
     their bytes, which the part set splits (the port has no block codec
@@ -2826,12 +3334,16 @@ def phase_hash(torch, card, vals, commit):
     return launches, x4_row
 
 
-def check_lanes(cuda_verify, path, compared_on_path=None):
+def check_lanes(cuda_verify, path, compared_on_path=None, rlc_compared=(),
+                cuda_rlc=None):
     """{kernel: {lane count: launches}} of K1-K4's and X1's launches on
-    ``path`` since the last reset; each count must be one the kernels
-    phase compared the kernel at, or for a kernel in
-    ``compared_on_path`` ({kernel: lane counts}), exactly one that the
-    path's own windows were compared at."""
+    ``path`` since the last reset, and under "rlc" X5's by (A bucket, R
+    bucket); each count must be one the kernels phase compared the kernel
+    at, or for a kernel in ``compared_on_path`` ({kernel: lane counts}),
+    exactly one that the path's own windows were compared at, and each X5
+    shape one of ``rlc_compared`` (none outside the rlc path)."""
+    if cuda_rlc is None:
+        from cometbft_tpu_torch.ops import cuda_rlc
     lanes = {k: dict(sorted(cuda_verify.LAUNCH_LANES[k].items()))
              for k in cuda_verify.LAUNCH_LANES}
     for name, counts in lanes.items():
@@ -2843,6 +3355,11 @@ def check_lanes(cuda_verify, path, compared_on_path=None):
         check(set(counts) <= compared,
               f"{path}: {name} ran at {sorted(counts)} lanes, compared at "
               f"{sorted(compared)} only")
+    shapes = dict(sorted(cuda_rlc.LAUNCH_SHAPES["rlc"].items()))
+    check(set(shapes) <= set(rlc_compared),
+          f"{path}: X5 ran at (A bucket, R bucket) {sorted(shapes)}, "
+          f"compared at {sorted(rlc_compared)} only")
+    lanes["rlc"] = {"%dx%d" % s: n for s, n in shapes.items()}
     return lanes
 
 
@@ -2913,6 +3430,9 @@ def main() -> int:
             torch, pool, smi, vals, commit)
         mixed_launches, mixed_lanes, (mixed_err, mixed_mismatches) = (
             phase_mixed(torch, pool, smi))
+        rlc_launches, rlc_lanes, rlc_row = phase_rlc(torch, pool, smi,
+                                                     vals, commit)
+        rlc_shapes = rlc_lanes["rlc"]
         pool.close()
         pool.join()
     hash_launches, x4_row = phase_hash(torch, smi, vals, commit)
@@ -2932,7 +3452,8 @@ def main() -> int:
     by_lanes = {name: dict(collections.Counter(slice_lanes[name])
                            + collections.Counter(light_lanes[name])
                            + collections.Counter(vote_lanes[name])
-                           + collections.Counter(mixed_lanes[name]))
+                           + collections.Counter(mixed_lanes[name])
+                           + collections.Counter(rlc_lanes[name]))
                 for name in cuda_verify.LAUNCHES}
     # the vote and mixed paths' launches were compared too: their
     # differences join the kernels phase's
@@ -2948,16 +3469,25 @@ def main() -> int:
          "source": "cometbft_tpu_torch/ops/csrc/" + cuda_verify.SOURCES[name],
          "replaces": replaces[name],
          "launches": (slice_launches[name] + light_launches[name]
-                      + vote_launches[name] + mixed_launches[name]),
+                      + vote_launches[name] + mixed_launches[name]
+                      + rlc_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
                               "light": light_launches[name],
                               "vote": vote_launches[name],
-                              "mixed": mixed_launches[name]},
+                              "mixed": mixed_launches[name],
+                              "rlc": rlc_launches[name]},
          "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",
                      "build_pubkey_tables", "verify_kernel8_cached",
                      "verify_kernel8")
+    ] + [
+        {"name": "rlc", "route": "cuda",
+         "source": "cometbft_tpu_torch/ops/csrc/rlc.cu",
+         "replaces": "cometbft_tpu/ops/rlc.py:210",
+         "launches": rlc_launches["rlc"],
+         "launches_by_path": {"rlc": rlc_launches["rlc"]},
+         "launches_by_shape": rlc_shapes, **rlc_row, "library_ms": None},
     ] + [
         {"name": "sha256", "route": "cuda",
          "source": "cometbft_tpu_torch/ops/csrc/sha256.cu",

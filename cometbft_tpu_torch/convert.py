@@ -20,6 +20,12 @@ part sets come across the same way (:func:`block_from`,
 :func:`vote_set_from`). Keys of every registered type (ed25519, sr25519,
 secp256k1) come across by their ``type`` and bytes (:func:`pubkey_from`),
 so mixed validator sets do too (:func:`validator_set_from`).
+
+The RLC batch equation (ops/rlc.py and its kernel X5) keeps no weights
+and no state between calls: its inputs are a batch's bytes and fresh
+random scalars, so nothing of it is carried across. Its plans, encodings
+and launch arrays are plain numpy arrays in both packages, and the tests
+feed the same ones to each.
 """
 
 from __future__ import annotations

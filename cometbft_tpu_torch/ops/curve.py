@@ -162,11 +162,21 @@ def base_table8(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_base_table8_host()).to(device)
 
 
-def _const_point(coords, batch_shape, device) -> torch.Tensor:
-    pt = torch.tensor(
+def const_point(coords, batch_ndim: int = 0, device="cpu") -> torch.Tensor:
+    """(x, y, z, t) Python ints -> (4, 20, 1 x batch_ndim) constant."""
+    return torch.tensor(
         np.stack([field.to_limbs(c) for c in coords]), device=device
-    ).reshape((4, NLIMB) + (1,) * len(batch_shape))
-    return pt.expand((4, NLIMB) + tuple(batch_shape))
+    ).reshape((4, NLIMB) + (1,) * batch_ndim)
+
+
+def broadcast_point(point: torch.Tensor, batch_shape) -> torch.Tensor:
+    """A (4, 20, ...) point viewed as (4, 20, *batch_shape)."""
+    return point.reshape(point.shape[:2] + (1,) * len(batch_shape)).expand(
+        point.shape[:2] + tuple(batch_shape))
+
+
+def _const_point(coords, batch_shape, device) -> torch.Tensor:
+    return broadcast_point(const_point(coords, 0, device), batch_shape)
 
 
 def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -195,6 +205,22 @@ def point_double(p: torch.Tensor) -> torch.Tensor:
     g = sub(a, b)
     f = add(c, g)
     return torch.stack([mul(e, f), mul(g, h), mul(f, g), mul(e, h)])
+
+
+def point_double_n(p: torch.Tensor, n: int) -> torch.Tensor:
+    """n consecutive doublings, skipping T on all but the last (a doubling
+    reads only X, Y, Z): one field mul saved a doubling."""
+    x1, y1, z1 = p[0], p[1], p[2]
+    for _ in range(n):
+        a = sq(x1)
+        b = sq(y1)
+        c = dbl2(sq(z1))
+        h = add(a, b)
+        e = sub(h, sq(add(x1, y1)))
+        g = sub(a, b)
+        f = add(c, g)
+        x1, y1, z1 = mul(e, f), mul(g, h), mul(f, g)
+    return torch.stack([x1, y1, z1, mul(e, h)])
 
 
 def point_neg(p: torch.Tensor) -> torch.Tensor:

@@ -62,10 +62,11 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
-    # the sr25519, secp256k1 and mixed-set modules are scanned too
+    # the sr25519, secp256k1, mixed-set and RLC modules are scanned too
     for rel in ("crypto/sr25519.py", "crypto/secp256k1.py",
                 "crypto/host_batch.py", "crypto/batch.py", "crypto/keys.py",
-                "crypto/__init__.py", "ops/verify.py", "convert.py"):
+                "crypto/__init__.py", "ops/verify.py", "convert.py",
+                "ops/rlc.py", "ops/cuda_rlc.py"):
         assert ROOT / "cometbft_tpu_torch" / rel in files, rel
     bad = {
         f"{f.relative_to(ROOT)}: {mod}"
@@ -366,3 +367,35 @@ def test_cache_rejects_oversized_arena_and_mismatched_device():
     # five distinct keys cannot fit four slots: the caller runs uncached
     assert cache.lookup([bytes([i]) * 32 for i in range(5)]) is None
     assert np.array_equal(cache.arena()[1].numpy(), np.zeros(5, bool))
+
+
+def test_rlc_entry_points_default_to_cuda_and_the_wrapper_checks():
+    """verify_batch_rlc and check_equation default to the GPU and raise
+    without one; X5's wrapper refuses bad launch inputs before any launch
+    and on the CPU runs the plain version, counting nothing."""
+    from cometbft_tpu_torch.ops import cuda_rlc, rlc
+
+    pks, msgs, sigs = _one_signature()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rlc.verify_batch_rlc(pks, msgs, sigs)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rlc.check_equation([], [], [], [], 0)
+    assert rlc.verify_batch_rlc(pks, msgs, sigs, device="cpu")[0]
+    inp = rlc.to_device(rlc.launch_inputs([], [], [], [], 0), "cpu")
+    bad_y = dict(inp, y_a=inp["y_a"].to(torch.int64))
+    with pytest.raises(TypeError, match="y_a: dtype"):
+        cuda_rlc.rlc_equation(**bad_y)
+    with pytest.raises(ValueError, match="plan_r.starts: shape"):
+        plan = list(inp["plan_r"])
+        plan[2] = plan[2][:, :4].contiguous()
+        cuda_rlc.rlc_equation(**dict(inp, plan_r=tuple(plan)))
+    with pytest.raises(ValueError, match="c_a"):
+        cuda_rlc.rlc_equation(**dict(inp, c_a=13))
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_rlc.rlc_equation(**dict(inp, y_r=inp["y_r"][:, :6]))
+    with pytest.raises(ValueError, match="b_bytes: shape"):
+        cuda_rlc.rlc_equation(**dict(inp, b_bytes=inp["b_bytes"][:16]))
+    assert bool(cuda_rlc.rlc_equation(**inp))
+    assert cuda_rlc.LAUNCHES == {"rlc": 0}
+    assert not cuda_rlc.LAUNCH_SHAPES["rlc"]

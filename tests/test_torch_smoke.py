@@ -329,3 +329,158 @@ def test_mixed_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
     assert lanes["verify_kernel_cached"] == {2 * n: 4, 17: 8, n: 2, 10: 2}
     assert launches["verify_kernel8"] == launches["verify_kernel8_cached"] == 0
     assert not any(mismatches.values()) and not any(err.values())
+
+
+class _Event:
+    """torch.cuda.Event's surface on the CPU: every interval 0 ms."""
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self, stream=None):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 0.0
+
+
+class _InlinePool(_SerialPool):
+    """A spawned one-worker pool, run in this process."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    @staticmethod
+    def apply(fn, args):
+        return fn(*args)
+
+    def close(self):
+        pass
+
+    def join(self):
+        pass
+
+
+def test_rlc_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
+    """chip_smoke.phase_rlc end to end on a 12-validator set (48 catch-up
+    lanes): "cuda" mapped to the CPU, the plain versions counted as
+    launches, X5's timing left out. Every comparison of the check, every
+    run's verdicts, the lanes named, the launches of the path (X5 alone on
+    good batches, K2 attributing the failed equations) and X5's shapes."""
+    import types
+
+    import torch
+
+    from cometbft_tpu_torch.ops import cuda_rlc as cr
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import rlc
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    n = 12
+    for name, value in (("N_VALIDATORS", n), ("RLC_SMALL", (5, 9)),
+                        ("RLC_TAMPERED", 7), ("RLC_UNDECODABLE", 2),
+                        ("RLC_SHORT", 10),
+                        ("COMPARED_LANES", cs.COMPARED_LANES + (n,))):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "device_busy_ms", lambda torch, fn: (
+        fn(), (1.0, 0.5, 1))[1])
+    # X5's timing with a fixed clock, SASS and 1 ms a timed call
+    monkeypatch.setattr(cs, "clock_probe", lambda torch: {"clock_ghz": 2.0})
+    monkeypatch.setattr(cs, "x1_sass", lambda path, probe: {"squaring": {
+        "chain_cycles": 100.0, "issue_cycles": 500.0}})
+    monkeypatch.setattr(cs, "time_ms", lambda torch, fn, reps=1: (
+        1.0, fn()))
+    from cometbft_tpu_torch.ops import build
+    monkeypatch.setitem(build.BUILD_INFO, "build_tables.cu",
+                        {"path": None})
+    monkeypatch.setattr(cs, "get_context", lambda method: types.
+                        SimpleNamespace(Pool=lambda n: _InlinePool()))
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    monkeypatch.setenv("COMETBFT_TPU_PRESTAGE", "1")
+    real_resolve = ov.resolve_device
+    monkeypatch.setattr(ov, "resolve_device", lambda d: real_resolve(
+        "cpu" if torch.device(d).type == "cuda" else d))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    for name in ("verify_kernel_cached", "build_pubkey_tables"):
+        def counted(*a, _real=getattr(cv, name), _name=name, **k):
+            lanes = (k["y_r"] if "y_r" in k else a[0]).shape[-1]
+            cv.LAUNCHES[_name] += 1
+            cv.LAUNCH_LANES[_name][lanes] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(cv, name, counted)
+    real_x5 = cr.rlc_equation
+
+    def counted_x5(*a, **k):
+        shape = (k["y_a"].shape[1], k["y_r"].shape[1])
+        cr.LAUNCHES["rlc"] += 1
+        cr.LAUNCH_SHAPES["rlc"][shape] = cr.LAUNCH_SHAPES["rlc"].get(
+            shape, 0) + 1
+        return real_x5(*a, **k)
+    monkeypatch.setattr(cr, "rlc_equation", counted_x5)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        pool = _SerialPool()
+        vals, _, commit = cs.make_commit(pool)
+        launches, lanes, row = cs.phase_rlc(torch, pool, "cpu", vals, commit)
+    finally:
+        torch.set_num_threads(threads)
+        cv.reset_launches()
+        cr.reset_launches()
+    assert row["mismatches"] == 0 and row["max_abs_err"] == 0
+    # the bounds from the products the plans of the seeded z need, below
+    # the reference's static count at the buckets 16 x 16 at n and 16 x 64
+    # at 4n (which sums the pad slots too)
+    for line, (na, nr) in ((row, (16, 16)), (row["at_40000"], (16, 64))):
+        assert 0 < line["needed_products"] < line["op_ledger_products"]
+        assert line["op_ledger_products"] == rlc.op_ledger(nr, na)[
+            "field_muls_total"]
+        assert line["bound_ms"] == 1e3 * 2 * cr.MULADDS_PER_PRODUCT * line[
+            "needed_products"] / cs.PEAK_OPS_PER_S
+        assert line["warp_issue_ms"] == 5 * line["chain_bound_ms"]
+        assert line["ms"] == 1.0 and line["bound_share"] == line["bound_ms"]
+    assert row["k2_launches"] == 1 and row["at_40000"]["k2_launches"] == 4
+    # 5 small batches, 30 ZIP-215 classes, both widths
+    assert row["compared_launches"] == 37
+    assert row["compared_shapes"] == ["16x16", "16x64", "8x8"]
+    # runs 1-2 twice each; runs 3-4: three spoiled batches of 12 lanes
+    assert lanes["rlc"] == {"16x16": 5, "16x64": 2}
+    # K2 attributes the tampered and the undecodable lane, once each
+    # (verify_batch's own bitmaps are taken before the path); X1 never runs
+    assert lanes["verify_kernel_cached"] == {n: 2}
+    assert launches["verify_kernel_cached"] == 2
+    assert launches["build_pubkey_tables"] == 0 and launches["rlc"] == 7
+    runs = [x for x in lines if x.get("phase") == "rlc.run"]
+    assert [r["rejected"] for r in runs] == [[]] * 4 + [[7], [2], [10]]
+    assert [x["lanes"] for x in lines
+            if x.get("phase") == "rlc.breakdown"] == [n, 4 * n]
+    assert [x["idle_share"] for x in lines
+            if x.get("phase") == "rlc.trace"] == [0.5]
+
+
+def test_lane_check_refuses_an_x5_shape_not_compared():
+    """check_lanes holds X5's launches to the shapes the rlc check
+    compared: none outside the rlc path."""
+    import types
+
+    cs = _chip_smoke()
+    x5 = types.SimpleNamespace(LAUNCH_SHAPES={"rlc": {(16384, 65536): 2}})
+    quiet = _launch_lanes({})
+    lanes = cs.check_lanes(quiet, "rlc", rlc_compared={(16384, 65536),
+                                                        (8, 8)}, cuda_rlc=x5)
+    assert lanes["rlc"] == {"16384x65536": 2}
+    with pytest.raises(RuntimeError, match="X5 ran at"):
+        cs.check_lanes(quiet, "rlc", rlc_compared={(16384, 16384)},
+                       cuda_rlc=x5)
+    with pytest.raises(RuntimeError, match="X5 ran at"):
+        cs.check_lanes(quiet, "slice", cuda_rlc=x5)
