@@ -126,7 +126,7 @@ each printing one JSON line:
              batches (each against its verdict; the plain version on all
              of them at once through torch.func.vmap), and both full
              widths, the z drawn from a seed. Then X5 timed at both full
-             widths (rlc.time: CUDA events, its four stages, the
+             widths (rlc.time: CUDA events, its six stages, the
              throughput bound of the products the plans need and the
              chain bound, the plain version, K2 on the
              same lanes and a warm verify_batch). Then the path, through
@@ -176,6 +176,12 @@ checks; X1 builds a commit's missing keys); in the vote phase K1 and K2,
 and in the mixed phase K1, K2 and X1, only at the counts of the phase's
 own compared launches; X5 only in the rlc phase, at compared shapes.
 
+After the rlc phase one line "torch_ops" times X2 (the arena scatter)
+and X3 (the wire unpack and the verdict bit-pack), which the port runs as
+torch ops, at the commit cell's shapes beside their bytes bounds, with
+their launches on each path (ops.cuda_verify.OP_LAUNCHES, read with
+K1-K4's).
+
 Then one line {"kernels": [...]} (K1-K4, X1, X5 and X4), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
 raises: the script exits nonzero and prints no last line. Without CUDA
@@ -188,6 +194,7 @@ import ctypes
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import re
 import statistics
@@ -2363,13 +2370,116 @@ def check_x5(torch, lanes10, lanes40):
         shapes, full
 
 
+# X5's chain models, in dependent field products (time_x5 prices them
+# at the cycles of one). The yardstick is kept as it was first defined,
+# so that the kernel's shares before and after its redesign stand on one
+# bound: a four-launch MSM with runs of 32 buckets (decompress, bucket
+# walks, runs, one finish that joins the runs and walks Horner).
+# design_chain is the chain of X5 as csrc/rlc.cu builds it; bucket_walks
+# repeats the kernel's split rule (x5_buckets) and must change with it.
+YARDSTICK_RUN_BUCKETS = 32
+
+
+def chain_products(plan_a, plan_r, c_a: int, c_r: int) -> int:
+    """The dependent field products on the longest chain of an MSM of
+    these plans as the yardstick walks it: a quad's add is two rounds of
+    products, a doubling two, a conversion to Niels form one, and a
+    thread's decompression 273 (the sqrt chain: 255 squarings, 18
+    multiplications). The bucket walks run a warp to its longest segment;
+    the runs and their join are fixed by the shapes, and the two Horner
+    walks and [b]B run side by side."""
+    from cometbft_tpu_torch.ops import rlc
+
+    s = min(YARDSTICK_RUN_BUCKETS, 1 << (c_a - 1), 1 << (c_r - 1))
+    add, dbl, niels = 2, 2, 1
+    longest = 0
+    horner = []
+    stage_d = 0
+    for plan, c, nbits in ((plan_a, c_a, rlc.A_BITS),
+                           (plan_r, c_r, rlc.R_BITS)):
+        starts, ends = plan[2], plan[3]
+        seg = (ends - starts).reshape(-1, 8).max(axis=1)  # a warp's most
+        longest = max(longest, int(seg.max()))
+        w = rlc.windows(c, nbits)
+        k = (1 << (c - 1)) // s
+        # the runs' chain: run, niels, acc each turn; then [S] and one add
+        stage_d = max(stage_d, (k - 1) * (add + niels + add) + niels
+                      + int(math.log2(s)) * dbl + niels + add)
+        horner.append((w - 1) * (c * dbl + niels + add))
+    decompress = 273 + 2
+    stage_b = longest * add + niels
+    stage_c = s * (add + niels) + add + niels
+    finish = max(max(horner), 32 * add) + 2 * (niels + add) + 3 * dbl + 1
+    return decompress + stage_b + stage_c + stage_d + finish
+
+
+def bucket_walks(plan) -> tuple[int, int]:
+    """(the most points a warp's quads walk in X5's bucket stage, the tree
+    levels that join a split bucket's parts there) for one side's numpy
+    plan: a window whose digits fill only buckets 1..m / P (P = 8, 4, 2,
+    the largest that fits) walks each of those buckets on P quads, each
+    an even part of its segment."""
+    import numpy as np
+
+    starts, ends = plan[2], plan[3]
+    w, m = starts.shape
+    most, levels = 0, 0
+    for j in range(w):
+        split = next((f for f in (8, 4, 2)
+                      if ends[j, m // f - 1] == ends[j, m - 1]), 1)
+        idx = np.arange(m)
+        v, part = idx // split, idx % split
+        seg = (ends[j] - starts[j])[v].astype(np.int64)
+        parts = seg * (part + 1) // split - seg * part // split
+        warp_most = parts.reshape(-1, 8).max(axis=1)
+        most = max(most, int(warp_most.max()))
+        levels = max(levels, int(math.log2(split)))
+    return most, levels
+
+
+def design_chain(plan_a, plan_r, c_a: int, c_r: int) -> dict:
+    """The dependent field products on each of X5's six stages for these
+    plans, in chain_products' units, and their sum: the chain of X5 as it
+    is built. The bucket stage walks a warp's longest part (bucket_walks)
+    and joins split parts in a tree; a combine of n segments of L buckets
+    walks n - 1 turns of run, Niels form and acc (the T sum beside it on
+    its own warp), log2 L doublings and an add, and for a group the C
+    total's add and both Niels forms; the join runs [b]B beside the
+    windows (16 adds a warp and one to join them), the finish the two
+    Horner walks side by side."""
+    from cometbft_tpu_torch.ops import cuda_rlc, rlc
+
+    s, f = cuda_rlc.run_buckets(c_a, c_r), cuda_rlc.group_runs(c_a, c_r)
+    add, dbl, niels = 2, 2, 1
+    buckets, groups, join, horner = 0, 0, 16 * add + niels + add, 0
+    for plan, c, nbits in ((plan_a, c_a, rlc.A_BITS),
+                           (plan_r, c_r, rlc.R_BITS)):
+        most, levels = bucket_walks(plan)
+        buckets = max(buckets, most * add + levels * (niels + add) + niels)
+        g = (1 << (c - 1)) // (s * f)
+        groups = max(groups, (f - 1) * (add + niels + add) + add
+                     + int(math.log2(s)) * dbl + niels + add + niels)
+        join = max(join, (g - 1) * (add + niels + add)
+                   + int(math.log2(s * f)) * dbl + niels + add)
+        horner = max(horner, (rlc.windows(c, nbits) - 1)
+                     * (c * dbl + niels + add))
+    out = {"decompress": 273 + 2, "buckets": buckets,
+           "runs": s * (add + niels) + add + niels, "groups": groups,
+           "join": join,
+           "finish": horner + 2 * (niels + add) + 3 * dbl + 1}
+    out["total"] = sum(out.values())
+    return out
+
+
 def time_x5(torch, card, full, lanes40):
     """X5 timed at both full widths (CUDA events around KERNEL_REPS
-    launches, median of RUNS; its four stages between events), beside the
-    throughput bound (cuda_rlc.work), the chain bound
-    (cuda_rlc.chain_products at the cycles of one dependent product: a
+    launches, median of RUNS; its stages, cuda_rlc.STAGES, between
+    events), beside the throughput bound (cuda_rlc.work), the chain bound
+    (chain_products at the cycles of one dependent product: a
     turn of X1's squaring loop on fe26.cuh, at clock_probe's latencies and
-    clock; and at one warp's issue of that turn), the plain version, and
+    clock; and at one warp's issue of that turn), X5's own chain by stage
+    (design_chain) at the same cycles and the share of the larger of it,
+    the operations and the bytes, the plain version, and
     K2 on the same lanes: the kernel, one launch a height, and the host ms
     of a warm verify_batch. Returns the kernels line's row (the
     10,000-lane numbers of ``full``'s first batch, the 40,000-lane ones of
@@ -2407,11 +2517,13 @@ def time_x5(torch, card, full, lanes40):
                         KERNEL_REPS)
         stages = []
         for _ in range(RUNS):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(cuda_rlc.STAGES) + 1)]
             cuda_rlc.rlc_equation(**inp, stage_events=ev)
-            ev[4].synchronize()
-            stages.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
-        stage_ms = dict(zip(("decompress", "buckets", "runs", "finish"),
+            ev[-1].synchronize()
+            stages.append([ev[i].elapsed_time(ev[i + 1])
+                           for i in range(len(cuda_rlc.STAGES))])
+        stage_ms = dict(zip(cuda_rlc.STAGES,
                             (statistics.median(s) for s in zip(*stages))))
         plain_ms = time_ms(torch, lambda: rlc._rlc_parts(**inp)[3])[0]
         plans = ([a.cpu().numpy() for a in inp["plan_a"]],
@@ -2420,8 +2532,15 @@ def time_x5(torch, card, full, lanes40):
         ops, nbytes = cuda_rlc.work(*plans)
         ops_ms, bytes_ms = (1e3 * ops / PEAK_OPS_PER_S,
                             1e3 * nbytes / PEAK_BYTES_PER_S)
-        products = cuda_rlc.chain_products(*plans)
+        products = chain_products(*plans)
         chain_ms = products * product_cycles / (probe["clock_ghz"] * 1e6)
+        design = design_chain(*plans)
+        design_ms = design["total"] * product_cycles / (
+            probe["clock_ghz"] * 1e6)
+        # the bound that holds for X5 as built: its own chain beside the
+        # operations and the bytes (the yardstick's chain is longer)
+        design_bound = max((ops_ms, "operations"), (bytes_ms, "bytes"),
+                           (design_ms, "chain"))
         # the same chain at one warp's issue of each product: the floor
         # of X5's serial stages while one warp runs each
         issue_ms = products * issue_cycles / (probe["clock_ghz"] * 1e6)
@@ -2441,8 +2560,13 @@ def time_x5(torch, card, full, lanes40):
                     "field_muls_total"],
                 "chain_products": products, "chain_bound_ms": chain_ms,
                 "warp_issue_ms": issue_ms,
+                "design_chain_products": design,
+                "design_chain_ms": design_ms,
                 "bound_share": max(ops_ms, bytes_ms) / ms,
                 "larger_bound_share": max(ops_ms, bytes_ms, chain_ms) / ms,
+                "design_bound_ms": design_bound[0],
+                "design_bound_by": design_bound[1],
+                "design_bound_share": design_bound[0] / ms,
                 "k2_ms": k2_ms, "k2_launches": n // N_VALIDATORS,
                 "verify_batch_host_ms": batch_ms}
         emit({"phase": "rlc.time", "lanes": n, "shape": list(shape), **line,
@@ -2462,7 +2586,7 @@ def rlc_breakdown(torch, lanes):
     """A warm verify_batch_rlc on ``lanes``, each step on its own (host
     clock): pack, the fold loop, the encodings, the scalar rows, the
     plans, h2d, and the device part (X5 and its one-byte readback), with
-    X5's four stages between CUDA events."""
+    X5's stages (cuda_rlc.STAGES) between CUDA events."""
     import secrets
 
     import numpy as np
@@ -2505,14 +2629,15 @@ def rlc_breakdown(torch, lanes):
     inp = rlc.to_device(host, dev)
     torch.cuda.synchronize()
     steps["h2d_ms"] = 1e3 * (time.perf_counter() - t)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(len(cuda_rlc.STAGES) + 1)]
     t = time.perf_counter()
     ok = bool(cuda_rlc.rlc_equation(**inp, stage_events=ev))
     steps["device_ms"] = 1e3 * (time.perf_counter() - t)
     check(ok, "breakdown: the equation failed")
     steps["x5_stage_ms"] = dict(zip(
-        ("decompress", "buckets", "runs", "finish"),
-        (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
+        cuda_rlc.STAGES, (ev[i].elapsed_time(ev[i + 1])
+                          for i in range(len(cuda_rlc.STAGES)))))
     return steps
 
 
@@ -3334,6 +3459,80 @@ def phase_hash(torch, card, vals, commit):
     return launches, x4_row
 
 
+# X2's and X3's launches on each path (ops.cuda_verify.OP_LAUNCHES), read
+# by check_lanes with K1-K4's just after the path
+OP_BY_PATH: dict[str, dict] = {}
+
+
+def time_torch_ops(torch, card, vals, commit) -> dict:
+    """X2 and X3, the device programs that the reference left to XLA and
+    the port runs as torch ops (ops/verify.py), timed by CUDA events at
+    the commit cell's shapes (time_ms: KERNEL_REPS calls between two
+    events, median of RUNS): X2 as a cache on the card runs it
+    (PubkeyTableCache._scatter: the slots' copy to the card and its two
+    index_copy calls) scattering 10,000 keys' tables into its 16,385-slot
+    arena, X3 unpacking the commit's 10,000 wire rows for K1 (128 B a
+    lane) and for K2 (96 B a lane) and bit-packing the verdicts of the
+    16,384-lane wire bucket; each beside its bytes bound (what the
+    function needs read once and written once, over the memory rate: the
+    scatter reads the tables, oks and slots and writes the same rows),
+    with their launches on each path (OP_BY_PATH). X2's "port_bytes" is
+    what its out-of-place index_copy moves: the whole arena read and a
+    new one written, beside the tables, oks and slots."""
+    from cometbft_tpu_torch.ops import curve, field
+    from cometbft_tpu_torch.ops import verify as ov
+
+    dev = ov.resolve_device("cuda")
+    n = N_VALIDATORS
+    buf, _ = ov.pack_bytes(*commit_lanes(vals, [commit]))
+    wire = torch.from_numpy(buf).to(dev)
+    rsk = wire[32:].contiguous()
+    cache = ov.PubkeyTableCache(device="cuda")
+    keys = [i.to_bytes(32, "little") for i in range(n)]
+    slots = cache._assign(keys, set(keys))
+    gen = torch.Generator().manual_seed(n)
+    tables = torch.randint(0, 8192, (curve.TSIZE, 4, field.NLIMB, n),
+                           generator=gen, dtype=torch.int32).to(dev)
+    oks = torch.ones(n, dtype=torch.bool, device=dev)
+    idx = torch.from_numpy(slots).to(dev)
+    size = ov.bucket_size(n)
+    verdicts = torch.zeros(size, dtype=torch.bool, device=dev)
+    verdicts[:n] = True
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def scatter():
+        cache._scatter(slots, tables, oks)
+        return cache._arena, cache._arena_ok
+
+    # X2 needs the tables, oks and slots read and the same rows written
+    ops = {"x2_scatter": (scatter, 2 * nbytes(tables, oks) + nbytes(idx)),
+           "x3_unpack_k1": (lambda: ov.unpack_on_device(wire), None),
+           "x3_unpack_k2": (lambda: ov._unpack_rsk_on_device(rsk), None),
+           "x3_bitpack": (lambda: ov._pack_ok_bits(verdicts), None)}
+    inputs = {"x3_unpack_k1": (wire,), "x3_unpack_k2": (rsk,),
+              "x3_bitpack": (verdicts,)}
+    line = {}
+    with torch.no_grad():
+        for name, (fn, needed) in ops.items():
+            ms, out = time_ms(torch, fn, KERNEL_REPS)
+            if needed is None:
+                outs = out.values() if isinstance(out, dict) else (out,)
+                needed = nbytes(*inputs[name]) + nbytes(*outs)
+            bound_ms = 1e3 * needed / PEAK_BYTES_PER_S
+            line[name] = {"ms": ms, "bytes": needed, "bound_ms": bound_ms,
+                          "bound_by": "bytes", "bound_share": bound_ms / ms}
+    arena, arena_ok = scatter()
+    line["x2_scatter"]["port_bytes"] = 2 * nbytes(arena, arena_ok) + nbytes(
+        tables, oks, idx)
+    check(torch.equal(arena[..., idx], tables)
+          and bool(arena_ok[idx].all()) and int(arena_ok.sum()) == n,
+          "X2 scattered wrong")
+    return {"phase": "torch_ops", "lanes": n, "ops": line,
+            "launches_by_path": OP_BY_PATH, "card": card}
+
+
 def check_lanes(cuda_verify, path, compared_on_path=None, rlc_compared=(),
                 cuda_rlc=None):
     """{kernel: {lane count: launches}} of K1-K4's and X1's launches on
@@ -3342,8 +3541,11 @@ def check_lanes(cuda_verify, path, compared_on_path=None, rlc_compared=(),
     at, or for a kernel in ``compared_on_path`` ({kernel: lane counts}),
     exactly one that the path's own windows were compared at, and each X5
     shape one of ``rlc_compared`` (none outside the rlc path)."""
+    from cometbft_tpu_torch.ops import cuda_verify as ops_counts
+
     if cuda_rlc is None:
         from cometbft_tpu_torch.ops import cuda_rlc
+    OP_BY_PATH[path] = dict(ops_counts.OP_LAUNCHES)
     lanes = {k: dict(sorted(cuda_verify.LAUNCH_LANES[k].items()))
              for k in cuda_verify.LAUNCH_LANES}
     for name, counts in lanes.items():
@@ -3432,6 +3634,7 @@ def main() -> int:
             phase_mixed(torch, pool, smi))
         rlc_launches, rlc_lanes, rlc_row = phase_rlc(torch, pool, smi,
                                                      vals, commit)
+        emit(time_torch_ops(torch, smi, vals, commit))
         rlc_shapes = rlc_lanes["rlc"]
         pool.close()
         pool.join()

@@ -7,17 +7,17 @@ ops/rlc.plan_msm, ``(W, n)`` and ``(W, m)`` int32; ``b_bytes`` ``(32, 1)``
 int32; the window widths ``c_a``, ``c_r``. One bool out.
 
 A CPU tensor goes to the plain PyTorch version (ops.rlc._rlc_parts). A
-CUDA tensor launches X5's four kernels on the current stream or raises:
-there is no fallback. Inputs are checked for dtype, shape, device and
-contiguity, scratch and outputs are allocated here with ``torch.empty``,
-``LAUNCHES`` counts X5's runs (four kernel launches each, and nothing
-else) and ``LAUNCH_SHAPES`` counts them by (A bucket, R bucket).
+CUDA tensor launches X5's six kernels (``STAGES``) on the current stream
+or raises: there is no fallback. Inputs are checked for dtype, shape,
+device and contiguity, scratch and outputs are allocated here with
+``torch.empty``, ``LAUNCHES`` counts X5's runs (six kernel launches
+each, and nothing else) and ``LAUNCH_SHAPES`` counts them by (A bucket, R
+bucket).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
 from functools import lru_cache
 
@@ -30,10 +30,14 @@ from .field import NLIMB
 LAUNCHES = {"rlc": 0}
 LAUNCH_SHAPES: dict[str, dict[tuple[int, int], int]] = {"rlc": {}}
 SOURCES = {"rlc": "rlc.cu"}
+# X5's launches in order, as stage_events times them
+STAGES = ("decompress", "buckets", "runs", "groups", "join", "finish")
+DECOMPRESS_BLOCK = 128  # x5_decompress's threads a block: one ok byte each
 _counts_lock = threading.Lock()
 
 NL26 = NLIMB // 2  # 26-bit limbs of fe26.cuh
-RUN_BUCKETS = 32  # buckets a run of stage (c), at most
+RUN_BUCKETS = 16  # buckets a run of stage (c), at most
+GROUP_RUNS = 8  # runs a group of stage (d), at most
 # A field product on fe26.cuh: 10 x 10 32-bit multiply-adds, two
 # operations each (chip_smoke's int32 rate counts a multiply-add as two)
 MULADDS_PER_PRODUCT = 100
@@ -49,6 +53,13 @@ def run_buckets(c_a: int, c_r: int) -> int:
     """S, the buckets of one run of stage (c): a power of two dividing
     both sides' bucket counts m = 2^(c-1)."""
     return min(RUN_BUCKETS, 1 << (c_a - 1), 1 << (c_r - 1))
+
+
+def group_runs(c_a: int, c_r: int) -> int:
+    """F, the runs of one group of stage (d): a power of two dividing
+    both sides' runs a window m / S."""
+    s = run_buckets(c_a, c_r)
+    return min(GROUP_RUNS, (1 << (c_a - 1)) // s, (1 << (c_r - 1)) // s)
 
 
 def work(plan_a, plan_r, c_a: int, c_r: int) -> tuple[int, int]:
@@ -82,43 +93,17 @@ def work(plan_a, plan_r, c_a: int, c_r: int) -> tuple[int, int]:
     return 2 * MULADDS_PER_PRODUCT * products, nbytes
 
 
-def chain_products(plan_a, plan_r, c_a: int, c_r: int) -> int:
-    """The dependent field products on X5's longest chain for these
-    plans: a quad's add is two rounds of products, a doubling two, a
-    conversion to Niels form one, and a thread's decompression 273 (the
-    sqrt chain: 255 squarings, 18 multiplications). Stage (b) runs a warp
-    to its longest segment; (c) and (d) are fixed by the shapes, and
-    the two Horner walks and [b]B run side by side."""
-    s = run_buckets(c_a, c_r)
-    add, dbl, niels = 2, 2, 1
-    longest = 0
-    horner = []
-    stage_d = 0
-    for plan, c, nbits in ((plan_a, c_a, rlc.A_BITS),
-                           (plan_r, c_r, rlc.R_BITS)):
-        starts, ends = plan[2], plan[3]
-        seg = (ends - starts).reshape(-1, 8).max(axis=1)  # a warp's most
-        longest = max(longest, int(seg.max()))
-        w = rlc.windows(c, nbits)
-        k = (1 << (c - 1)) // s
-        # the runs' chain: run, niels, acc each turn; then [S] and one add
-        stage_d = max(stage_d, (k - 1) * (add + niels + add) + niels
-                      + int(math.log2(s)) * dbl + niels + add)
-        horner.append((w - 1) * (c * dbl + niels + add))
-    decompress = 273 + 2
-    stage_b = longest * add + niels
-    stage_c = s * (add + niels) + add + niels
-    finish = max(max(horner), 32 * add) + 2 * (niels + add) + 3 * dbl + 1
-    return decompress + stage_b + stage_c + stage_d + finish
-
-
-@lru_cache(maxsize=None)
-def _entries():
-    lib = build.load_all([SOURCES["rlc"]])["rlc"]
+def stage_entry(lib):
+    """x5_rlc_stage of a loaded X5 library, with its argtypes."""
     stage = lib.x5_rlc_stage
     stage.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
     stage.restype = ctypes.c_int
     return stage
+
+
+@lru_cache(maxsize=None)
+def _entries():
+    return stage_entry(build.load_all([SOURCES["rlc"]])["rlc"])
 
 
 def _check(name, t, shape, device) -> None:
@@ -151,8 +136,8 @@ def rlc_equation(y_a, sign_a, plan_a, y_r, sign_r, plan_r, b_bytes, *,
     (A's window sums (4, 20, Wa), R's (4, 20, Wr), the pre-cofactor
     total (4, 20), the bool), points as lazy 13-bit limbs (the kernel's
     26-bit limbs split in two), as ops.rlc._rlc_parts returns them.
-    ``stage_events``, five CUDA events, are recorded before each of the
-    four kernels and after the last."""
+    ``stage_events``, seven CUDA events, are recorded before each of the
+    six kernels (``STAGES``) and after the last."""
     device = y_a.device
     na, wa = _check_side("a", y_a, sign_a, plan_a, c_a, rlc.A_BITS, device)
     nr, wr = _check_side("r", y_r, sign_r, plan_r, c_r, rlc.R_BITS, device)
@@ -162,45 +147,68 @@ def rlc_equation(y_a, sign_a, plan_a, y_r, sign_r, plan_r, b_bytes, *,
                              b_bytes, c_a=c_a, c_r=c_r)
         return out if parts else out[3]
     cuda_verify._cuda_device(device)
-    s = run_buckets(c_a, c_r)
+    sums, out = launch(_entries(), y_a, sign_a, plan_a, y_r, sign_r, plan_r,
+                       b_bytes, c_a=c_a, c_r=c_r, stage_events=stage_events)
+    with _counts_lock:
+        LAUNCHES["rlc"] += 1
+        shapes = LAUNCH_SHAPES["rlc"]
+        shapes[(na, nr)] = shapes.get((na, nr), 0) + 1
+    return split_parts(sums, out, c_a, c_r) if parts else out[0] != 0
+
+
+def split_parts(sums, out, c_a: int, c_r: int):
+    """(A's window sums (4, 20, Wa), R's (4, 20, Wr), the pre-cofactor
+    total (4, 20), the bool) from X5's sums and output byte, points as
+    lazy 13-bit limbs (each 26-bit limb split in two)."""
+    wa, wr = rlc.windows(c_a, rlc.A_BITS), rlc.windows(c_r, rlc.R_BITS)
+    pts13 = torch.stack([sums & 8191, sums >> 13], dim=-1).reshape(
+        wa + wr + 2, 4, NLIMB).permute(1, 2, 0)
+    return (pts13[:, :, :wa], pts13[:, :, wa:wa + wr], pts13[:, :, wa + wr],
+            out[0] != 0)
+
+
+def launch(stage, y_a, sign_a, plan_a, y_r, sign_r, plan_r, b_bytes, *,
+           c_a: int, c_r: int, stage_events=None):
+    """X5's six launches through the C entry ``stage`` (x5_rlc_stage of
+    a library built from csrc/rlc.cu or a probe of it) on checked CUDA
+    inputs: (the sums (Wa + Wr + 2, 4, 10) in 26-bit limbs, the output
+    byte), counting nothing; a launch error raises."""
+    device = y_a.device
+    na, nr = y_a.shape[1], y_r.shape[1]
+    wa, wr = rlc.windows(c_a, rlc.A_BITS), rlc.windows(c_r, rlc.R_BITS)
+    s, f = run_buckets(c_a, c_r), group_runs(c_a, c_r)
     ka, kr = (1 << (c_a - 1)) // s, (1 << (c_r - 1)) // s
     nb = wa * (1 << (c_a - 1)) + wr * (1 << (c_r - 1))
     pts = torch.empty((na + nr, 3, NL26), dtype=torch.int32, device=device)
-    okb = torch.empty(na + nr, dtype=torch.uint8, device=device)
+    okb = torch.empty(-(-(na + nr) // DECOMPRESS_BLOCK), dtype=torch.uint8,
+                      device=device)
     buckets = torch.empty((nb, 4, NL26), dtype=torch.int32, device=device)
     runs = torch.empty((wa * ka + wr * kr, 2, 4, NL26), dtype=torch.int32,
                        device=device)
-    sums = torch.empty((wa + wr + 1, 4, NL26), dtype=torch.int32,
+    groups = torch.empty(((wa * ka + wr * kr) // f, 2, 4, NL26),
+                         dtype=torch.int32, device=device)
+    sums = torch.empty((wa + wr + 2, 4, NL26), dtype=torch.int32,
                        device=device)
     out = torch.empty(1, dtype=torch.uint8, device=device)
     ptrs = [t.data_ptr() for t in (y_a, sign_a, *plan_a, y_r, sign_r,
                                    *plan_r, b_bytes,
                                    cuda_verify._consts(device),
                                    cuda_verify._base_table8_26(device),
-                                   pts, okb, buckets, runs, sums, out)]
-    ints = [na, c_a, wa, nr, c_r, wr, s]
+                                   pts, okb, buckets, runs, groups, sums,
+                                   out)]
+    ints = [na, c_a, wa, nr, c_r, wr, s, f]
     args = ((ctypes.c_void_p * len(ptrs))(*ptrs),
             (ctypes.c_int * len(ints))(*ints))
-    stage = _entries()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
-        for i in range(4):
+        for i in range(len(STAGES)):
             if stage_events is not None:
                 stage_events[i].record(stream)
             err = stage(*args, i, stream.cuda_stream)
             if err != 0:
                 break
         if stage_events is not None:
-            stage_events[4].record(stream)
+            stage_events[len(STAGES)].record(stream)
     if err != 0:
         raise RuntimeError(f"rlc: CUDA launch failed with cudaError {err}")
-    with _counts_lock:
-        LAUNCHES["rlc"] += 1
-        shapes = LAUNCH_SHAPES["rlc"]
-        shapes[(na, nr)] = shapes.get((na, nr), 0) + 1
-    ok = out[0] != 0
-    if not parts:
-        return ok
-    pts13 = torch.stack([sums & 8191, sums >> 13], dim=-1).reshape(
-        wa + wr + 1, 4, NLIMB).permute(1, 2, 0)
-    return pts13[:, :, :wa], pts13[:, :, wa:wa + wr], pts13[:, :, -1], ok
+    return sums, out

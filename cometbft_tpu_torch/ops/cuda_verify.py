@@ -111,10 +111,25 @@ LAUNCH_LANES: dict[str, collections.Counter] = {
     k: collections.Counter() for k in LAUNCHES}
 
 
+# Launches on the card of the device programs that the port runs as torch
+# ops (ops/verify.py), counted as the kernels' are: X2, the arena scatter
+# (PubkeyTableCache._scatter), and X3, the wire unpack (unpack_on_device,
+# _unpack_rsk_on_device) and the verdict bit-pack (_pack_ok_bits). A CPU
+# tensor counts none.
+OP_LAUNCHES = {"x2_scatter": 0, "x3_unpack": 0, "x3_bitpack": 0}
+
+
+def count_op(name: str, t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        OP_LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCH_LANES[k].clear()
+    for k in OP_LAUNCHES:
+        OP_LAUNCHES[k] = 0
 
 
 def _check(name, t, dtype, shape, device) -> None:

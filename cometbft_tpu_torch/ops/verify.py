@@ -262,6 +262,7 @@ def unpack_on_device(buf: torch.Tensor, flavor: str = "4") -> dict:
     """(128, N) uint8 wire rows -> verify_kernel (or, for flavor "8",
     verify_kernel8) arrays, on buf's device. Bytes widen to int32 before
     any shift."""
+    cuda_verify.count_op("x3_unpack", buf)
     b = buf.to(torch.int32)
     pk_bits = _dev_le_bits(b[0:32])
     rr_bits = _dev_le_bits(b[32:64])
@@ -277,6 +278,7 @@ def unpack_on_device(buf: torch.Tensor, flavor: str = "4") -> dict:
 
 def _unpack_rsk_on_device(buf: torch.Tensor, flavor: str = "4") -> dict:
     """(96, N) uint8 rows R|S|kneg -> cached-kernel arrays."""
+    cuda_verify.count_op("x3_unpack", buf)
     b = buf.to(torch.int32)
     rr_bits = _dev_le_bits(b[0:32])
     return {
@@ -295,6 +297,7 @@ _OK_BIT_WEIGHTS = np.array([1, 2, 4, 8, 16, 32, 64, 128], np.int32)
 
 def _pack_ok_bits(ok: torch.Tensor) -> torch.Tensor:
     """(N,) bool -> (N//8,) uint8, little-endian bit order."""
+    cuda_verify.count_op("x3_bitpack", ok)
     bits = ok.to(torch.int32).reshape(-1, 8)
     w = torch.from_numpy(_OK_BIT_WEIGHTS).to(ok.device)
     return torch.sum(bits * w, dim=1, dtype=torch.int32).to(torch.uint8)
@@ -503,7 +506,8 @@ class PubkeyTableCache:
                 ]
                 if not to_build:
                     for batch_keys, tables, oks in built:
-                        self._scatter(batch_keys, tables, oks, in_use)
+                        self._scatter(self._assign(batch_keys, in_use),
+                                      tables, oks)
                     self._wait_written()
                     idxs = np.empty(len(keys), np.uint16)
                     for i, pk in enumerate(keys):
@@ -522,9 +526,10 @@ class PubkeyTableCache:
             built_keys.update(to_build)
         return None
 
-    def _scatter(self, batch_keys, tables, oks, in_use) -> None:
-        """Assign slots to ``batch_keys`` and write their tables into a
-        new arena (X2). Caller holds the lock."""
+    def _assign(self, batch_keys, in_use) -> np.ndarray:
+        """Slots for ``batch_keys``: a key's own, else a free one, else
+        the oldest key's that this call does not use. Caller holds the
+        lock."""
         slots = np.empty(len(batch_keys), np.int64)
         for j, pk in enumerate(batch_keys):
             slot = self._slots.get(pk)
@@ -538,9 +543,15 @@ class PubkeyTableCache:
                     slot = len(self._slots)
                 self._slots[pk] = slot
             slots[j] = slot
+        return slots
+
+    def _scatter(self, slots: np.ndarray, tables, oks) -> None:
+        """Write ``tables`` and ``oks`` at ``slots`` of a new arena (X2).
+        Caller holds the lock."""
         idx = _to_device(slots, self.device)
         self._arena = self._arena.index_copy(3, idx, tables)
         self._arena_ok = self._arena_ok.index_copy(0, idx, oks)
+        cuda_verify.count_op("x2_scatter", idx)
         self._mark_written()
 
     def load(self, slots: dict[bytes, int], arena: torch.Tensor,
@@ -549,7 +560,7 @@ class PubkeyTableCache:
         shape = (curve.TSIZE, 4, field.NLIMB, self.capacity + 1)
         if tuple(arena.shape) != shape or tuple(arena_ok.shape) != shape[-1:]:
             raise ValueError(f"arena must be {shape}, ok ({shape[-1]},)")
-        # slots fill 0, 1, 2, ... in order (see _scatter)
+        # slots fill 0, 1, 2, ... in order (see _assign)
         if sorted(slots.values()) != list(range(len(slots))) or len(
             slots
         ) > self.capacity:

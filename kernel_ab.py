@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Variants of the verify kernels K1-K4, and an older commit's X4 and X1,
-beside the tree's, on one CUDA card.
+"""Variants of the verify kernels K1-K4, and an older commit's X4, X1 and
+X5, beside the tree's, on one CUDA card.
 
     python3 kernel_ab.py [--sizes 3334,6667,10000] [--probe NAME ...]
-                         [--parent REV] [--only verify|x4|x1]
+                         [--parent REV] [--only verify|x4|x1|x5]
                          [NAME=SOURCE.cu ...]
     python3 kernel_ab.py --parent REV --extract-only
 
@@ -54,7 +54,23 @@ chain bound (chip_smoke.x1_lane_ms, on X1's SASS and on
 clock_probe's latency and clock from the same run); their SASS is
 summarised (chip_smoke.x1_sass).
 
---only verify, --only x4 or --only x1 runs one of the three parts.
+--only x5 --parent REV takes REV's csrc/rlc.cu (and its fe26.cuh) as
+"X5@parent", launched through its C entry x5_rlc_stage with the
+four-launch design's scratch layout (x5_parent_entry). On chip_smoke's
+seeded rlc lanes (the commit's 10,000 and the 40,000-lane catch-up over
+10,000 keys, folded with chip_smoke's seed) X5 and X5@parent are held
+against the plain version (window sums and total as encodings, the
+bool), then timed in turns (X5, X5@parent, X5@parent, X5) at 16,384 x
+16,384 and 16,384 x 65,536, stage by stage (CUDA events), beside the
+bounds of cuda_rlc.work and chip_smoke.chain_products and X5's own chain
+(chip_smoke.design_chain); their SASS is summarised (x5_sass), and a
+clock64() copy of each (X5_PHASES on the tree's source, X5_PARENT_PHASES
+on REV's) gives the phases of its serial stages in cycles: the join's
+windows and [b]B, the finish's staging, Horner walks and cofactor test
+(the parent: its finish's ok-byte scan, join of runs, Horner walks, [b]B
+and test). It needs no variant or probe.
+
+--only verify, --only x4, --only x1 or --only x5 runs one of the parts.
 
 Probes are variants generated from the tree's own sources:
 
@@ -90,6 +106,7 @@ import argparse
 import ctypes
 import hashlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -347,7 +364,10 @@ PROBES["x1_regs255"] = ("build_tables.cu", [
 # the parent's uncached kernels, X4, X1 and what they include
 PARENT_FILES = ("verify_uncached.cu", "verify8_uncached.cu",
                 "kernel_common.cuh", "ed25519.cuh", "sha256.cu",
-                "build_tables.cu")
+                "build_tables.cu", "fe26.cuh", "rlc.cu")
+# files an older REV may lack (headers and X5 came later; --only x5
+# needs rlc.cu)
+OPTIONAL_PARENT_FILES = ("kernel_common.cuh", "fe26.cuh", "rlc.cu")
 # the one-thread X4's schedule, cut for a SASS count without it
 X4_NO_SCHEDULE = ("    if (t >= 16) {\n", "    if (false) {\n")
 # X4's path shapes: (name, block bucket, lane bucket)
@@ -392,7 +412,7 @@ def parent_sources(rev: str) -> Path:
         if proc.returncode == 0:
             (out / f).write_text(proc.stdout)
             got.append(f)
-        elif f != "kernel_common.cuh":
+        elif f not in OPTIONAL_PARENT_FILES:
             raise SystemExit(f"git show {rev}:{CSRC_REL}/{f}: "
                              f"{proc.stderr.strip()}")
     (out / "FILES").write_text("\n".join(got) + "\n")
@@ -699,6 +719,361 @@ def x1_ab(torch, cs, dev, x1_libs, smi):
     cs.emit({"x1_summary": summary, "card": smi})
 
 
+# X5@parent (the four-launch design) with clock64() stamps in its
+# one-block finish: each warp's lane 0 stamps its start, the end of its
+# share of the ok-byte scan, the end of its windows' join of runs, the
+# barrier after it, the end of its Horner walk ([b]B on warp 2), the
+# barrier after that, and warp 0 the end of the cofactor test
+X5_PARENT_PHASES = [
+    ("""namespace {
+""", """__device__ long long g_x5_stamps[32][8];
+
+extern "C" int x5_read_stamps(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_x5_stamps, sizeof(g_x5_stamps));
+}
+
+namespace {
+"""),
+    ("""  __shared__ int bad;
+  stage_consts26(sm, a.consts);
+""", """  __shared__ int bad;
+  long long* const stamp = g_x5_stamps[threadIdx.x >> 5];
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (lead) stamp[0] = clock64();
+  stage_consts26(sm, a.consts);
+"""),
+    ("""    if (a.okb[p] == 0) bad = 1;
+""", """    if (a.okb[p] == 0) bad = 1;
+  if (lead) stamp[1] = clock64();
+"""),
+    ("""    if (live) fe_st(a.sums + ((size_t)(s.s0 + j) * 4 + c) * NL, acc);
+  }
+  __syncthreads();
+""", """    if (live) fe_st(a.sums + ((size_t)(s.s0 + j) * 4 + c) * NL, acc);
+  }
+  if (lead) stamp[2] = clock64();
+  __syncthreads();
+  if (lead) stamp[3] = clock64();
+"""),
+    ("""    if ((threadIdx.x & 31) < 4) fe_st(part[warp][c], acc);
+""", """    if ((threadIdx.x & 31) < 4) fe_st(part[warp][c], acc);
+    if (lead) stamp[4] = clock64();
+"""),
+    ("""    if ((threadIdx.x & 31) < 4) fe_st(part[2][c], sb);
+""", """    if ((threadIdx.x & 31) < 4) fe_st(part[2][c], sb);
+    if (lead) stamp[4] = clock64();
+"""),
+    ("""  __syncthreads();
+
+  if (warp == 0) {
+""", """  __syncthreads();
+  if (lead) stamp[5] = clock64();
+
+  if (warp == 0) {
+"""),
+    ("""    if (threadIdx.x == 0) a.out[0] = (ident && bad == 0) ? 1 : 0;
+""", """    if (threadIdx.x == 0) a.out[0] = (ident && bad == 0) ? 1 : 0;
+    if (lead) stamp[6] = clock64();
+""")]
+
+
+# X5 with clock64() stamps in its join and finish: each join block's
+# lane 0 stamps its start and end (row = the block: a window, or [b]B
+# last); x5_finish's warps (rows 126, 127) their start, the end of the
+# staging and the ok-byte scan, the end of the Horner walk, the barrier
+# after it, and warp 0 the end of the cofactor test
+X5_PHASES = [
+    ("""namespace {
+""", """__device__ long long g_x5_stamps[128][8];
+
+extern "C" int x5_read_stamps(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_x5_stamps, sizeof(g_x5_stamps));
+}
+
+namespace {
+"""),
+    ("""  const int win = blockIdx.x;
+""", """  const int win = blockIdx.x;
+  long long* const stamp = g_x5_stamps[win];
+  if (threadIdx.x == 0) stamp[0] = clock64();
+"""),
+    ("""      d_st(a.sums + ((size_t)(wt + 1) * 4 + c) * NL, sb);
+""", """      d_st(a.sums + ((size_t)(wt + 1) * 4 + c) * NL, sb);
+      if (threadIdx.x == 0) stamp[1] = clock64();
+"""),
+    ("""  if (warp == 0) d_st(a.sums + ((size_t)win * 4 + c) * NL, w);
+""", """  if (warp == 0) d_st(a.sums + ((size_t)win * 4 + c) * NL, w);
+  if (threadIdx.x == 0) stamp[1] = clock64();
+"""),
+    ("""  if (threadIdx.x == 0) bad = 0;
+""", """  long long* const stamp = g_x5_stamps[126 + (threadIdx.x >> 5)];
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (lead) stamp[0] = clock64();
+  if (threadIdx.x == 0) bad = 0;
+"""),
+    ("""    if (a.okb[i] == 0) bad = 1;
+""", """    if (a.okb[i] == 0) bad = 1;
+  if (lead) stamp[1] = clock64();
+"""),
+    ("""    d_st(part[warp][c], acc);
+""", """    d_st(part[warp][c], acc);
+    if (lead) stamp[2] = clock64();
+"""),
+    ("""  __syncthreads();
+  if (warp == 0) {
+    fd t = """, """  __syncthreads();
+  if (lead) stamp[3] = clock64();
+  if (warp == 0) {
+    fd t = """),
+    ("""    if (threadIdx.x == 0) a.out[0] = (ident && bad == 0) ? 1 : 0;
+""", """    if (threadIdx.x == 0) a.out[0] = (ident && bad == 0) ? 1 : 0;
+    if (lead) stamp[4] = clock64();
+""")]
+
+
+def x5_phases(lib_path, windows: int, probe) -> dict:
+    """The x5_phases stamps of its last launch: the join stage's longest
+    window and its [b]B block, and the finish's staging and ok-byte scan,
+    Horner A (warp 0) and R (warp 1), the last adds, the cofactor and the
+    test (warp 0), and its span, in cycles and microseconds."""
+    buf = (ctypes.c_longlong * (128 * 8))()
+    fn = ctypes.CDLL(str(lib_path)).x5_read_stamps
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.addressof(buf)):
+        raise RuntimeError("x5_read_stamps failed")
+    st = [buf[8 * w: 8 * w + 8] for w in range(128)]
+    f0, f1 = st[126], st[127]
+    cycles = {
+        "join_window_max": max(st[w][1] - st[w][0] for w in range(windows)),
+        "join_b_base": st[windows][1] - st[windows][0],
+        "stage_scan": max(f0[1] - f0[0], f1[1] - f1[0]),
+        "horner_a": f0[2] - f0[1], "horner_r": f1[2] - f1[1],
+        "cofactor_test": f0[4] - f0[3],
+        "finish": f0[4] - min(f0[0], f1[0])}
+    ghz = probe["clock_ghz"]
+    return {"cycles": cycles,
+            "us": {k: v / (ghz * 1e3) for k, v in cycles.items()}}
+
+
+def patched_source(src: Path, subs, name: str, out: Path) -> Path:
+    """``src`` with each (old, new) of ``subs`` applied once, written to
+    ``out``/NAME.cu (beside a parent's source, so that its own headers
+    are found first)."""
+    text = src.read_text()
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: {old!r} found {text.count(old)} "
+                             f"times in {src}")
+        text = text.replace(old, new)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{name.replace('@', '_')}.cu"
+    path.write_text(text)
+    return path
+
+
+def x5_parent_entry(lib_path):
+    """fn(inp, events=None) -> (A's window sums, R's, the pre-cofactor
+    total, the bool) through the four-launch design's C entry
+    x5_rlc_stage and its scratch layout, as
+    cuda_rlc.rlc_equation(parts=True) returns them; ``events``, five CUDA
+    events, are recorded around its four stages."""
+    import torch
+
+    from cometbft_tpu_torch.ops import cuda_verify, rlc
+
+    fn = ctypes.CDLL(str(lib_path)).x5_rlc_stage
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(inp, events=None):
+        y_a, y_r = inp["y_a"], inp["y_r"]
+        dev = y_a.device
+        c_a, c_r = inp["c_a"], inp["c_r"]
+        na, nr = y_a.shape[1], y_r.shape[1]
+        wa, wr = rlc.windows(c_a, rlc.A_BITS), rlc.windows(c_r, rlc.R_BITS)
+        s = min(32, 1 << (c_a - 1), 1 << (c_r - 1))
+        ka, kr = (1 << (c_a - 1)) // s, (1 << (c_r - 1)) // s
+        nb = wa * (1 << (c_a - 1)) + wr * (1 << (c_r - 1))
+        i32 = torch.int32
+        pts = torch.empty((na + nr, 3, 10), dtype=i32, device=dev)
+        okb = torch.empty(na + nr, dtype=torch.uint8, device=dev)
+        buckets = torch.empty((nb, 4, 10), dtype=i32, device=dev)
+        runs = torch.empty((wa * ka + wr * kr, 2, 4, 10), dtype=i32,
+                           device=dev)
+        sums = torch.empty((wa + wr + 1, 4, 10), dtype=i32, device=dev)
+        out = torch.empty(1, dtype=torch.uint8, device=dev)
+        ptrs = [t.data_ptr() for t in (
+            y_a, inp["sign_a"], *inp["plan_a"], y_r, inp["sign_r"],
+            *inp["plan_r"], inp["b_bytes"], cuda_verify._consts(dev),
+            cuda_verify._base_table8_26(dev), pts, okb, buckets, runs, sums,
+            out)]
+        ints = [na, c_a, wa, nr, c_r, wr, s]
+        args = ((ctypes.c_void_p * len(ptrs))(*ptrs),
+                (ctypes.c_int * len(ints))(*ints))
+        stream = torch.cuda.current_stream(dev)
+        for i in range(4):
+            if events is not None:
+                events[i].record(stream)
+            err = fn(*args, i, stream.cuda_stream)
+            if err:
+                raise RuntimeError(f"{lib_path.name}: cudaError {err}")
+        if events is not None:
+            events[4].record(stream)
+        pts13 = torch.stack([sums & 8191, sums >> 13], dim=-1).reshape(
+            wa + wr + 1, 4, 20).permute(1, 2, 0)
+        return (pts13[:, :, :wa], pts13[:, :, wa:wa + wr], pts13[:, :, -1],
+                out[0] != 0)
+    return run
+
+
+def x5_parent_phases(lib_path, warps: int, probe) -> dict:
+    """The X5@parent_phases stamps of its last launch: each phase of the
+    finish in cycles (the ok scan and the join of runs, the longest warp;
+    Horner A on warp 0, Horner R on warp 1, [b]B on warp 2, each from the
+    barrier; the last adds, the cofactor and the test on warp 0) and the
+    finish's whole span, also in microseconds at the probe's clock."""
+    buf = (ctypes.c_longlong * (32 * 8))()
+    fn = ctypes.CDLL(str(lib_path)).x5_read_stamps
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.addressof(buf)):
+        raise RuntimeError("x5_read_stamps failed")
+    st = [buf[8 * w: 8 * w + 8] for w in range(warps)]
+    cycles = {
+        "ok_scan": max(r[1] - r[0] for r in st),
+        "join_runs": max(r[2] - r[1] for r in st),
+        "horner_a": st[0][4] - st[0][3],
+        "horner_r": st[1][4] - st[1][3],
+        "b_base": st[2][4] - st[2][3],
+        "cofactor_test": st[0][6] - st[0][5],
+        "finish": st[0][6] - min(r[0] for r in st)}
+    ghz = probe["clock_ghz"]
+    return {"cycles": cycles,
+            "us": {k: v / (ghz * 1e3) for k, v in cycles.items()},
+            "warps": warps}
+
+
+def x5_sass(lib_path, cs) -> dict:
+    """Each X5 kernel's SASS instructions, and its loops' instructions,
+    64-bit multiply-adds, shuffles and dependent depth."""
+    report = cs.sass_report(lib_path, "x5_")
+    return {name: {"instructions": r["instructions"], "loops": [
+        {k: lp[k] for k in ("instructions", "imad_wide", "depth")}
+        | {"shfl": lp["opcodes"].get("SHFL", 0)} for lp in r["loops"]]}
+        for name, r in report.items()}
+
+
+def x5_ab(torch, cs, dev, x5_libs, smi):
+    """The tree's X5 against X5@parent on chip_smoke's seeded rlc lanes
+    (the commit's 10,000 and the 40,000-lane catch-up, folded with
+    chip_smoke's seed): both held against the plain version as encodings,
+    then timed in turns (X5, X5@parent, X5@parent, X5) at both shapes,
+    stage by stage, beside the bounds of cuda_rlc.work,
+    chip_smoke.chain_products (the yardstick) and chip_smoke.design_chain
+    (X5's own chain); the phase clocks of both."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import build, cuda_rlc, rlc
+    from cometbft_tpu_torch.ops import verify as ov
+
+    probe = cs.clock_probe(torch)
+    sq = cs.x1_sass(build.BUILD_INFO["build_tables.cu"]["path"],
+                    probe)["squaring"]
+    ghz = probe["clock_ghz"]
+    tree_lib = build.BUILD_INFO["rlc.cu"]["path"]
+    cs.emit({"x5": "sass", "X5": x5_sass(tree_lib, cs),
+             **{k: x5_sass(so, cs) for k, so in x5_libs.items()},
+             "product_cycles": sq["chain_cycles"],
+             "product_issue_cycles": sq["issue_cycles"], "clock_ghz": ghz,
+             "issue_cycles": probe["issue_cycles"],
+             "latency_cycles_imad_wide": probe["latency_cycles_imad_wide"],
+             "card": smi})
+    with get_context("spawn").Pool(cs.WORKERS) as pool:
+        vals, _, commit = cs.make_commit(pool)
+        commits, _ = cs.make_catchup_commits(pool, vals, commit)
+    rng = np.random.default_rng(cs.RLC_SEED)
+    parent = x5_parent_entry(x5_libs["X5@parent"])
+    tree_probe = cuda_rlc.stage_entry(ctypes.CDLL(str(x5_libs["x5_phases"])))
+    runs = {"X5": lambda inp, events=None: cuda_rlc.rlc_equation(
+                **inp, parts=True, stage_events=events),
+            "X5@parent": parent}
+    stage_names = {"X5": cuda_rlc.STAGES,
+                   "X5@parent": ("decompress", "buckets", "runs", "finish")}
+    summary = {}
+    for lanes in (cs.commit_lanes(vals, [commit]),
+                  cs.commit_lanes(vals, [commits[h]
+                                         for h in cs.RLC_HEIGHTS])):
+        buf, host_ok = ov.pack_bytes(*lanes)
+        folded = rlc.fold(buf, host_ok, rng.bytes(16 * int(host_ok.sum())))
+        inp = rlc.to_device(rlc.launch_inputs(*folded), dev)
+        shape = "%dx%d" % (inp["y_a"].shape[1], inp["y_r"].shape[1])
+        plain = rlc._rlc_parts(**inp)
+        compare = {k: cs.x5_compare(rlc, inp, fn(inp), plain)
+                   for k, fn in runs.items()}
+        cs.emit({"x5": "compare", "lanes": len(lanes[0]), "shape": shape,
+                 **compare})
+        cs.check(all(compare[k]["mismatches"] == 0 and compare[k]["x5"]
+                     for k in ("X5", "X5@parent")),
+                 f"X5 != plain at {shape}: {compare}")
+        group = list(runs)
+        ms = {}
+        for name in group + group[::-1]:
+            t, _ = cs.time_ms(torch, lambda fn=runs[name]: fn(inp)[3],
+                              cs.KERNEL_REPS)
+            ms.setdefault(name, []).append(t)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        stages = {}
+        for name, fn in runs.items():
+            samples = []
+            for _ in range(cs.RUNS):
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(len(stage_names[name]) + 1)]
+                fn(inp, ev)
+                ev[-1].synchronize()
+                samples.append([ev[i].elapsed_time(ev[i + 1])
+                                for i in range(len(ev) - 1)])
+            stages[name] = dict(zip(stage_names[name], (
+                statistics.median(s) for s in zip(*samples))))
+        plans = ([a.cpu().numpy() for a in inp["plan_a"]],
+                 [a.cpu().numpy() for a in inp["plan_r"]],
+                 inp["c_a"], inp["c_r"])
+        ops, nbytes = cuda_rlc.work(*plans)
+        ops_ms = 1e3 * ops / cs.PEAK_OPS_PER_S
+        bytes_ms = 1e3 * nbytes / cs.PEAK_BYTES_PER_S
+        products = cs.chain_products(*plans)
+        chain_ms = products * sq["chain_cycles"] / (ghz * 1e6)
+        larger = max(ops_ms, bytes_ms, chain_ms)
+        design = cs.design_chain(*plans)
+        design_ms = design["total"] * sq["chain_cycles"] / (ghz * 1e6)
+        summary[shape] = {
+            "ms": mean, "new_over_parent": mean["X5"] / mean["X5@parent"],
+            "stage_ms": stages, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "chain_products": products, "chain_bound_ms": chain_ms,
+            "design_chain": design, "design_chain_ms": design_ms,
+            "warp_issue_ms": products * sq["issue_cycles"] / (ghz * 1e6),
+            "share_of_larger_bound": {k: larger / v
+                                      for k, v in mean.items()},
+            "share_of_design_bound": {
+                k: max(ops_ms, bytes_ms, design_ms) / v
+                for k, v in mean.items()}}
+        cs.emit({"x5": "time", "lanes": len(lanes[0]), "shape": shape,
+                 "order": group + group[::-1], "ms_in_turns": ms,
+                 **summary[shape]})
+        wa = rlc.windows(inp["c_a"], rlc.A_BITS)
+        wr = rlc.windows(inp["c_r"], rlc.R_BITS)
+        sums, out = cuda_rlc.launch(tree_probe, **inp)
+        torch.cuda.synchronize()
+        cs.check(bool(out[0]), f"x5_phases at {shape}: the equation failed")
+        cs.emit({"x5": "phases", "version": "X5", "shape": shape,
+                 **x5_phases(x5_libs["x5_phases"], wa + wr, probe)})
+        lib = x5_libs["X5@parent_phases"]
+        x5_parent_entry(lib)(inp)
+        torch.cuda.synchronize()
+        warps = max(3, (wa + 7) // 8 + (wr + 7) // 8)
+        cs.emit({"x5": "phases", "version": "X5@parent", "shape": shape,
+                 **x5_parent_phases(lib, warps, probe)})
+    cs.emit({"x5_summary": summary, "card": smi})
+
+
 def verify_ab(torch, cs, dev, entries, parents, sizes, smi):
     """K1-K4 and their variants: held against the plain versions, then
     timed in turns at each size."""
@@ -817,8 +1192,9 @@ def main() -> int:
                     choices=sorted(PROBES))
     ap.add_argument("--parent", metavar="REV",
                     help="also time K1, K3, X4 and X1 of commit REV")
-    ap.add_argument("--only", choices=("verify", "x4", "x1"),
-                    help="run only the verify kernels', X4's or X1's part")
+    ap.add_argument("--only", choices=("verify", "x4", "x1", "x5"),
+                    help="run only the verify kernels', X4's, X1's or X5's "
+                         "part")
     ap.add_argument("--extract-only", action="store_true",
                     help="write the --parent sources and exit")
     ap.add_argument("variants", nargs="*", metavar="NAME=SOURCE.cu")
@@ -849,12 +1225,12 @@ def main() -> int:
             x1_probes[name] = probe_source(name, build.CSRC)
         else:
             variants[name] = probe_source(name, build.CSRC)
-    for part, probes in (("x4", x4_probes), ("x1", x1_probes)):
+    for part, probes in (("x4", x4_probes), ("x1", x1_probes), ("x5", {})):
         if (probes or args.only == part) and not (
                 args.parent and args.only in (None, part)):
             raise SystemExit(f"{part}'s part (--only {part}, an {part} "
                              "probe) needs --parent REV")
-    parents, x4_sources, x1_sources = [], {}, {}
+    parents, x4_sources, x1_sources, x5_sources = [], {}, {}, {}
     if args.parent:
         pdir = parent_sources(args.parent)
         if args.only in (None, "verify"):
@@ -867,7 +1243,15 @@ def main() -> int:
                           **x4_probes}
         if args.only in (None, "x1"):
             x1_sources = {"X1@parent": pdir / "build_tables.cu", **x1_probes}
-    if args.only in ("x4", "x1") and variants:
+        if args.only == "x5":
+            x5_sources = {"X5@parent": pdir / "rlc.cu",
+                          "X5@parent_phases": patched_source(
+                              pdir / "rlc.cu", X5_PARENT_PHASES,
+                              "X5@parent_phases", pdir),
+                          "x5_phases": patched_source(
+                              build.CSRC / "rlc.cu", X5_PHASES, "x5_phases",
+                              OUT)}
+    if args.only in ("x4", "x1", "x5") and variants:
         raise SystemExit(f"--only {args.only} takes no verify variants")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -881,12 +1265,16 @@ def main() -> int:
         build.load_all(["sha256.cu"])
     elif args.only == "x1":
         build.load_all(["build_tables.cu"])
-    else:
+    elif args.only != "x5":
         cuda_verify._entries()
-    others = {**variants, **x4_sources, **x1_sources}
-    with ThreadPoolExecutor(max(1, len(others))) as pool:
+    others = {**variants, **x4_sources, **x1_sources, **x5_sources}
+    with ThreadPoolExecutor(max(1, len(others)) + 1) as pool:
+        tree = (pool.submit(build.load_all, ["rlc.cu", "build_tables.cu"])
+                if args.only == "x5" else None)
         built = list(pool.map(lambda kv: nvcc(build, build.CSRC, *kv),
                               others.items()))
+        if tree is not None:
+            tree.result()
     cs.emit({"build_s": time.perf_counter() - t0,
              "tree": {k: v for info in build.BUILD_INFO.values()
                       for k, v in build.ptxas_usage(info["ptxas"]).items()},
@@ -898,12 +1286,15 @@ def main() -> int:
                for name, so, _, _ in built if name in variants}
     x4_libs = {name: so for name, so, _, _ in built if name in x4_sources}
     x1_libs = {name: so for name, so, _, _ in built if name in x1_sources}
+    x5_libs = {name: so for name, so, _, _ in built if name in x5_sources}
     if args.only in (None, "verify"):
         verify_ab(torch, cs, dev, entries, parents, sizes, smi)
     if x4_sources:
         x4_ab(torch, cs, dev, x4_libs, smi)
     if x1_sources:
         x1_ab(torch, cs, dev, x1_libs, smi)
+    if x5_sources:
+        x5_ab(torch, cs, dev, x5_libs, smi)
     return 0
 
 

@@ -254,7 +254,6 @@ inline int cur, nthreads;
 inline D3 bidx, bdim;
 inline uint32_t xbuf[2][1024];
 inline int nshfl[1024];
-inline ucontext_t main_ctx, ctx[1024];
 inline bool done[1024];
 inline std::function<void()>* body;
 inline std::vector<char> stacks;
@@ -263,6 +262,66 @@ constexpr size_t STACK = 1 << 19;
 // launch whose fibers all wait fails (cudaGetLastError says so)
 inline int arrived[16], phases[16];
 inline bool failed;
+inline void tramp();
+#if defined(__x86_64__)
+// A switch saves the callee-saved registers on the fiber's own stack and
+// swaps stack pointers: no signal-mask system calls, as swapcontext makes
+// two a switch, and a launch switches once a thread a shuffle.
+extern "C" void emu_fiber_swap(void** save, void* load);
+asm(R"(
+  .text
+  .globl emu_fiber_swap
+  .hidden emu_fiber_swap
+  .type emu_fiber_swap, @function
+emu_fiber_swap:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_fiber_swap, .-emu_fiber_swap
+)");
+inline void* main_sp;
+inline void* sp[1024];
+inline void fiber_start() {
+  tramp();
+  __builtin_unreachable();
+}
+// fiber t's stack: tramp's return address 16-aligned under the top, six
+// zero registers below it
+inline void make_fiber(int t) {
+  uintptr_t top = ((uintptr_t)(stacks.data() + STACK * (t + 1)) & ~(uintptr_t)15) - 16;
+  void** p = (void**)top;
+  p[0] = (void*)&fiber_start;
+  for (int i = 1; i <= 6; ++i) p[-i] = nullptr;
+  sp[t] = (void*)(p - 6);
+}
+inline void switch_to(int me, int n) { emu_fiber_swap(&sp[me], sp[n]); }
+inline void to_main(int me) { emu_fiber_swap(&sp[me], main_sp); }
+inline void enter(int t) { emu_fiber_swap(&main_sp, sp[t]); }
+#else
+inline ucontext_t main_ctx, ctx[1024];
+inline void make_fiber(int t) {
+  getcontext(&ctx[t]);
+  ctx[t].uc_stack.ss_sp = stacks.data() + STACK * t;
+  ctx[t].uc_stack.ss_size = STACK;
+  ctx[t].uc_link = &main_ctx;
+  makecontext(&ctx[t], tramp, 0);
+}
+inline void switch_to(int me, int n) { swapcontext(&ctx[me], &ctx[n]); }
+inline void to_main(int me) { swapcontext(&ctx[me], &main_ctx); }
+inline void enter(int t) { swapcontext(&main_ctx, &ctx[t]); }
+#endif
 // switch to the next live fiber after `me`, or back to the launch
 inline void run_next(int me) {
   for (int i = 1; i <= nthreads; ++i) {
@@ -270,12 +329,12 @@ inline void run_next(int me) {
     if (!done[n]) {
       if (n == me) return;
       cur = n;
-      swapcontext(&ctx[me], &ctx[n]);
+      switch_to(me, n);
       cur = me;
       return;
     }
   }
-  swapcontext(&ctx[me], &main_ctx);
+  to_main(me);
 }
 inline void tramp() {
   (*body)();
@@ -293,15 +352,11 @@ inline void launch(int grid, int block, std::function<void()> f) {
     for (int t = 0; t < block; ++t) {
       done[t] = false;
       nshfl[t] = 0;
-      getcontext(&ctx[t]);
-      ctx[t].uc_stack.ss_sp = stacks.data() + STACK * t;
-      ctx[t].uc_stack.ss_size = STACK;
-      ctx[t].uc_link = &main_ctx;
-      makecontext(&ctx[t], tramp, 0);
+      make_fiber(t);
     }
     for (int id = 0; id < 16; ++id) arrived[id] = phases[id] = 0;
     cur = 0;
-    swapcontext(&main_ctx, &ctx[0]);
+    enter(0);
     if (failed) return;
   }
 }
@@ -326,7 +381,7 @@ inline void bar_sync(int id, int n) {
   for (int spins = 0; phases[id] == phase; ++spins) {
     if (spins > 4096) {  // every fiber waits: a deadlock
       failed = true;
-      swapcontext(&ctx[cur], &main_ctx);
+      to_main(cur);
     }
     run_next(cur);
   }
@@ -639,3 +694,154 @@ def test_quad_kernel_matches_plain_in_emulation(tmp_path, kernel):
     assert fn(*args, None) == 0
     assert torch.equal(out, plain)
     assert (out & torch.from_numpy(host_ok)).tolist() == want
+
+
+# X5's warp ops (csrc/rlc.cu: a point a warp, limb s of a coordinate on
+# lane s of its eight) beside the quad ops they stand for, on one point of
+# four coordinates: the warp's limbs must be the quad's exactly, so that
+# the interval proof above holds for them as it is.
+WARP_HARNESS = r"""
+namespace {
+// ops: 0 mul, 1 add, 2 carry1, 3 double, 4 add a Niels point, 5 to Niels
+fd warp_op_fd(int op, const fd& x, const fd& y, const fd& d2, int c) {
+  return op == 0 ? d_mul(x, y) : op == 1 ? d_add(x, y)
+       : op == 2 ? d_carry(x) : op == 3 ? w_double(x, c)
+       : op == 4 ? w_add(x, y, c) : w_to_niels(x, d2, c);
+}
+fe quad_op_fe(int op, fe x, const fe& y, const fe& d2, int c) {
+  if (op == 2) {
+    carry1(x);
+    return x;
+  }
+  return op == 0 ? fe_mul(x, y) : op == 1 ? fe_add(x, y)
+       : op == 3 ? q_double(x, c) : op == 4 ? q_add(x, y, c)
+       : q_to_niels(x, d2, c);
+}
+}  // namespace
+// p, n: four elements of NL limbs (coordinate c, or Niels component c,
+// at c NL; n's fourth is also to Niels' 2d); out: the warp's, then the
+// quad's
+extern "C" int warp_op(int op, const uint32_t* p, const uint32_t* n,
+                       uint32_t* warp_out, uint32_t* quad_out) {
+  emu::launch(1, 32, [&] {
+    const int c = w_c();
+    d_st(warp_out + NL * c, warp_op_fd(op, d_ld(p + NL * c),
+                                       d_ld(n + NL * c), d_ld(n + 3 * NL), c));
+  });
+  if (cudaGetLastError()) return 1;
+  emu::launch(1, 4, [&] {
+    const int c = quad_c();
+    fe_st(quad_out + NL * c, quad_op_fe(op, fe_ld(p + NL * c),
+                                        fe_ld(n + NL * c), fe_ld(n + 3 * NL),
+                                        c));
+  });
+  return cudaGetLastError();
+}
+// cols: four sets of 2 NL - 1 columns, set c folded by coordinate c's
+// eight lanes (d_fold) and by fold_cols
+extern "C" int warp_fold(const uint64_t* cols, uint32_t* warp_out,
+                         uint32_t* quad_out) {
+  emu::launch(1, 32, [&] {
+    const int c = w_c(), s = w_s();
+    const uint64_t* k = cols + (2 * NL - 1) * c;
+    d_st(warp_out + NL * c, d_fold(k[s], k[s + 8], s < 3 ? k[s + 16] : 0));
+  });
+  if (cudaGetLastError()) return 1;
+  for (int c = 0; c < 4; ++c) {
+    uint64_t k[2 * NL - 1];
+    for (int i = 0; i < 2 * NL - 1; ++i) k[i] = cols[(2 * NL - 1) * c + i];
+    fe_st(quad_out + NL * c, fold_cols(k));
+  }
+  return 0;
+}
+"""
+
+WARP_OPS = ["mul", "add", "carry1", "double", "add_niels", "to_niels"]
+
+
+@pytest.fixture(scope="module")
+def warp_ops(tmp_path_factory):
+    _gpp()
+    lib = _compile(tmp_path_factory.mktemp("warp_ops"), "warp_ops",
+                   (CSRC / "rlc.cu").read_text() + WARP_HARNESS)
+    lib.warp_op.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.warp_fold.argtypes = [ctypes.c_void_p] * 3
+    return lib
+
+
+def _warp_points():
+    """(p, n) pairs of four elements each, limbs <= LAZY: every choice of
+    coordinates all at LAZY and the rest 0 (each bias path, BIAS_HI's on
+    limbs 8 and 9 among them, at its widest), against n alike, its
+    complement and all LAZY; limbs 8-9 at LAZY over 0 and the reverse;
+    seeded mixes of 0 and LAZY; seeded limbs in [0, LAZY]."""
+    rng = np.random.default_rng(20261018)
+
+    def by_mask(mask):
+        return [[LAZY if mask >> c & 1 else 0] * NL for c in range(4)]
+
+    pairs = [(by_mask(m), by_mask(k)) for m in range(16)
+             for k in (m, 15 - m, 15)]
+    hi = [[LAZY if i >= 8 else 0 for i in range(NL)]] * 4
+    lo = [[0 if i >= 8 else LAZY for i in range(NL)]] * 4
+    pairs += [(hi, lo), (lo, hi), (hi, hi)]
+    pairs += [(rng.choice([0, LAZY], (4, NL)).tolist(),
+               rng.choice([0, LAZY], (4, NL)).tolist()) for _ in range(16)]
+    pairs += [(rng.integers(0, LAZY + 1, (4, NL)).tolist(),
+               rng.integers(0, LAZY + 1, (4, NL)).tolist())
+              for _ in range(16)]
+    return pairs
+
+
+@pytest.mark.parametrize("op", WARP_OPS)
+def test_warp_ops_equal_the_quad_ops_limb_for_limb(warp_ops, op):
+    """d_mul, d_add, d_carry, w_double, w_add and w_to_niels give the raw
+    limbs of fe_mul, fe_add, carry1, q_double, q_add and q_to_niels on the
+    same point (the Niels operand's fourth element as 2d), at the lazy
+    extremes and on seeded limbs; mul, add and carry1 also the model's
+    (which asserts every width), and carry1 on any uint32 limbs."""
+    code = WARP_OPS.index(op)
+    pairs = _warp_points()
+    if op == "carry1":
+        rng = np.random.default_rng(7)
+        pairs += [([[2**32 - 1] * NL] * 4, [[0] * NL] * 4)]
+        pairs += [(rng.integers(0, 2**32, (4, NL)).tolist(), [[0] * NL] * 4)
+                  for _ in range(8)]
+    model = {"mul": mul, "add": add}.get(op)
+    for k, (p, n) in enumerate(pairs):
+        p, n = _arr(p), _arr(n)
+        got = np.zeros((2, 4, NL), np.uint32)
+        assert warp_ops.warp_op(code, p.ctypes.data, n.ctypes.data,
+                                got[0].ctypes.data, got[1].ctypes.data) == 0
+        assert got[0].tolist() == got[1].tolist(), (op, k)
+        for c in range(4):
+            a, b = p[c].tolist(), n[c].tolist()
+            if model is not None:
+                assert got[0, c].tolist() == model(a, b), (op, k, c)
+            elif op == "carry1":
+                assert got[0, c].tolist() == carry1(a), (op, k, c)
+
+
+def test_warp_fold_equals_fold_cols_limb_for_limb(warp_ops):
+    """d_fold (the fold of d_mul's columns across eight lanes) gives
+    fold_cols' limbs and the model's: every column at 10 LAZY^2 (the
+    proof's bound), the products of all-LAZY limbs, columns alternating
+    between the bound and 0, and seeded columns below the bound."""
+    top = 10 * LAZY * LAZY
+    rng = np.random.default_rng(11)
+    sets = [[top] * (2 * NL - 1),
+            [LAZY * LAZY * min(k + 1, 2 * NL - 1 - k)
+             for k in range(2 * NL - 1)],
+            [top if k % 2 else 0 for k in range(2 * NL - 1)],
+            [0 if k % 2 else top for k in range(2 * NL - 1)]]
+    sets += [[int(x) for x in rng.integers(0, top + 1, 2 * NL - 1,
+                                           dtype=np.uint64)]
+             for _ in range(12)]
+    for k in range(0, len(sets), 4):
+        cols = np.ascontiguousarray(sets[k:k + 4], dtype=np.uint64)
+        got = np.zeros((2, 4, NL), np.uint32)
+        assert warp_ops.warp_fold(cols.ctypes.data, got[0].ctypes.data,
+                                  got[1].ctypes.data) == 0
+        assert got[0].tolist() == got[1].tolist(), k
+        for c in range(4):
+            assert got[0, c].tolist() == fold_cols(sets[k + c]), (k, c)

@@ -543,7 +543,7 @@ inline void bar_wait(int id, int n) {
   for (long spins = 0; phases[id] == phase; ++spins) {
     if (spins > (1L << 22)) {
       failed = true;
-      swapcontext(&ctx[cur], &main_ctx);
+      to_main(cur);
     }
     run_next(cur);
   }
@@ -564,10 +564,10 @@ def x5(tmp_path_factory):
     return fn
 
 
-def run_x5(fn, inp, s):
-    """X5's four stages on the launch inputs ``inp`` with runs of ``s``
-    buckets: (window sums of A, of R, the pre-cofactor total, each as
-    encodings; the output byte)."""
+def run_x5(fn, inp, s, f=1):
+    """X5's stages on the launch inputs ``inp`` with runs of ``s``
+    buckets and groups of ``f`` runs: (window sums of A, of R, the
+    pre-cofactor total, each as encodings; the output byte)."""
     c_a, c_r = inp["c_a"], inp["c_r"]
     na, nr = inp["y_a"].shape[1], inp["y_r"].shape[1]
     wa, wr = rlc.windows(c_a, 253), rlc.windows(c_r, 128)
@@ -577,19 +577,26 @@ def run_x5(fn, inp, s):
             curve.kernel_consts(),
             cuda_verify._base_table8_26(torch.device("cpu")).numpy()]
     arrs = [np.ascontiguousarray(a, dtype=np.int32) for a in arrs]
-    sums = np.zeros((wa + wr + 1, 4, 10), np.uint32)
+    sums = np.zeros((wa + wr + 2, 4, 10), np.uint32)
     out = np.full(1, 7, np.uint8)
+    runs = wa * ma // s + wr * mr // s
     arrs += [np.zeros((na + nr, 3, 10), np.uint32),
-             np.zeros(na + nr, np.uint8),
+             np.full(-(-(na + nr) // cuda_rlc.DECOMPRESS_BLOCK), 7, np.uint8),
              np.zeros((wa * ma + wr * mr, 4, 10), np.uint32),
-             np.zeros((wa * ma // s + wr * mr // s, 2, 4, 10), np.uint32),
-             sums, out]
+             np.zeros((runs, 2, 4, 10), np.uint32),
+             np.zeros((runs // f, 2, 4, 10), np.uint32), sums, out]
     ptrs = (ctypes.c_void_p * len(arrs))(*[a.ctypes.data for a in arrs])
-    ints = (ctypes.c_int * 7)(na, c_a, wa, nr, c_r, wr, s)
-    for stage in range(4):
+    ints = (ctypes.c_int * 8)(na, c_a, wa, nr, c_r, wr, s, f)
+    for stage in range(len(cuda_rlc.STAGES)):
         assert fn(ptrs, ints, stage, None) == 0
     encs = rlc.encode(sums.transpose(1, 2, 0).astype(np.int64), 26)
-    return encs[:wa], encs[wa:wa + wr], encs[-1:], int(out[0])
+    return encs[:wa], encs[wa:wa + wr], encs[wa + wr:wa + wr + 1], int(out[0])
+
+
+# runs of s buckets in groups of f runs, at buckets 8 (m = 8): two groups
+# of two runs a window, one of two, one of four, and one run
+X5_GROUPS = {"holds": 2, "b_plus_1": 2, "undecodable_r": 4,
+             "undecodable_zero": 1}
 
 
 @pytest.mark.parametrize("case,s", [("holds", 2),
@@ -597,14 +604,15 @@ def run_x5(fn, inp, s):
                                     ("undecodable_r", 2),
                                     ("undecodable_zero", 8)])
 def test_x5_source_equals_the_plain_version(x5, msm, case, s):
-    """X5 under g++ at buckets 8 (A and R), with runs of s buckets
-    (8: one run a window; 2 and 4 exercise stage (d)'s join of runs):
-    window sums and total by encoding, the byte as the plain bool (on
-    "undecodable_zero" only the ok bytes can make it 0)."""
+    """X5 under g++ at buckets 8 (A and R), with runs of s buckets in
+    groups of X5_GROUPS[case] runs (8: one run a window; 2 and 4 exercise
+    the groups' and the join's sums of segments): window sums and total by
+    encoding, the byte as the plain bool (on "undecodable_zero" only the
+    ok bytes can make it 0)."""
     cases, _, got = msm
     assert cuda_rlc.run_buckets(cases[case]["c_a"], cases[case]["c_r"]) == 8
     ws_a, ws_r, total, ok = got[case]
-    enc_a, enc_r, enc_t, byte = run_x5(x5, cases[case], s)
+    enc_a, enc_r, enc_t, byte = run_x5(x5, cases[case], s, X5_GROUPS[case])
     assert enc_a == rlc.encode(ws_a)
     assert enc_r == rlc.encode(ws_r)
     assert enc_t == rlc.encode(total[:, :, None])
@@ -627,3 +635,65 @@ def test_x5_source_on_seeded_lanes_at_buckets_8_and_16(x5):
         assert (enc_a, enc_r, enc_t) == (rlc.encode(ws_a), rlc.encode(ws_r),
                                          rlc.encode(total[:, :, None]))
         assert byte == int(not tampered)
+
+
+def _edge_side_case(name):
+    """The folded inputs of an edge case for X5's source, and whether the
+    equation holds: "long_segment", 13 R lanes of one scalar (bucket 3 of
+    window 0 takes all 13 of them, its warp-mates none); "pads_identity",
+    one real point a side and a real lane whose encoding is the
+    identity's, of a nonzero scalar, among the pads; "undecodable_pad",
+    an undecodable A point of a nonzero scalar among the pads, the sums
+    holding without it (only the ok bit fails)."""
+    rng = np.random.default_rng({"long_segment": 31, "pads_identity": 32,
+                                 "undecodable_pad": 33}[name])
+
+    def rand(bits):
+        return int.from_bytes(rng.bytes(32), "little") % (1 << bits)
+
+    ident = (1).to_bytes(32, "little")
+    if name == "long_segment":
+        xs, ys = [rand(252) for _ in range(5)], [rand(252) for _ in range(13)]
+        a_sc, r_sc = [rand(252) % L for _ in xs], [3] * 13
+        extra_a, extra_sc = [], []
+    elif name == "pads_identity":
+        xs, ys = [rand(252)], [rand(252)]
+        a_sc, r_sc = [rand(252) % L], [max(1, rand(128))]
+        extra_a, extra_sc = [ident], [rand(252) % L]
+    else:
+        xs, ys = [rand(252), rand(252)], [rand(252)]
+        a_sc, r_sc = [rand(252) % L for _ in xs], [max(1, rand(128))]
+        extra_a, extra_sc = [_undecodable_y()], [rand(252) % L]
+    b = -(sum(a * x for a, x in zip(a_sc, xs))
+          + sum(r * y for r, y in zip(r_sc, ys))) % L
+    a_encs = [_point_enc(x) for x in xs] + extra_a
+    r_encs = [_point_enc(y) for y in ys]
+    return ((a_encs, a_sc + extra_sc, r_encs, r_sc, b),
+            name != "undecodable_pad")
+
+
+@pytest.mark.parametrize("case", ["long_segment", "pads_identity",
+                                  "undecodable_pad"])
+def test_x5_source_on_edge_sides(x5, case):
+    """X5 under g++ where a warp's segments are far apart in length, where
+    a side is mostly pads with a real identity-encoded lane among them
+    (decoded without the sqrt chain), and where an undecodable lane sits
+    among the pads: window sums and total by encoding against the plain
+    version, the byte as its bool and the native MSM's verdict."""
+    folded, holds = _edge_side_case(case)
+    inp = rlc.launch_inputs(*folded)
+    if case == "long_segment":
+        starts, ends = inp["plan_r"][2], inp["plan_r"][3]
+        lens = ends[0] - starts[0]
+        assert lens[2] == 13 and lens.sum() == 13
+    ws_a, ws_r, total, ok = rlc._rlc_parts(**rlc.to_device(inp, "cpu"))
+    assert bool(ok) == holds
+    assert (host_batch._msm_identity(
+        b"".join(folded[0] + folded[2] + [host_batch._B_ENC]),
+        b"".join(s.to_bytes(32, "little")
+                 for s in folded[1] + folded[3] + [folded[4]]),
+        len(folded[0]) + len(folded[2]) + 1) == 1) == holds
+    enc_a, enc_r, enc_t, byte = run_x5(x5, inp, 2, 2)
+    assert (enc_a, enc_r, enc_t) == (rlc.encode(ws_a), rlc.encode(ws_r),
+                                     rlc.encode(total[:, :, None]))
+    assert byte == int(holds)

@@ -449,6 +449,22 @@ def test_rlc_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
             "needed_products"] / cs.PEAK_OPS_PER_S
         assert line["warp_issue_ms"] == 5 * line["chain_bound_ms"]
         assert line["ms"] == 1.0 and line["bound_share"] == line["bound_ms"]
+        # X5's six stages by name, and its own chain by stage beside the
+        # yardstick's
+        assert list(line["stage_ms"]) == list(cr.STAGES) == [
+            "decompress", "buckets", "runs", "groups", "join", "finish"]
+        design = line["design_chain_products"]
+        assert list(design) == list(cr.STAGES) + ["total"]
+        assert design["total"] == sum(design[k] for k in cr.STAGES)
+        assert line["design_chain_ms"] == design["total"] * 100.0 / (
+            2.0 * 1e6)
+        # the share against X5's own chain beside the operations and bytes
+        assert line["design_bound_ms"] == max(
+            line["ops_ms"], line["bytes_ms"], line["design_chain_ms"])
+        assert line["design_bound_by"] == ("chain" if line[
+            "design_chain_ms"] > max(line["ops_ms"], line["bytes_ms"])
+            else line["bound_by"])
+        assert line["design_bound_share"] == line["design_bound_ms"]
     assert row["k2_launches"] == 1 and row["at_40000"]["k2_launches"] == 4
     # 5 small batches, 30 ZIP-215 classes, both widths
     assert row["compared_launches"] == 37
@@ -466,6 +482,56 @@ def test_rlc_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
             if x.get("phase") == "rlc.breakdown"] == [n, 4 * n]
     assert [x["idle_share"] for x in lines
             if x.get("phase") == "rlc.trace"] == [0.5]
+    assert [list(x["x5_stage_ms"]) for x in lines
+            if x.get("phase") == "rlc.breakdown"] == [list(cr.STAGES)] * 2
+    # X2's and X3's launches on the path are read with K1-K4's: none run
+    # on the card here
+    assert cs.OP_BY_PATH["rlc"] == {"x2_scatter": 0, "x3_unpack": 0,
+                                    "x3_bitpack": 0}
+
+
+def test_torch_ops_line_times_the_caches_own_scatter(monkeypatch):
+    """time_torch_ops at 12 validators, "cuda" mapped to the CPU: X2's row
+    times PubkeyTableCache._scatter itself (each timed call goes through
+    it), the scatter lands the tables at the slots the cache assigned,
+    and its bytes bound counts the tables and oks read and written and
+    the slots read, where "port_bytes" adds the whole arena read and
+    written by the out-of-place index_copy."""
+    import torch
+
+    from cometbft_tpu_torch.ops import curve, field
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    n = 12
+    monkeypatch.setattr(cs, "N_VALIDATORS", n)
+    monkeypatch.setattr(cs, "time_ms", lambda torch, fn, reps=1: (
+        1.0, fn()))
+    real_resolve = ov.resolve_device
+    monkeypatch.setattr(ov, "resolve_device", lambda d: real_resolve(
+        "cpu" if torch.device(d).type == "cuda" else d))
+    calls = []
+    real_scatter = ov.PubkeyTableCache._scatter
+
+    def scatter(self, slots, tables, oks):
+        calls.append(slots.tolist())
+        return real_scatter(self, slots, tables, oks)
+    monkeypatch.setattr(ov.PubkeyTableCache, "_scatter", scatter)
+    vals, _, commit = cs.make_commit(_SerialPool())
+    line = cs.time_torch_ops(torch, "card", vals, commit)
+    assert line["phase"] == "torch_ops" and line["lanes"] == n
+    # the timed call (time_ms's stand-in makes one), then the checked one
+    assert calls == [list(range(n))] * 2
+    x2 = line["ops"]["x2_scatter"]
+    table_bytes = curve.TSIZE * 4 * field.NLIMB * 4 * n
+    assert x2["bytes"] == 2 * (table_bytes + n) + 8 * n
+    slots = ov.PubkeyTableCache.CAPACITY + 1
+    assert x2["port_bytes"] == 2 * (table_bytes // n + 1) * slots + (
+        table_bytes + n + 8 * n)
+    assert x2["bound_ms"] == 1e3 * x2["bytes"] / cs.PEAK_BYTES_PER_S
+    assert set(line["ops"]) == {"x2_scatter", "x3_unpack_k1",
+                                "x3_unpack_k2", "x3_bitpack"}
+    assert line["ops"]["x3_unpack_k1"]["bytes"] > 128 * n
 
 
 def test_lane_check_refuses_an_x5_shape_not_compared():
