@@ -25,7 +25,10 @@ each printing one JSON line:
              K1 and K3 only, the R-side ones in all four; X1's tables and
              ok bits on them equal its plain version's. X1 is also
              compared at every lane count the light path launches it at
-             (X1_LIGHT_LANES). Then K1-K4 are timed at 3,334, 6,667 and
+             (X1_LIGHT_LANES), and K1 at every count the mesh path
+             launches it at (K1_MESH_LANES: 8,192, 16,384 and 65,536,
+             edge verdicts and an oracle sample too; 4,096 is above),
+             then timed there. Then K1-K4 are timed at 3,334, 6,667 and
              10,000 lanes and X1 at each count its paths launch it at
              (CUDA events around 10 back-to-back launches, median of 5
              after a warm-up) beside the bound, X1 also beside its chain
@@ -170,6 +173,29 @@ each printing one JSON line:
              torch.profiler, in a process of its own, for the card's idle
              share.
 
+10. mesh  — the multi-device verify path (parallel/mesh.py, the sharded
+             branch of ops/verify.verify_batch) on the commit cell's
+             10,000 lanes and the rlc phase's 40,000-lane catch-up batch,
+             one lane tampered in each. A default-argument verify_batch on
+             each first: on a one-card machine it must not shard (K2, no
+             K1, no call to _verify_batch_sharded). Then
+             _verify_batch_sharded through explicit meshes of card 0: (1,
+             1), (1, 4) and (2, 2) on the commit (K1 at 16,384, 4 x 4,096,
+             4 x 8,192), (1, 1) and (1, 4) on the catch-up batch (65,536, 4
+             x 16,384); verdicts equal to verify_batch's, the tampered lane
+             named; per run the host ms, pack_inputs' ms, K1's device ms
+             by CUDA events, its launches by lanes and the h2d bytes
+             (devstats). Then pack_inputs beside pack_bytes on the same
+             lanes, and one warm (1, 4) run under torch.profiler in a
+             process of its own for the card's idle share (mesh.trace).
+
+After the mesh phase one line "libs": the phase observations of the
+NodeMetrics pushed for the whole run (crypto_verify_phase_seconds, after
+the slice phase and at the end), the devstats transfer counters (on for
+the whole run) and device-memory gauges, the fast25519 tier in force
+(whether the cryptography wheel is installed) and 1,000
+Ed25519PubKey.verify_signature calls, in us a verify.
+
 In the slice and light phases K1-K4 and X1 must run only at lane counts
 the kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3
 checks; X1 builds a commit's missing keys); in the vote phase K1 and K2,
@@ -221,6 +247,11 @@ PATH_LANES = (N_TRUST, N_LIGHT, N_TIMED)  # K1-K4 are timed at each
 # seeded key groups fix. It is compared and timed at each.
 X1_LIGHT_LANES = (N_LIGHT, 3_344, 3_323)
 X1_PATH_LANES = (N_TIMED,) + X1_LIGHT_LANES
+# K1's shards on the mesh path (no chunking there): the commit's 10,000
+# lanes pad to 16,384 on a (1, 1) mesh, 4 x 4,096 on (1, 4) and 4 x 8,192
+# on (2, 2) (the commit axis pads to 2); the 40,000-lane catch-up batch to
+# 65,536 on (1, 1) and 4 x 16,384 on (1, 4). 4,096 is N_LANES.
+K1_MESH_LANES = (8_192, 16_384, 65_536)
 RUNS = 5
 KERNEL_REPS = 10  # back-to-back launches between two CUDA events
 TAMPERED = 4321
@@ -632,6 +663,32 @@ def phase_kernels(torch, pool):
         emit({"phase": "kernels.compare", "kernel": "build_pubkey_tables",
               "lanes": n, "mismatches": mismatches["build_pubkey_tables"]})
         x1_inputs[n] = (a["y_a"], a["sign_a"], table)
+    # K1 at the counts only the mesh path launches it at, on the same
+    # tiled lanes: edge verdicts, a sample against the oracle
+    k1_mesh = {}
+    for n in K1_MESH_LANES:
+        cols = torch.arange(n, device=dev) % N_LANES
+        a = ov.unpack_on_device(wire[:, cols])
+        k1 = cuda_verify.verify_kernel(**a)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain = curve.verify_kernel(**a)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t)  # one call, host clock
+        tally(torch, err, mismatches, "verify_kernel", k1, plain)
+        valid = k1.cpu().numpy() & host_ok[cols.cpu().numpy()]
+        for i, verdict in expect.items():
+            check(bool(valid[i]) == verdict, f"edge lane {i} verdict (n={n})")
+        for i in range(len(expect), n, max(1, n // 48)):
+            j = i % N_LANES
+            if j not in oracle:
+                oracle[j] = ref.verify(pks[j], msgs[j], sigs[j])
+            check(bool(valid[i]) == oracle[j],
+                  f"lane {i} disagrees with the oracle (n={n})")
+        emit({"phase": "kernels.compare", "kernel": "verify_kernel",
+              "lanes": n, "mismatches": mismatches["verify_kernel"],
+              "plain_ms": plain_ms})
+        k1_mesh[n] = (a, k1, plain_ms)
     check_zip215(torch, dev, err, mismatches)
     check(not any(mismatches.values()), f"kernel != plain: {mismatches}")
 
@@ -698,6 +755,18 @@ def phase_kernels(torch, pool):
                   "ratio": (ms[1] + ms[2]) / (ms[0] + ms[3])})
     for name in VERIFY_KERNELS:
         timed[name]["ms_by_lanes"] = by_lanes[name]
+    # K1 at the mesh path's shard counts beside its bound
+    mesh_rows = {}
+    for n, (a, k1, plain_ms) in k1_mesh.items():
+        ms, out = time_ms(torch, lambda: cuda_verify.verify_kernel(**a),
+                          KERNEL_REPS)
+        check(torch.equal(out, k1), "verify_kernel: timed output changed")
+        bound_ms, bound_by = bound(cuda_verify, "verify_kernel", n)
+        mesh_rows[n] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bound_share": bound_ms / ms, "plain_ms": plain_ms}
+        emit({"phase": "kernels.time", "kernel": "verify_kernel", "lanes": n,
+              **mesh_rows[n]})
+    timed["verify_kernel"]["mesh_lanes"] = mesh_rows
     timed["build_pubkey_tables"] = time_x1(torch, x1_inputs, err, mismatches)
     return timed
 
@@ -2174,10 +2243,22 @@ RLC_SHORT = 5926  # ... and a signature cut short (host-malformed)
 RLC_SEED = 10
 
 
+_CATCHUP: dict = {}
+
+
 def make_catchup_commits(pool, vals, commit):
     """The slice phase's set signing precommits at RLC_HEIGHTS: ``commit``
     at HEIGHT, seeded blocks at the next three ({height: commit}, seconds
-    to sign)."""
+    to sign). Signed once per (set, commit): the mesh phase reuses the
+    rlc phase's."""
+    key = (id(vals), id(commit))
+    if key not in _CATCHUP:
+        _CATCHUP[key] = (vals, commit, _make_catchup_commits(pool, vals,
+                                                             commit))
+    return _CATCHUP[key][2]
+
+
+def _make_catchup_commits(pool, vals, commit):
     from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
     from cometbft_tpu_torch.types import block
 
@@ -2758,6 +2839,210 @@ def _traced_rlc(lanes):
 
     check(rlc.verify_batch_rlc(*lanes)[0], "the traced batch failed")
     return device_busy_ms(torch, lambda: rlc.verify_batch_rlc(*lanes))
+
+
+MESH_TAMPERED = 6_789  # the mesh phase's tampered lane, in both batches
+# the mesh path's runs: (name, batch, mesh entries, commit axis); each
+# entry is card 0, as XLA's virtual devices let one host play eight, and
+# n_dev is the number of entries
+MESH_RUNS = (("1x1", "commit", 1, 1), ("1x4", "commit", 4, 1),
+             ("2x2", "commit", 4, 2), ("1x1", "catch-up", 1, 1),
+             ("1x4", "catch-up", 4, 1))
+
+
+class K1Timer:
+    """Wraps cuda_verify.verify_kernel while entered: CUDA events around
+    each launch on its device's stream, read by :meth:`device_ms` after a
+    sync. Launches still count in the wrapper's own counters."""
+
+    def __init__(self, torch, cuda_verify):
+        self.torch, self.cv = torch, cuda_verify
+        self.real = cuda_verify.verify_kernel
+        self.events = []
+
+    def __enter__(self):
+        torch = self.torch
+
+        def timed(*a, **k):
+            dev = a[0].device
+            stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                      else None)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = self.real(*a, **k)
+            end.record(stream)
+            self.events.append((start, end))
+            return out
+
+        self.cv.verify_kernel = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cv.verify_kernel = self.real
+        return False
+
+    def device_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def phase_mesh(torch, pool, card, vals, commit):
+    """The multi-device verify path (parallel/mesh.py, the sharded branch
+    of ops/verify.verify_batch) on the slice phase's commit (10,000 lanes)
+    and the rlc phase's catch-up batch (40,000 over the same keys), each
+    with lane MESH_TAMPERED tampered. Returns ({kernel: launches on the
+    path}, check_lanes' {kernel: {lanes: launches}})."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.libs import accel, devstats
+    from cometbft_tpu_torch.ops import cuda_rlc, cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    commits, _ = make_catchup_commits(pool, vals, commit)
+    batches = {
+        "commit": _spoil(commit_lanes(vals, [commit]), MESH_TAMPERED,
+                         "tampered"),
+        "catch-up": _spoil(commit_lanes(vals, [commits[h]
+                                               for h in RLC_HEIGHTS]),
+                           MESH_TAMPERED, "tampered"),
+    }
+    # the single-device route first, default arguments: on a one-card
+    # machine it must not shard (K2 on the prestaged arena, no K1)
+    crypto_batch.prestage_validators(vals)
+    sharded_calls = []
+    real_sharded = ov._verify_batch_sharded
+
+    def spy(*a, **k):
+        sharded_calls.append(len(a[0]))
+        return real_sharded(*a, **k)
+
+    want = {}
+    ov._verify_batch_sharded = spy
+    try:
+        for key, lanes in batches.items():
+            before = dict(cuda_verify.LAUNCHES)
+            t = time.perf_counter()
+            ok_all, bitmap = ov.verify_batch(*lanes)
+            ms = 1e3 * (time.perf_counter() - t)
+            launches = {k: v - before[k] for k, v in cuda_verify.LAUNCHES.items()
+                        if v - before[k]}
+            named = np.flatnonzero(~bitmap).tolist()
+            emit({"phase": "mesh.single", "batch": key, "lanes": len(lanes[0]),
+                  "ms": ms, "launches": launches, "rejected": named,
+                  "sharded_calls": len(sharded_calls),
+                  "cuda_devices": accel.cuda_device_count(), "card": card})
+            check(not ok_all and named == [MESH_TAMPERED],
+                  f"single-device {key}: rejected {named[:8]}")
+            check(not sharded_calls and launches.get("verify_kernel_cached")
+                  and not launches.get("verify_kernel"),
+                  f"default-argument verify_batch ({key}) took {launches}, "
+                  f"sharded calls {sharded_calls}")
+            want[key] = bitmap
+    finally:
+        ov._verify_batch_sharded = real_sharded
+    check(ov._shard_devices(torch.device("cuda")) is None,
+          "a one-card machine must not shard")
+
+    dev = torch.device("cuda", 0)
+    pack_ms = []
+    real_pack = ov.pack_inputs
+
+    def timed_pack(*a):
+        t = time.perf_counter()
+        out = real_pack(*a)
+        pack_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    torch.cuda.synchronize()
+    cuda_verify.reset_launches()
+    cuda_rlc.reset_launches()  # the mesh path starts here
+    ov.pack_inputs = timed_pack
+    try:
+        for name, key, entries, commit_axis in MESH_RUNS:
+            lanes = batches[key]
+            mesh = pmesh.make_mesh([dev] * entries, commit_axis)
+            k1_before = collections.Counter(
+                cuda_verify.LAUNCH_LANES["verify_kernel"])
+            io_before = devstats.counters()
+            with K1Timer(torch, cuda_verify) as timer:
+                t = time.perf_counter()
+                ok_all, bitmap = ov._verify_batch_sharded(*lanes, entries,
+                                                          mesh=mesh)
+                ms = 1e3 * (time.perf_counter() - t)
+            device_ms = timer.device_ms()
+            io = {k: v - io_before[k] for k, v in devstats.counters().items()}
+            k1 = dict(collections.Counter(
+                cuda_verify.LAUNCH_LANES["verify_kernel"]) - k1_before)
+            named = np.flatnonzero(~bitmap).tolist()
+            n = len(lanes[0])
+            # the least time the shards' K1 launches could take
+            k1_bound = sum(c * bound(cuda_verify, "verify_kernel", w)[0]
+                           for w, c in k1.items())
+            emit({"phase": "mesh.run", "mesh": name, "batch": key,
+                  "lanes": n, "entries": entries, "ms": ms,
+                  "pack_inputs_ms": pack_ms[-1], "k1_device_ms": device_ms,
+                  "k1_by_lanes": k1, "k1_bound_ms": k1_bound,
+                  "k1_bound_share": k1_bound / device_ms if device_ms
+                  else None, **io,
+                  "h2d_bytes_a_lane": io["h2d_bytes"] / n,
+                  "rejected": named, "card": card})
+            check(np.array_equal(bitmap, want[key]) and not ok_all,
+                  f"mesh {name} {key}: verdicts differ from verify_batch's")
+            check(sum(k1.values()) == entries,
+                  f"mesh {name} {key}: K1 ran {k1}, {entries} shards")
+    finally:
+        ov.pack_inputs = real_pack
+    launches = dict(cuda_verify.LAUNCHES)  # read just after the path
+    lanes = check_lanes(cuda_verify, "mesh")
+    check(launches["verify_kernel"] == sum(r[2] for r in MESH_RUNS),
+          f"K1 ran {launches['verify_kernel']} times on the mesh path")
+    for name in set(launches) - {"verify_kernel"}:
+        check(launches[name] == 0, f"{name} launched on the mesh path")
+    emit({"phase": "mesh", "launches": launches, "lanes": lanes,
+          "seconds": time.perf_counter() - t0})
+    # the host packers on the same lanes: K1's limb arrays (680 B a lane
+    # to the card) against the single-device wire (96 B and a 2 B slot)
+    for key, lanes_ in batches.items():
+        row = {}
+        for packer in ("pack_inputs", "pack_bytes"):
+            t = time.perf_counter()
+            getattr(ov, packer)(*lanes_)
+            row[packer + "_ms"] = 1e3 * (time.perf_counter() - t)
+        emit({"phase": "mesh.pack", "batch": key, "lanes": len(lanes_[0]),
+              **row, "h2d_bytes_a_lane": {"sharded": 680, "single": 98},
+              "card": card})
+    # the card's busy and idle share of one warm (1, 4) commit, in a
+    # process of its own (as the rlc phase's)
+    with get_context("spawn").Pool(1) as tracer:
+        host_ms, busy_ms, events = tracer.apply(_traced_mesh,
+                                                (batches["commit"],))
+        tracer.close()
+        tracer.join()
+    check(events > 0, "the traced mesh run ran nothing on the card")
+    emit({"phase": "mesh.trace", "mesh": "1x4", "lanes": N_VALIDATORS,
+          "host_ms": host_ms, "device_busy_ms": busy_ms,
+          "device_events": events, "idle_share": 1 - busy_ms / host_ms,
+          "card": card})
+    return launches, lanes
+
+
+def _traced_mesh(lanes):
+    """Worker: _verify_batch_sharded on ``lanes`` over a (1, 4) mesh of
+    card 0, once to warm, then under torch.profiler: (host ms, card-busy
+    ms, device events)."""
+    import torch
+
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh([torch.device("cuda", 0)] * 4)
+    run = lambda: ov._verify_batch_sharded(*lanes, 4, mesh=mesh)  # noqa: E731
+    check(not run()[0], "the traced mesh run accepted a tampered batch")
+    return device_busy_ms(torch, run)
 
 
 def make_hash_block():
@@ -3552,6 +3837,8 @@ def check_lanes(cuda_verify, path, compared_on_path=None, rlc_compared=(),
         compared = set(COMPARED_LANES)
         if name == "build_pubkey_tables":
             compared |= set(X1_PATH_LANES)
+        if name == "verify_kernel":
+            compared |= set(K1_MESH_LANES)
         if compared_on_path is not None and name in compared_on_path:
             compared = set(compared_on_path[name])
         check(set(counts) <= compared,
@@ -3593,6 +3880,53 @@ def device_busy_ms(torch, fn):
     return host_ms, busy_us / 1e3, len(spans)
 
 
+LIBS_VERIFIES = 1_000  # Ed25519PubKey.verify_signature calls timed
+
+
+def phase_observations(node) -> dict:
+    """crypto_verify_phase_seconds' observation counts by "phase/backend"
+    in ``node``."""
+    return {"/".join(key): child._n for key, child in sorted(
+        node.verify_phase_seconds._children.items())}
+
+
+def libs_line(torch, node, after_slice, vals, commit, card) -> dict:
+    """The verify path's reports (the pushed NodeMetrics' phase
+    observations after the slice phase and at the end, devstats' transfer
+    counters and device-memory gauges), the fast25519 tier in force, and
+    LIBS_VERIFIES single verifies of one commit signature."""
+    from cometbft_tpu_torch.crypto import fast25519
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.libs import devstats
+
+    sample = devstats.sample(node)
+    pub = Ed25519PubKey(vals.validators[0].pub_key.data)
+    msg = commit.vote_sign_bytes(CHAIN_ID, 0)
+    sig = commit.signatures[0].signature
+    check(pub.verify_signature(msg, sig), "verify_signature rejected")
+    check(not pub.verify_signature(msg + b"!", sig),
+          "verify_signature accepted a wrong message")
+    t = time.perf_counter()
+    for _ in range(LIBS_VERIFIES):
+        pub.verify_signature(msg, sig)
+    us = 1e6 * (time.perf_counter() - t) / LIBS_VERIFIES
+    check(after_slice.get("pack/ed25519-tpu", 0) > 0,
+          f"no verify phase observed in the slice phase: {after_slice}")
+    return {"phase": "libs",
+            "verify_phase_observations_after_slice": after_slice,
+            "verify_phase_observations": phase_observations(node),
+            "verify_batch_observations": {
+                "/".join(k): c._n for k, c in sorted(
+                    node.verify_batch_seconds._children.items())},
+            "devstats": devstats.counters(),
+            "device_memory": sample["device_memory"],
+            "pubkey_arena": sample["pubkey_arena"],
+            "fast25519_tier": fast25519.tier(),
+            "cryptography_wheel": fast25519.HAVE_OPENSSL,
+            "verify_signature_us": us, "verify_signature_calls":
+            LIBS_VERIFIES, "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -3622,10 +3956,18 @@ def main() -> int:
           "kernels": {k: v for info in build.BUILD_INFO.values()
                       for k, v in build.ptxas_usage(info["ptxas"]).items()}})
 
+    # the verify path reports to a pushed NodeMetrics and, with devstats
+    # on, counts its transfers (the libs line)
+    from cometbft_tpu_torch.libs import devstats, metrics
+
+    node = metrics.NodeMetrics()
+    metrics.push_node_metrics(node)
+    devstats.enable()
     with get_context("spawn").Pool(WORKERS) as pool:
         timed = phase_kernels(torch, pool)
         slice_launches, slice_lanes, slice_cache, vals, commit = phase_slice(
             torch, pool, smi)
+        after_slice = phase_observations(node)
         light_launches, light_lanes = phase_light(torch, pool, smi,
                                                   slice_cache)
         vote_launches, vote_lanes, (vote_err, vote_mismatches) = phase_vote(
@@ -3636,8 +3978,11 @@ def main() -> int:
                                                      vals, commit)
         emit(time_torch_ops(torch, smi, vals, commit))
         rlc_shapes = rlc_lanes["rlc"]
+        mesh_launches, mesh_lanes = phase_mesh(torch, pool, smi, vals, commit)
         pool.close()
         pool.join()
+    emit(libs_line(torch, node, after_slice, vals, commit, smi))
+    metrics.pop_node_metrics(node)
     hash_launches, x4_row = phase_hash(torch, smi, vals, commit)
 
     replaces = {
@@ -3656,7 +4001,8 @@ def main() -> int:
                            + collections.Counter(light_lanes[name])
                            + collections.Counter(vote_lanes[name])
                            + collections.Counter(mixed_lanes[name])
-                           + collections.Counter(rlc_lanes[name]))
+                           + collections.Counter(rlc_lanes[name])
+                           + collections.Counter(mesh_lanes[name]))
                 for name in cuda_verify.LAUNCHES}
     # the vote and mixed paths' launches were compared too: their
     # differences join the kernels phase's
@@ -3673,12 +4019,13 @@ def main() -> int:
          "replaces": replaces[name],
          "launches": (slice_launches[name] + light_launches[name]
                       + vote_launches[name] + mixed_launches[name]
-                      + rlc_launches[name]),
+                      + rlc_launches[name] + mesh_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
                               "light": light_launches[name],
                               "vote": vote_launches[name],
                               "mixed": mixed_launches[name],
-                              "rlc": rlc_launches[name]},
+                              "rlc": rlc_launches[name],
+                              "mesh": mesh_launches[name]},
          "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",

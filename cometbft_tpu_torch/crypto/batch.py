@@ -20,6 +20,10 @@ the same verifier restricted to sr25519 keys. It routes by the same cut:
 below it the native host batch (host_batch.verify_quads), at or above it
 the device.
 
+Every verifier reports its batches to libs/metrics as the reference's
+do (``crypto_verify_batch_seconds`` and ``_sigs_total`` by backend, and
+its phases to ``crypto_verify_phase_seconds``).
+
 :class:`AdaptiveCrossover` is the runtime host/device crossover fit: one
 per device refines the verify cut from the batches and coalescer windows
 it sees; the hash plane (crypto/hashplane.py) keeps one per SHA block
@@ -35,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from ..libs import metrics as libmetrics
 from . import ed25519_ref, keys
 from .keys import Ed25519PubKey
 
@@ -122,22 +127,30 @@ class Ed25519BatchVerifier(BatchVerifier):
         if n < host_batch_threshold(self.device):
             from . import coalesce, host_batch
 
+            t0 = time.perf_counter()
             bits = coalesce.verify_bytes(self._pubkeys, self._msgs,
                                          self._sigs)
-            if bits is None:  # no coalescer routed
-                t0 = time.perf_counter()
-                bits = host_batch.verify_many(self._pubkeys, self._msgs,
-                                              self._sigs)
-                note_host_window(n, time.perf_counter() - t0, self.device)
+            if bits is not None:
+                _observe("ed25519-coalesce", t0, n, self.device)
+                return all(bits), list(bits)
+            # no coalescer routed: the host batch, on a clock of its own
+            t0 = time.perf_counter()
+            bits = host_batch.verify_many(self._pubkeys, self._msgs,
+                                          self._sigs)
+            libmetrics.observe_verify_phase(
+                "fallback", "ed25519-host", time.perf_counter() - t0, n)
+            _observe("ed25519-host", t0, n, self.device)
             return all(bits), list(bits)
         from ..ops import verify as ov
 
+        # the pack/dispatch/readback phases are observed inside
+        # ops.verify.verify_batch
         t0 = time.perf_counter()
         ok_all, bitmap = ov.verify_batch(
             self._pubkeys, self._msgs, self._sigs,
             device=self.device, cache=self.pubkey_cache, flavor=self.flavor,
         )
-        note_device_window(n, time.perf_counter() - t0, self.device)
+        _observe("ed25519-tpu", t0, n, self.device)
         return ok_all, list(np.asarray(bitmap, bool))
 
 
@@ -157,6 +170,7 @@ class MixedBatchVerifier(BatchVerifier):
     it."""
 
     _KEY_TYPES = (keys.ED25519_KEY_TYPE, keys.SR25519_KEY_TYPE)
+    _BACKEND = "mixed"  # the metrics' backend label: mixed-host, mixed-tpu
 
     def __init__(self, device="cuda", pubkey_cache=None, flavor=None) -> None:
         self.device = device
@@ -230,16 +244,30 @@ class MixedBatchVerifier(BatchVerifier):
         from . import host_batch
 
         n = len(self._pubkeys)
+        t0 = time.perf_counter()
         if n < host_batch_threshold(self.device):
             bits = host_batch.verify_quads(self._quads())
+            libmetrics.observe_verify_phase(
+                "fallback", self._BACKEND + "-host",
+                time.perf_counter() - t0, n)
+            _observe(self._BACKEND + "-host", t0, n, self.device)
             return all(bits), bits
         from ..ops import verify as ov
 
+        backend = self._BACKEND + "-tpu"
         buf, host_ok, a_keys = self._pack_rows()
+        t1 = time.perf_counter()
+        libmetrics.observe_verify_phase("pack", backend, t1 - t0, n)
         done = ov.verify_prepacked(buf, a_keys, n, device=self.device,
                                    cache=self.pubkey_cache,
                                    flavor=self.flavor)
-        valid = done() & host_ok
+        t2 = time.perf_counter()
+        libmetrics.observe_verify_phase("dispatch", backend, t2 - t1, n)
+        device_ok = done()
+        libmetrics.observe_verify_phase("readback", backend,
+                                        time.perf_counter() - t2, n)
+        valid = device_ok & host_ok
+        _observe(backend, t0, n, self.device)
         return bool(valid.all()), list(np.asarray(valid, bool))
 
 
@@ -252,6 +280,7 @@ class Sr25519BatchVerifier(MixedBatchVerifier):
     that takes sr25519 keys only."""
 
     _KEY_TYPES = (keys.SR25519_KEY_TYPE,)
+    _BACKEND = "sr25519"
 
 
 _BATCH_BACKENDS: dict[str, type] = {
@@ -491,3 +520,20 @@ def note_host_window(n: int, seconds: float, device="cuda") -> None:
     """Feed the crossover of ``device`` a host batch or window."""
     if _verify_adaptive(device):
         crossover(device).observe_host(n, seconds)
+
+
+def _observe(backend: str, t0: float, n: int, device="cuda") -> None:
+    """A batch's end-to-end latency and size since ``t0`` into the node
+    metrics (``crypto_verify_batch_seconds``,
+    ``crypto_verify_batch_sigs_total``), labelled by backend as the
+    reference labels it ("-tpu" is the device route). ed25519 host and
+    device batches also feed the crossover of ``device``: its linear fit
+    is for one kernel's cost, so sr25519 and mixed samples stay out."""
+    dt = time.perf_counter() - t0
+    m = libmetrics.node_metrics()
+    m.verify_batch_seconds.labels(backend).observe(dt)
+    m.verify_batch_sigs.labels(backend).inc(n)
+    if backend == "ed25519-host":
+        note_host_window(n, dt, device)
+    elif backend == "ed25519-tpu":
+        note_device_window(n, dt, device)

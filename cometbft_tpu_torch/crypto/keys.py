@@ -6,8 +6,10 @@ ed25519 semantics of crypto/ed25519/ed25519.go — ZIP-215 verification,
 SHA-256[:20] addresses, and a 64-byte private key laid out as
 seed || pubkey (RFC 8032 / golang crypto/ed25519).
 
-Single signatures verify on the host with the pure-Python oracle; batches
-go to the device through crypto/batch. sr25519 (crypto/sr25519.py) and
+Single signatures verify, sign and derive keys on the host through
+crypto/fast25519 (OpenSSL where the ``cryptography`` wheel is installed,
+the native engine, the exact ZIP-215 oracle on a reject); batches go to
+the device through crypto/batch. sr25519 (crypto/sr25519.py) and
 secp256k1 (crypto/secp256k1.py) register in :data:`PUBKEY_TYPES` when the
 crypto package is imported (:func:`register_extra_key_types`).
 """
@@ -16,7 +18,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from . import ed25519_ref as ref
 from . import tmhash
 
 ED25519_KEY_TYPE = "ed25519"
@@ -53,8 +54,11 @@ class Ed25519PubKey:
         return self.data
 
     def verify_signature(self, msg: bytes, sig: bytes) -> bool:
-        """Single-signature ZIP-215 verification on the host."""
-        return ref.verify(self.data, msg, sig)
+        """Single-signature ZIP-215 verification on the host
+        (crypto/fast25519.verify_one)."""
+        from . import fast25519
+
+        return fast25519.verify_one(self.data, msg, sig)
 
 
 @dataclass(frozen=True, slots=True)
@@ -67,7 +71,9 @@ class Ed25519PrivKey:
 
     @classmethod
     def from_seed(cls, seed: bytes) -> "Ed25519PrivKey":
-        return cls(seed + ref.pubkey_from_seed(seed))
+        from . import fast25519
+
+        return cls(seed + fast25519.pubkey_from_seed(seed))
 
     @property
     def type(self) -> str:
@@ -81,7 +87,9 @@ class Ed25519PrivKey:
         return self.data
 
     def sign(self, msg: bytes) -> bytes:
-        return ref.sign(self.seed, msg)
+        from . import fast25519
+
+        return fast25519.sign_one(self.seed, msg)
 
     def pub_key(self) -> Ed25519PubKey:
         return Ed25519PubKey(self.data[32:])

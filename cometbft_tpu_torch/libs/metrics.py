@@ -1,0 +1,1041 @@
+"""Minimal metrics registry with Prometheus text exposition.
+
+Reference: the per-package prometheus metrics generated by
+scripts/metricsgen (consensus/metrics.go:175 etc.), served at
+node/node.go:630. Here: Counter / Gauge / Histogram with label support,
+a process-local Registry, and ``render()`` producing the Prometheus
+exposition format the RPC server serves at GET /metrics.
+
+:class:`NodeMetrics` declares every family the JAX package's does, with
+the same names, help and buckets, so a scrape of either reads the same
+dashboard. Families whose producers the port lacks yet stay at zero; the
+``xla_*`` ones always do (the port's kernels build once per process with
+nvcc, ops/build.py, and nothing here counts compiles).
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_right
+
+from . import trace as libtrace
+
+
+def escape_label_value(v: str) -> str:
+    """Prometheus exposition escaping for label VALUES: backslash,
+    double quote and newline (the spec's exact set — anything else is
+    legal raw). Raw interpolation of e.g. a peer-supplied channel id
+    containing '"' would tear the whole scrape."""
+    return (
+        v.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+    )
+
+
+def _escape_help(v: str) -> str:
+    """HELP text escaping: backslash and newline only (spec)."""
+    return v.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help_: str, label_names: tuple[str, ...]):
+        self.name = name
+        self.help = help_
+        self.label_names = label_names
+        self._children: dict[tuple, "_Metric"] = {}
+        self._mtx = threading.Lock()
+
+    def labels(self, *values: str) -> "_Metric":
+        if len(values) != len(self.label_names):
+            raise ValueError(
+                f"{self.name}: expected {len(self.label_names)} labels"
+            )
+        key = tuple(str(v) for v in values)
+        with self._mtx:
+            child = self._children.get(key)
+            if child is None:
+                child = type(self)(self.name, self.help, ())
+                child._label_values = key
+                child._label_names_of_parent = self.label_names
+                self._children[key] = child
+            return child
+
+    def remove(self, *values: str) -> bool:
+        """Drop one labeled child series (e.g. a departed peer) so
+        collector-maintained gauges keep bounded cardinality.  True if
+        a series was removed."""
+        key = tuple(str(v) for v in values)
+        with self._mtx:
+            return self._children.pop(key, None) is not None
+
+    def _series(self):
+        """Yield (label_suffix, self-or-child) leaf series."""
+        if self.label_names:
+            with self._mtx:
+                children = list(self._children.items())
+            for key, child in children:
+                suffix = ",".join(
+                    f'{n}="{escape_label_value(v)}"'
+                    for n, v in zip(self.label_names, key)
+                )
+                yield "{" + suffix + "}", child
+        else:
+            yield "", self
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def __init__(self, name, help_="", label_names=()):
+        super().__init__(name, help_, tuple(label_names))
+        self._value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._mtx:
+            self._value += amount
+
+    def value(self) -> float:
+        with self._mtx:
+            return self._value
+
+    def _render_lines(self):
+        for suffix, leaf in self._series():
+            yield f"{self.name}{suffix} {leaf.value()}"
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def __init__(self, name, help_="", label_names=()):
+        super().__init__(name, help_, tuple(label_names))
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._mtx:
+            self._value = float(v)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._mtx:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+    def value(self) -> float:
+        with self._mtx:
+            return self._value
+
+    def _render_lines(self):
+        for suffix, leaf in self._series():
+            yield f"{self.name}{suffix} {leaf.value()}"
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    DEFAULT_BUCKETS = (
+        0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0
+    )
+
+    def __init__(self, name, help_="", label_names=(), buckets=None):
+        super().__init__(name, help_, tuple(label_names))
+        self.buckets = tuple(buckets or self.DEFAULT_BUCKETS)
+        self._counts = [0] * (len(self.buckets) + 1)
+        self._sum = 0.0
+        self._n = 0
+
+    def observe(self, v: float) -> None:
+        with self._mtx:
+            self._counts[bisect_right(self.buckets, v)] += 1
+            self._sum += v
+            self._n += 1
+
+    def _render_lines(self):
+        for suffix, leaf in self._series():
+            base = suffix[1:-1] if suffix else ""
+            cum = 0
+            for i, b in enumerate(leaf.buckets):
+                cum += leaf._counts[i]
+                lbl = f'le="{b}"' + (f",{base}" if base else "")
+                yield f"{self.name}_bucket{{{lbl}}} {cum}"
+            cum += leaf._counts[-1]
+            lbl = 'le="+Inf"' + (f",{base}" if base else "")
+            yield f"{self.name}_bucket{{{lbl}}} {cum}"
+            tail = ("{" + base + "}") if base else ""
+            yield f"{self.name}_sum{tail} {leaf._sum}"
+            yield f"{self.name}_count{tail} {leaf._n}"
+
+    def labels(self, *values):
+        if len(values) != len(self.label_names):
+            raise ValueError(
+                f"{self.name}: expected {len(self.label_names)} labels"
+            )
+        key = tuple(str(v) for v in values)
+        with self._mtx:
+            child = self._children.get(key)
+            if child is None:
+                # construct with THIS histogram's buckets — the generic
+                # child constructor would silently fall back to defaults
+                child = Histogram(self.name, self.help, (), self.buckets)
+                self._children[key] = child
+            return child
+
+
+class Registry:
+    def __init__(self, prefix: str = "cometbft_tpu_"):
+        # every family's name is prefix + name: the JAX package's names
+        # (its Registry joins a namespace and the name with "_")
+        self.prefix = prefix
+        self._metrics: list[_Metric] = []
+        self._by_name: dict[str, _Metric] = {}
+        self._mtx = threading.Lock()
+
+    def _register(self, metric: _Metric) -> _Metric:
+        """Register a metric, deduplicating by name: two registrations
+        of an identical metric return ONE instance (so independent
+        subsystems can declare the same family), while a name collision
+        with a different shape raises — duplicate ``# TYPE`` blocks are
+        invalid exposition output."""
+        with self._mtx:
+            existing = self._by_name.get(metric.name)
+            if existing is not None:
+                if (
+                    type(existing) is type(metric)
+                    and existing.label_names == metric.label_names
+                    and getattr(existing, "buckets", None)
+                    == getattr(metric, "buckets", None)
+                ):
+                    return existing
+                raise ValueError(
+                    f"metric {metric.name!r} already registered with a "
+                    f"different kind/labels/buckets"
+                )
+            self._by_name[metric.name] = metric
+            self._metrics.append(metric)
+        return metric
+
+    def counter(self, name, help_="", label_names=()) -> Counter:
+        return self._register(
+            Counter(f"{self.prefix}{name}", help_, label_names)
+        )
+
+    def gauge(self, name, help_="", label_names=()) -> Gauge:
+        return self._register(
+            Gauge(f"{self.prefix}{name}", help_, label_names)
+        )
+
+    def histogram(self, name, help_="", label_names=(), buckets=None) -> Histogram:
+        return self._register(
+            Histogram(f"{self.prefix}{name}", help_, label_names, buckets)
+        )
+
+    def render(self) -> str:
+        """Prometheus text exposition format."""
+        out = []
+        with self._mtx:
+            metrics = list(self._metrics)
+        for m in metrics:
+            if m.help:
+                out.append(f"# HELP {m.name} {_escape_help(m.help)}")
+            out.append(f"# TYPE {m.name} {m.kind}")
+            out.extend(m._render_lines())
+        return "\n".join(out) + "\n"
+
+
+def quantile_from_buckets(buckets, counts, q: float) -> float:
+    """Promql-style upper-bound quantile estimate from cumulative
+    histogram buckets.
+
+    ``buckets`` are the upper edges, ``counts`` the per-bucket tallies
+    (length ``len(buckets) + 1`` — the trailing slot is the +Inf
+    overflow, exactly a :class:`Histogram`'s ``_counts`` layout).  THE
+    one p99-from-buckets estimator: libs/health's SLI engine, the
+    netstats propagation view and the device-ledger starvation
+    watchdog all call this — the math cannot fork between consumers.
+    Values are read as a GIL-consistent snapshot; callers pass a
+    ``list(h._counts)`` copy when the histogram is live."""
+    total = 0
+    for c in counts:
+        total += c
+    if total == 0:
+        return 0.0
+    rank = q * total
+    cum = 0
+    for i in range(len(counts) - 1):
+        cum += counts[i]
+        if cum >= rank:
+            return float(buckets[i])
+    return float(buckets[-1])  # everything above the top edge
+
+
+# -- bounded-label exposition gate --------------------------------------
+#
+# Every labeled family this engine exports must keep a BOUNDED value
+# space: channel ids come from a fixed enum, peers are capped top-K
+# prefixes + "other", phases/outcomes/backends are code enums. A label
+# fed from an unbounded input (full peer ids, tx hashes, heights)
+# eventually blows up scrape size and Prometheus memory. The audit
+# below is the exposition-side gate (run by the tier-1 observability
+# tests against every live registry and both HTTP endpoints).
+
+import re as _re
+
+# label name -> value regex; anything matching no rule falls back to
+# the per-family series cap only
+_LABEL_VALUE_RULES: dict[str, "_re.Pattern"] = {
+    "chID": _re.compile(r"^0x[0-9a-fA-F]{2}$"),
+    "peer": _re.compile(r"^([0-9a-f]{1,10}|other)$"),
+    "phase": _re.compile(r"^[a-z_]{1,24}$"),
+    "direction": _re.compile(r"^[a-z2]{1,8}$"),
+    "quantile": _re.compile(r"^(p\d{1,2}|last)$"),
+    "reason": _re.compile(r"^[a-z_]{1,24}$"),
+    # device-time ledger enums (libs/devledger): plane and caller come
+    # from fixed tuples, stage from the budget-stage vocabulary
+    # (libs/health.BUDGET_STAGES) — never from caller input
+    "plane": _re.compile(r"^(verify|hash)$"),
+    "caller": _re.compile(
+        r"^(other|consensus-vote|commit-verify|proposal|light|mempool"
+        r"|blocksync|evidence|merkle)$"
+    ),
+    # "stage" unions two fixed vocabularies: the budget stages
+    # (libs/health.BUDGET_STAGES) and the tx-lifecycle plane's stage
+    # and residency enums (libs/txtrace STAGE_NAMES / RESIDENCIES) —
+    # never caller input, and sampled tx KEYS are never labels at all
+    # (they export as bounded 16-hex-char prefixes in JSON bodies only)
+    "stage": _re.compile(
+        r"^(proposal_wait|gossip|verify_queue|verify_execute|hash"
+        r"|wal_fsync|apply|residual"
+        r"|admit|gossip_send|gossip_recv|proposal|commit"
+        r"|admit_to_send|hop|admit_to_proposal|proposal_to_commit)$"
+    ),
+    # lock-contention plane (libs/lockprof): values are registry lock
+    # names straight out of lockorder.json (dotted owner paths like
+    # "consensus.wal._mtx"), bridged at scrape from the profiler
+    # columns — bounded by the registry itself (~45-71 names); the
+    # catch-all "other" slot is never exported. Shape check only here;
+    # the true bound is the lockorder.json name set.  Uppercase is
+    # legal: class-owned locks are class-qualified
+    # ("state.indexer.KVBlockIndexer._mtx").
+    "lock": _re.compile(r"^[A-Za-z0-9_.\-]{1,64}$"),
+    # sampling-profiler plane (libs/profile): subsystem comes from the
+    # fixed libs/profile.SUBSYSTEMS tuple ("p2p" has a digit), state
+    # from the two-value on_cpu/blocked enum — never caller input
+    "subsystem": _re.compile(r"^[a-z0-9_]{1,16}$"),
+    "state": _re.compile(r"^(on_cpu|blocked)$"),
+}
+
+# Explosion backstop, not a tight bound: the largest legitimate family
+# is xla_compile_total's kernel x shape-bucket grid (~8 x 15). The
+# shape rules above are the primary defense — they catch an unbounded
+# value at the FIRST leak, long before the series count moves.
+MAX_SERIES_PER_FAMILY = 256
+
+
+def audit_label_cardinality(
+    registry: "Registry", max_series: int = MAX_SERIES_PER_FAMILY
+) -> list[str]:
+    """Violations of the bounded-label contract: families whose child
+    count exceeds ``max_series`` or whose label values break the
+    per-label-name shape rules (e.g. a raw peer-id string leaking into
+    a ``peer`` label). Empty list = clean."""
+    out: list[str] = []
+    with registry._mtx:
+        metrics = list(registry._metrics)
+    for m in metrics:
+        if not m.label_names:
+            continue
+        with m._mtx:
+            keys = list(m._children)
+        if len(keys) > max_series:
+            out.append(
+                f"{m.name}: {len(keys)} series exceeds the "
+                f"{max_series}-series bound"
+            )
+        for key in keys:
+            for name, value in zip(m.label_names, key):
+                rule = _LABEL_VALUE_RULES.get(name)
+                if rule is not None and not rule.match(value):
+                    out.append(
+                        f"{m.name}{{{name}={value!r}}}: label value "
+                        f"breaks the bounded-shape rule {rule.pattern}"
+                    )
+    return out
+
+
+def scrape_duration_histogram(registry: "Registry") -> "Histogram":
+    """The ``health_scrape_duration_seconds`` self-metric family.
+
+    One definition shared by NodeMetrics and the exporters
+    (libs/devstats.PrometheusServer, the /debug/devstats route) so the
+    registry dedupe always resolves to the same instance — a scrape
+    that slows down is itself an SLI."""
+    return registry.histogram(
+        "health_scrape_duration_seconds",
+        "Wall time of one metrics scrape / devstats snapshot, by "
+        "endpoint — the exporter's self-metric",
+        label_names=("endpoint",),
+        buckets=(
+            0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+            0.25, 0.5, 1.0,
+        ),
+    )
+
+
+class NodeMetrics:
+    """The per-module metric structs a node wires through its services
+    (consensus/metrics.go, p2p/metrics.go, mempool/metrics.go analogs)."""
+
+    def __init__(self, registry: Registry | None = None):
+        r = registry if registry is not None else Registry()
+        self.registry = r
+        # consensus
+        self.height = r.gauge("consensus_height", "Committed chain height")
+        self.rounds = r.gauge("consensus_rounds", "Round of the current height")
+        self.validators = r.gauge(
+            "consensus_validators", "Validator-set size"
+        )
+        self.block_interval = r.histogram(
+            "consensus_block_interval_seconds",
+            "Time between this and the last block",
+        )
+        self.block_txs = r.gauge(
+            "consensus_num_txs", "Transactions in the latest block"
+        )
+        # verification (the device hot path)
+        self.verify_batch_seconds = r.histogram(
+            "crypto_verify_batch_seconds",
+            "Batched signature verification latency",
+            label_names=("backend",),
+        )
+        self.verify_batch_sigs = r.counter(
+            "crypto_verify_batch_sigs_total",
+            "Signatures verified through the batch path",
+            label_names=("backend",),
+        )
+        # Phase breakdown of the SAME interval verify_batch_seconds
+        # covers: pack (host staging + arena lookup), dispatch (kernel
+        # launch), readback (device materialization), fallback (the host
+        # verifier). Buckets extend below the defaults: a warm dispatch
+        # or a small pack sits under the default 1 ms bottom bucket.
+        self.verify_phase_seconds = r.histogram(
+            "crypto_verify_phase_seconds",
+            "Batched-verification per-phase latency",
+            label_names=("phase", "backend"),
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        # cross-caller verify coalescer (crypto/coalesce.py): window
+        # shape, flush triggers, and the submit-to-verdict latency its
+        # callers actually pay. Lane-count buckets are the shape
+        # buckets the device launches use; wait buckets extend under a
+        # millisecond like verify_phase_seconds (the deadline window
+        # is ~500 us).
+        self.coalesce_window_lanes = r.histogram(
+            "crypto_coalesce_window_lanes",
+            "Lanes per coalesced verify window",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048),
+        )
+        self.coalesce_wait_seconds = r.histogram(
+            "crypto_coalesce_wait_seconds",
+            "Submit-to-verdict latency of coalesced verify tickets",
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        self.coalesce_flushes = r.counter(
+            "crypto_coalesce_flush_total",
+            "Coalescer window flushes by trigger",
+            label_names=("reason",),
+        )
+        # cross-caller hash plane (crypto/hashplane.py): window shape,
+        # flush triggers, and the per-phase latency of the SHA-256
+        # pipeline (dispatch = pack + async launch, readback = device
+        # materialization, fallback = host hashlib buckets). Mirrors
+        # the coalescer families above — one dashboard reads both
+        # planes the same way.
+        self.hash_window_lanes = r.histogram(
+            "crypto_hash_window_lanes",
+            "Lanes per coalesced hash window",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048),
+        )
+        self.hash_flushes = r.counter(
+            "crypto_hash_flush_total",
+            "Hash-plane window flushes by trigger",
+            label_names=("reason",),
+        )
+        self.hash_phase_seconds = r.histogram(
+            "crypto_hash_phase_seconds",
+            "Hash-plane per-phase latency",
+            label_names=("phase",),
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        # device-time ledger (libs/devledger): per-(plane, caller)
+        # attribution of the shared coalescer planes. The time/lane
+        # counters are bridged from the lock-free ledger columns at
+        # scrape (devledger.sample — the devstats replay pattern); the
+        # queue-wait histogram is observed live on the resolve path
+        # WHILE the ledger is enabled (COMETBFT_TPU_LEDGER=0 darkens
+        # the whole accounting block in one flag check), and its
+        # consensus-caller buckets feed the starvation watchdog's p99
+        # (libs/health). plane/caller/stage label values are fixed
+        # enums, gated by audit_label_cardinality.
+        self.device_time = r.counter(
+            "device_time_seconds_total",
+            "Device-plane time attributed per caller class, pro-rata "
+            "by lane count over each window's execute (device) or "
+            "fallback (host) duration",
+            label_names=("plane", "caller"),
+        )
+        self.device_lanes = r.counter(
+            "device_lanes_total",
+            "Lanes submitted through the coalescer planes per caller "
+            "class",
+            label_names=("plane", "caller"),
+        )
+        self.device_queue_wait = r.histogram(
+            "device_queue_wait_seconds",
+            "Submit-to-launch queue wait of coalesced tickets, by "
+            "plane and caller class (execute time excluded — this is "
+            "pure queueing delay)",
+            label_names=("plane", "caller"),
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        self.height_budget = r.gauge(
+            "height_budget_seconds",
+            "Latency budget of the most recent fully-decomposed "
+            "committed height, by stage (libs/health.budget: "
+            "proposal_wait/gossip/verify_queue/verify_execute/hash/"
+            "wal_fsync/apply/residual)",
+            label_names=("stage",),
+        )
+        # lock-contention plane (libs/lockprof): per-lock wait/hold
+        # seconds and contended-acquire counts, bridged at scrape from
+        # the lock-free profiler columns (lockprof.sample — the
+        # netstats/devledger replay pattern; the record path itself
+        # never touches these families). The "lock" label value space
+        # is the lockorder.json registry name set — bounded, audited
+        # by the "lock" shape rule above.
+        self.lock_wait = r.counter(
+            "lock_wait_seconds_total",
+            "Time threads spent blocked acquiring each named engine "
+            "lock (contended acquires only; uncontended fast-path "
+            "acquires contribute zero)",
+            label_names=("lock",),
+        )
+        self.lock_hold = r.counter(
+            "lock_hold_seconds_total",
+            "Time each named engine lock was held (outermost "
+            "acquire-to-release; reentrant RLock re-entries excluded)",
+            label_names=("lock",),
+        )
+        self.lock_contended = r.counter(
+            "lock_contended_acquires_total",
+            "Acquires of each named engine lock that had to block "
+            "because another thread held it",
+            label_names=("lock",),
+        )
+        # sampling-profiler plane (libs/profile): per-(subsystem,
+        # state) sample counts, bridged at scrape from the profiler's
+        # lock-free counter columns (profile.sample — the same
+        # watermark pattern as the lockprof bridge above). Both label
+        # value spaces are fixed enums, audited by the "subsystem" and
+        # "state" shape rules.
+        self.profile_samples = r.counter(
+            "profile_samples_total",
+            "Sampling-profiler samples by subsystem and execution "
+            "state (on_cpu vs blocked; ~67 Hz default, "
+            "COMETBFT_TPU_PROF_HZ)",
+            label_names=("subsystem", "state"),
+        )
+        # light-client proof service (light/service.py): request
+        # outcomes, the commit-verification result cache, and the
+        # backpressure surface (in-flight occupancy + slot queue wait).
+        self.light_requests = r.counter(
+            "light_service_requests_total",
+            "Light-service verification requests by outcome (ok / "
+            "error / rejected=backpressure / deadline / stopped)",
+            label_names=("outcome",),
+        )
+        self.light_cache_lookups = r.counter(
+            "light_service_cache_hits_total",
+            "Commit-verification result-cache lookups by outcome: hit "
+            "(cached success), miss (this caller verified), shared "
+            "(single-flight wait on a concurrent identical verify)",
+            label_names=("outcome",),
+        )
+        self.light_inflight = r.gauge(
+            "light_service_inflight",
+            "Light-service requests currently holding an in-flight slot",
+        )
+        self.light_queue_wait = r.histogram(
+            "light_service_queue_wait_seconds",
+            "Time an admitted light-service request waited for an "
+            "in-flight slot (rejections don't observe here — they "
+            "count in light_service_requests_total{outcome=rejected})",
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        # device telemetry (libs/devstats). Families exist on every node
+        # registry so a scrape always returns them; devstats populates
+        # the memory, arena and transfer ones only when
+        # COMETBFT_TPU_DEVSTATS is on. The xla_* families keep the JAX
+        # package's names for one dashboard and stay at zero here.
+        self.xla_compiles = r.counter(
+            "xla_compile_total",
+            "XLA kernel compilations observed in-process",
+            label_names=("kernel", "bucket"),
+        )
+        self.xla_compile_seconds = r.histogram(
+            "xla_compile_seconds",
+            "Wall time of each XLA compilation (trace+lower+compile, "
+            "measured at the first dispatch of a kernel x bucket)",
+            label_names=("kernel",),
+            buckets=(
+                0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                120.0, 300.0,
+            ),
+        )
+        self.xla_recompiles = r.counter(
+            "xla_recompile_total",
+            "Compilations of an ALREADY-compiled kernel x bucket — "
+            "steady-state recompiles; any nonzero rate is a bug "
+            "(shape-bucket leak or dtype drift)",
+        )
+        self.xla_cache = r.counter(
+            "xla_cache_hit_total",
+            "Persistent compilation-cache outcome per compile",
+            label_names=("outcome",),
+        )
+        self.device_memory = r.gauge(
+            "device_memory_bytes",
+            "device.memory_stats() byte gauges, sampled at scrape",
+            label_names=("device", "kind"),
+        )
+        self.arena_slots = r.gauge(
+            "pubkey_arena_slots",
+            "Expanded-pubkey device arena slot occupancy",
+            label_names=("state",),
+        )
+        self.arena_lookups = r.counter(
+            "pubkey_arena_lookups_total",
+            "Arena key lookups by result",
+            label_names=("result",),
+        )
+        self.arena_builds = r.counter(
+            "pubkey_arena_builds_total",
+            "Arena builder launches (device round trips for new keys)",
+        )
+        self.arena_evictions = r.counter(
+            "pubkey_arena_evictions_total", "Arena LRU evictions"
+        )
+        # persistent lane staging arenas (ops/verify.LaneArena): slot
+        # occupancy + whether stages recycle a donated device buffer
+        # (reuse) or mint one (alloc — should happen once per kind x
+        # bucket slot; a growing alloc rate means shape churn is
+        # defeating the arena)
+        self.lane_arena_staging = r.gauge(
+            "lane_arena_staging",
+            "Lane staging arena occupancy (buffers held / resident "
+            "bytes)",
+            label_names=("kind",),
+        )
+        self.lane_arena_stages = r.counter(
+            "lane_arena_stage_total",
+            "Lane staging operations by outcome (reuse = donated "
+            "in-place update, alloc = one-time slot allocation)",
+            label_names=("outcome",),
+        )
+        self.transfer_bytes = r.counter(
+            "device_transfer_bytes_total",
+            "Host<->device bytes shipped at the pack/readback edges",
+            label_names=("direction",),
+        )
+        self.transfer_ops = r.counter(
+            "device_transfer_ops_total",
+            "Host<->device transfer operations (launches, readbacks)",
+            label_names=("direction",),
+        )
+        self.validators_power = r.gauge(
+            "consensus_validators_power", "Total validator voting power"
+        )
+        self.missing_validators = r.gauge(
+            "consensus_missing_validators",
+            "Validators absent from the last commit",
+        )
+        self.missing_validators_power = r.gauge(
+            "consensus_missing_validators_power",
+            "Voting power absent from the last commit",
+        )
+        self.byzantine_validators = r.gauge(
+            "consensus_byzantine_validators",
+            "Validators with committed evidence against them",
+        )
+        self.total_txs = r.counter(
+            "consensus_total_txs", "Transactions committed since boot"
+        )
+        self.block_size = r.gauge(
+            "consensus_block_size_bytes", "Size of the latest block"
+        )
+        self.round_duration = r.histogram(
+            "consensus_round_duration_seconds",
+            "Time spent in each consensus round",
+        )
+        self.step_duration = r.histogram(
+            "consensus_step_duration_seconds",
+            "Time spent in each consensus step",
+            label_names=("step",),
+        )
+        self.late_votes = r.counter(
+            "consensus_late_votes",
+            "Votes received for an earlier height",
+            label_names=("vote_type",),
+        )
+        self.duplicate_votes = r.counter(
+            "consensus_duplicate_vote_total",
+            "Conflicting (equivocating) votes observed",
+        )
+        self.proposals = r.counter(
+            "consensus_proposal_receive_count",
+            "Proposals received",
+            label_names=("status",),
+        )
+        # pipelined commits (consensus/pipeline): speculation outcomes
+        # + how far the durable (fsynced) height trails the FSM height.
+        # Outcome values come from the fixed hit/miss/abort enum, so
+        # cardinality is bounded by construction.
+        self.spec_exec = r.counter(
+            "consensus_spec_exec_total",
+            "Speculative block executions by outcome (hit = memoized "
+            "result consumed at commit, miss = committed block was "
+            "never speculated, abort = speculation discarded unused)",
+            label_names=("outcome",),
+        )
+        self.fsync_lag_heights = r.gauge(
+            "consensus_fsync_lag_heights",
+            "Heights the FSM has committed in memory but whose "
+            "save-block + WAL fsync the commit-writer has not yet made "
+            "durable (0 = fully drained / serial mode)",
+        )
+        # p2p (the network-plane telemetry layer, libs/netstats): every
+        # label here is BOUNDED by construction — chID values come from
+        # the fixed channel enum, peer values are 10-char node-id
+        # prefixes capped at top-K + "other" by the netstats collector,
+        # phase values from netstats.PHASES. audit_label_cardinality
+        # gates this contract at test time.
+        self.peers = r.gauge("p2p_peers", "Connected peers")
+        self.p2p_send_bytes = r.counter(
+            "p2p_message_send_bytes_total",
+            "Bytes sent per logical channel (frame bytes incl. the "
+            "5-byte packet header; sums across peers)",
+            label_names=("chID",),
+        )
+        self.p2p_recv_bytes = r.counter(
+            "p2p_message_receive_bytes_total",
+            "Bytes received per logical channel (frame bytes incl. "
+            "the 5-byte packet header; sums across peers)",
+            label_names=("chID",),
+        )
+        self.p2p_msgs_sent = r.counter(
+            "p2p_messages_sent_total",
+            "Complete messages sent per logical channel (counted at "
+            "the eof packet)",
+            label_names=("chID",),
+        )
+        self.p2p_msgs_recv = r.counter(
+            "p2p_messages_received_total",
+            "Complete messages received per logical channel",
+            label_names=("chID",),
+        )
+        self.p2p_send_queue_full = r.counter(
+            "p2p_send_queue_full_total",
+            "Messages dropped because MConnection.send timed out on a "
+            "full bounded send queue — every drop is logged and "
+            "trace-attributable (p2p.drop events)",
+            label_names=("chID",),
+        )
+        self.p2p_send_queue_depth = r.gauge(
+            "p2p_send_queue_depth",
+            "Send-queue occupancy per channel, summed across peers "
+            "(sampled at scrape by the netstats collector)",
+            label_names=("chID",),
+        )
+        self.p2p_send_queue_hwm = r.gauge(
+            "p2p_send_queue_highwater",
+            "Highest send-queue depth any peer's channel reached "
+            "since connect (max across live peers)",
+            label_names=("chID",),
+        )
+        self.p2p_peer_rate = r.gauge(
+            "p2p_peer_rate_bytes",
+            "Per-peer flowrate EMA in bytes/s; peer label is a "
+            "10-char node-id prefix for the top-K peers by traffic "
+            "plus an 'other' aggregate (COMETBFT_TPU_NET_TOPK)",
+            label_names=("peer", "direction"),
+        )
+        # NTP-style clock-offset estimate per stamped top-K peer, from
+        # netstamp round-trip pairs (libs/netstats): offset = t2 -
+        # (t1+t3)/2 of the tightest CONSISTENT round trip (crossed
+        # pairings that would fake a tiny rt are rejected against the
+        # causality-free floor offset >= t2 - t3), positive = peer
+        # clock ahead of ours. The matching bound (+-rt/2) rides in
+        # its own family so alerts can fire on |offset| >
+        # bound-tolerance. Series are removed with the peer (same
+        # lifecycle as p2p_peer_rate_bytes), keeping the label bounded.
+        self.p2p_peer_clock_skew = r.gauge(
+            "p2p_peer_clock_skew_seconds",
+            "Estimated wall-clock offset to each stamped top-K peer "
+            "(netstamp round-trip pairs; positive = peer ahead); the "
+            "bound is p2p_peer_clock_skew_bound_seconds",
+            label_names=("peer",),
+        )
+        self.p2p_peer_clock_skew_bound = r.gauge(
+            "p2p_peer_clock_skew_bound_seconds",
+            "+-bound of the peer clock-skew estimate (half the "
+            "tightest consistent stamped round trip)",
+            label_names=("peer",),
+        )
+        # Gray-failure defense (p2p/suspicion): peers evicted because
+        # their netstats signals (sustained send-queue-full streaks,
+        # stamp staleness, propagation-lag outliers) crossed the
+        # suspicion threshold. The reason label is a fixed enum of the
+        # dominant signal; the eviction goes through the ordinary
+        # switch machinery, so persistent peers reconnect fresh.
+        self.p2p_suspicion_evictions = r.counter(
+            "p2p_suspicion_evictions_total",
+            "Peers evicted by the peer-health suspicion scorer, by "
+            "dominant signal (queue_full/stale/lag/mixed)",
+            label_names=("reason",),
+        )
+        self.p2p_suspect_peers = r.gauge(
+            "p2p_suspect_peers",
+            "Peers currently carrying nonzero suspicion (scored by "
+            "p2p/suspicion from netstats signals; decays to zero "
+            "while a peer behaves)",
+        )
+        # One-hop gossip propagation lag derived from provenance
+        # stamps (libs/netstats): origin wall hint -> local receive,
+        # attributed per consensus phase by the reactors. Sub-ms
+        # buckets — in-process nets propagate in tens of microseconds.
+        self.p2p_propagation = r.histogram(
+            "p2p_propagation_seconds",
+            "One-hop message propagation lag by consensus phase "
+            "(proposal/block_part/prevote/precommit/commit/block/tx), "
+            "from provenance stamps; cross-host values carry clock "
+            "skew",
+            label_names=("phase",),
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        # mempool
+        self.mempool_size = r.gauge("mempool_size", "Pending transactions")
+        self.mempool_failed_txs = r.counter(
+            "mempool_failed_txs", "CheckTx rejections"
+        )
+        self.mempool_tx_size = r.histogram(
+            "mempool_tx_size_bytes", "Transaction sizes at CheckTx"
+        )
+        self.mempool_rechecks = r.counter(
+            "mempool_recheck_times", "Transactions rechecked after commits"
+        )
+        # tx-lifecycle plane (libs/txtrace): deterministic hash-sampled
+        # end-to-end transaction tracing. Families are BRIDGED at
+        # scrape from the plane's lock-free completion ring
+        # (txtrace.sample, called by libs/health.sample — the devledger
+        # watermark pattern; the record path touches no metrics
+        # object). Buckets span in-process test nets (~tens of ms) up
+        # to production multi-second commit cadences.
+        self.tx_commit_latency = r.histogram(
+            "tx_commit_latency_seconds",
+            "End-to-end submit-to-commit latency of sampled "
+            "transactions (mempool admission to the committed block)",
+            buckets=(
+                0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                5.0, 10.0, 30.0, 60.0,
+            ),
+        )
+        self.tx_stage_seconds = r.histogram(
+            "tx_stage_seconds",
+            "Per-stage residency of sampled transactions: "
+            "admit_to_send (admission to first gossip send), hop "
+            "(stamped one-hop receive lag), admit_to_proposal "
+            "(mempool residency), proposal_to_commit (consensus time)",
+            label_names=("stage",),
+            buckets=(
+                0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+            ),
+        )
+        self.tx_sampled = r.counter(
+            "tx_sampled_total",
+            "Sampled-transaction stage records by lifecycle stage "
+            "(admit/gossip_send/gossip_recv/proposal/commit)",
+            label_names=("stage",),
+        )
+        self.mempool_oldest_age = r.gauge(
+            "mempool_oldest_age_seconds",
+            "Age of the oldest admitted-uncommitted transaction in "
+            "the mempool (0 when empty) — the tx_starved watchdog's "
+            "signal",
+        )
+        # health/SLO engine (libs/health): SLIs derived at scrape time
+        # from the always-on flight recorder + existing families, plus
+        # the watchdog trip counter and the composite score.
+        self.health_score = r.gauge(
+            "health_score",
+            "Composite node health in [0,1]: 1 healthy; a consensus "
+            "stall zeroes it; an open verify breaker or an active "
+            "recompile storm each subtract 0.3",
+        )
+        self.health_commit_latency = r.gauge(
+            "health_commit_latency_seconds",
+            "Per-height commit latency derived from the flight "
+            "recorder's recent window",
+            label_names=("quantile",),
+        )
+        self.health_rounds_per_height = r.gauge(
+            "health_rounds_per_height",
+            "Mean rounds needed per committed height (recent window); "
+            "1.0 is a healthy net",
+        )
+        self.health_verify_wait_p99 = r.gauge(
+            "health_verify_wait_seconds",
+            "p99 submit-to-verdict wait of coalesced verifies "
+            "(upper-bound estimate from crypto_coalesce_wait_seconds)",
+        )
+        self.health_breaker_open = r.gauge(
+            "health_breaker_open",
+            "1 while the verify coalescer's half-open breaker keeps "
+            "routing off (wedged device executor)",
+        )
+        self.health_wal_fsync = r.gauge(
+            "health_wal_fsync_seconds",
+            "p99 WAL fsync latency from the flight recorder's recent "
+            "window",
+        )
+        self.health_stall_seconds = r.gauge(
+            "health_stall_seconds",
+            "Seconds since the last consensus step transition",
+        )
+        self.health_gossip_lag = r.gauge(
+            "health_gossip_lag_seconds",
+            "p99 one-hop gossip propagation lag over the recent "
+            "stamped-message window (libs/netstats; 0 until stamped "
+            "traffic arrives)",
+        )
+        self.health_watchdog_trips = r.counter(
+            "health_watchdog_trips_total",
+            "Watchdog trips by detector: consensus_stall / "
+            "verify_breaker / recompile_storm",
+            label_names=("watchdog",),
+        )
+        self.health_bundles = r.counter(
+            "health_bundle_writes_total",
+            "Black-box bundles written by tripped watchdogs "
+            "(rate-limited)",
+        )
+        self.health_scrape_seconds = scrape_duration_histogram(r)
+
+
+# Process-wide node-metrics STACK, pushed by node assembly and popped
+# on node stop; instrumentation points (e.g. the batch verifiers, which
+# are constructed deep inside VoteSet admission with no node handle)
+# observe through node_metrics() and never branch.  A stack — not a
+# single slot — so in-process multi-node test nets degrade gracefully:
+# the most recently started node receives the process-wide
+# observations, and stopping it RESTORES the previous node's registry
+# instead of silently dropping every later observation into the no-op
+# sink (the documented last-node-wins flaw this replaces).  Pops are
+# by identity, so out-of-order node shutdown cannot evict a live node.
+_NODE_METRICS_STACK: list[NodeMetrics] = []
+
+_NOP_METRICS: NodeMetrics | None = None
+
+
+def push_node_metrics(m: NodeMetrics) -> None:
+    """Install ``m`` as the process-wide observation target (node boot)."""
+    _NODE_METRICS_STACK.append(m)
+
+
+def pop_node_metrics(m: NodeMetrics) -> None:
+    """Remove ``m`` wherever it sits in the stack (node stop); the
+    remaining top — if any — becomes the target again."""
+    for i in range(len(_NODE_METRICS_STACK) - 1, -1, -1):
+        if _NODE_METRICS_STACK[i] is m:
+            del _NODE_METRICS_STACK[i]
+            return
+
+
+def node_metrics() -> NodeMetrics:
+    """The running node's metrics, or a throwaway sink when no node is
+    up (library use, tests) — instrumentation sites never branch."""
+    global _NOP_METRICS
+    if _NODE_METRICS_STACK:
+        return _NODE_METRICS_STACK[-1]
+    if _NOP_METRICS is None:
+        _NOP_METRICS = NodeMetrics(Registry())
+    return _NOP_METRICS
+
+
+def observe_verify_phase(
+    phase: str,
+    backend: str,
+    seconds: float,
+    lanes: int,
+    arena: str | None = None,
+) -> None:
+    """One verify-pipeline phase: Prometheus histogram + trace event.
+
+    The SAME breakdown lands in both sinks — Prometheus gets
+    ``crypto_verify_phase_seconds{phase,backend}``, the tracer gets a
+    ``verify.<phase>`` event with lane count and (device paths) the
+    pubkey-arena disposition — so a benchmark row and a production scrape
+    attribute a regression to the same phase. Trace fields are only
+    built when tracing is on; the histogram is part of the always-on
+    metrics layer, same as crypto_verify_batch_seconds.
+    """
+    node_metrics().verify_phase_seconds.labels(phase, backend).observe(
+        seconds
+    )
+    if libtrace.enabled():
+        if arena is None:
+            libtrace.event(
+                "verify." + phase,
+                backend=backend,
+                lanes=lanes,
+                dur_ns=int(seconds * 1e9),
+            )
+        else:
+            libtrace.event(
+                "verify." + phase,
+                backend=backend,
+                lanes=lanes,
+                arena=arena,
+                dur_ns=int(seconds * 1e9),
+            )
+
+
+def observe_hash_phase(phase: str, seconds: float, lanes: int) -> None:
+    """One hash-plane phase: Prometheus histogram + trace event, the
+    observe_verify_phase analog for crypto/hashplane — a scrape and a
+    trace attribute a hash regression to the same phase."""
+    node_metrics().hash_phase_seconds.labels(phase).observe(seconds)
+    if libtrace.enabled():
+        libtrace.event(
+            "hash." + phase,
+            lanes=lanes,
+            dur_ns=int(seconds * 1e9),
+        )

@@ -26,18 +26,30 @@ reads ``COMETBFT_TPU_KERNEL`` at call time with the reference's values:
 ``pallas8`` and ``xla8`` mean 8-bit; ``auto`` (the default), ``pallas`` and
 ``xla`` mean 4-bit. Any other value raises. The wire is the same for both
 flavors: in the 8-bit one S stays raw little-endian bytes on the device.
+
+With two or more CUDA devices :func:`verify_batch` shards a batch over
+all of them instead (:func:`_verify_batch_sharded`, parallel/mesh.py):
+the lanes are unpacked on the host (:func:`pack_inputs`, 680 B a lane)
+and each device runs K1 on its share. Every call reports its phases to
+libs/metrics (``crypto_verify_phase_seconds``, ``verify.*`` trace
+events) and its transfers to libs/devstats.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
+import weakref
 from collections import OrderedDict, deque
 
 import numpy as np
 import torch
 
 from ..crypto import ed25519_ref
+from ..libs import accel as libaccel
+from ..libs import devstats as libdevstats
+from ..libs import metrics as libmetrics
 from . import cuda_verify, curve, field
 
 L = curve.L
@@ -214,6 +226,58 @@ def pack_parts(parts) -> tuple[np.ndarray, np.ndarray]:
     return np.ascontiguousarray(rows.T), host_ok
 
 
+# -- host-side limb packing: the sharded route ships K1's arguments
+# unpacked on the host (the reference's pack_inputs), not wire rows --
+
+_LIMB_WEIGHTS = 1 << np.arange(field.BITS, dtype=np.int32)  # (13,)
+_NIB_WEIGHTS = np.array([1, 2, 4, 8], np.int32)
+
+
+def _le_bits(arr: np.ndarray) -> np.ndarray:
+    """(N, 32) uint8 -> (N, 256) bits, little-endian bit order."""
+    return np.unpackbits(arr, axis=1, bitorder="little")
+
+
+def _msb_nibbles(arr: np.ndarray) -> np.ndarray:
+    """(N, 32) uint8 little-endian scalars -> (64, N) int32 4-bit windows,
+    MSB first. The reference's sum widens to int64; K1 takes int32, so the
+    sum stays int32 here (the values are equal)."""
+    bits = _le_bits(arr).reshape(arr.shape[0], 64, 4)
+    nibs = (bits.astype(np.int32) * _NIB_WEIGHTS).sum(axis=2, dtype=np.int32)
+    return np.ascontiguousarray(nibs[:, ::-1].T)
+
+
+def _y_limbs(bits: np.ndarray) -> np.ndarray:
+    """(N, 256) little-endian bits -> (20, N) 13-bit limbs of bits 0..254."""
+    n = bits.shape[0]
+    padded = np.zeros((n, field.NLIMB * field.BITS), np.int32)
+    padded[:, :255] = bits[:, :255]
+    limbs = (padded.reshape(n, field.NLIMB, field.BITS) * _LIMB_WEIGHTS).sum(
+        axis=2, dtype=np.int32
+    )
+    return np.ascontiguousarray(limbs.T)
+
+
+def pack_inputs(pubkeys, msgs, sigs) -> tuple[dict, np.ndarray]:
+    """(K1's argument arrays, host_ok): the (pubkey, msg, sig) triples
+    packed on the host with the batch axis last, all int32: y_a, y_r (20,
+    N), sign_a, sign_r (N,), s_nibs, kneg_nibs (64, N), 680 B a lane. The
+    sharded route ships these (parallel/mesh.py); the single-device route
+    ships :func:`pack_bytes`' 128 B rows and unpacks on the device."""
+    buf, host_ok = pack_bytes(pubkeys, msgs, sigs)
+    pk_bits = _le_bits(np.ascontiguousarray(buf[0:32].T))
+    rr_bits = _le_bits(np.ascontiguousarray(buf[32:64].T))
+    arrays = {
+        "y_a": _y_limbs(pk_bits),
+        "sign_a": pk_bits[:, 255].astype(np.int32),
+        "y_r": _y_limbs(rr_bits),
+        "sign_r": rr_bits[:, 255].astype(np.int32),
+        "s_nibs": _msb_nibbles(np.ascontiguousarray(buf[64:96].T)),
+        "kneg_nibs": _msb_nibbles(np.ascontiguousarray(buf[96:128].T)),
+    }
+    return arrays, host_ok
+
+
 # -- device-side byte unpacking (shared by the uncached, cached and
 # builder paths, so the three cannot diverge) --
 
@@ -321,7 +385,11 @@ def _readback(ok: torch.Tensor, size: int):
     full[:n] = ok
     packed = _pack_ok_bits(full)
     if packed.device.type != "cuda":
-        return lambda: unpack_ok_bits(packed.numpy(), size)[:n]
+        def read_cpu() -> np.ndarray:
+            libdevstats.record_d2h(packed.numel())
+            return unpack_ok_bits(packed.numpy(), size)[:n]
+
+        return read_cpu
     host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
     host.copy_(packed, non_blocking=True)
     done = torch.cuda.Event()
@@ -329,6 +397,7 @@ def _readback(ok: torch.Tensor, size: int):
 
     def materialize() -> np.ndarray:
         done.synchronize()
+        libdevstats.record_d2h(host.numel())
         return unpack_ok_bits(host.numpy(), size)[:n]
 
     return materialize
@@ -350,7 +419,8 @@ class LaneArena:
     slot while window N's copy may still be in flight; the device buffers
     are reused in stream order, so an arena serves one stream (the verify
     coalescer's). A staging fault raises: a launch never goes ahead from
-    anything else.
+    anything else. Every live arena is in :data:`_LANE_ARENAS`, which
+    libs/devstats samples.
     """
 
     PING_PONG = 2
@@ -361,6 +431,12 @@ class LaneArena:
         self._slots: dict[tuple, deque] = {}  # of [host, dev, event]
         self.stages = 0
         self.allocs = 0  # slots made, at most PING_PONG a key
+        _LANE_ARENAS.add(self)
+
+    @property
+    def reuses(self) -> int:
+        """Stages that reused a slot (every stage but a slot's first)."""
+        return self.stages - self.allocs
 
     def stage(self, kind: str, rows: np.ndarray) -> torch.Tensor:
         """``rows`` (..., n) staged on the device: a contiguous (..., n)
@@ -396,6 +472,16 @@ class LaneArena:
     def buffers(self) -> int:
         with self._lock:
             return sum(len(v) for v in self._slots.values())
+
+    def resident_bytes(self) -> int:
+        """Bytes of the device buffers held."""
+        with self._lock:
+            return sum(slot[1].nbytes for v in self._slots.values()
+                       for slot in v)
+
+
+# The live lane arenas (the verify coalescers'), for libs/devstats.
+_LANE_ARENAS: "weakref.WeakSet[LaneArena]" = weakref.WeakSet()
 
 
 # ------------------------------------------------------------------ cache
@@ -474,6 +560,7 @@ class PubkeyTableCache:
             if wellformed[j]:
                 buf[:, j] = np.frombuffer(pk, np.uint8)
         bits = _dev_le_bits(_to_device(buf, self.device).to(torch.int32))
+        libdevstats.record_h2d(buf.nbytes)
         tables, oks = cuda_verify.build_pubkey_tables(
             _dev_y_limbs(bits), bits[255].contiguous()
         )
@@ -657,7 +744,9 @@ def verify_bytes_async(buf: np.ndarray, n: int, device="cuda", flavor=None,
         return lambda: np.concatenate([f() for f in finals])
     kernel = (cuda_verify.verify_kernel8 if flavor == "8"
               else cuda_verify.verify_kernel)
-    ok = kernel(**unpack_on_device(_stage(lanes, "wire", buf, dev), flavor))
+    wire = _stage(lanes, "wire", buf, dev)
+    libdevstats.record_h2d(buf.nbytes)
+    ok = kernel(**unpack_on_device(wire, flavor))
     return _readback(ok, bucket_size(n))
 
 
@@ -675,13 +764,13 @@ def verify_rsk_async(buf: np.ndarray, idxs: np.ndarray, arena, arena_ok,
         arena.record_stream(stream)
         arena_ok.record_stream(stream)
     # uint16 slots travel as int16 (2 B/lane); the kernel reads uint16
-    slot_dev = _stage(lanes, "idx",
-                      np.asarray(idxs, np.uint16).view(np.int16), dev)
+    slots = np.asarray(idxs, np.uint16).view(np.int16)
+    slot_dev = _stage(lanes, "idx", slots, dev)
+    rsk = _stage(lanes, "rsk", buf, dev)
+    libdevstats.record_h2d(buf.nbytes + slots.nbytes)
     kernel = (cuda_verify.verify_kernel8_cached if flavor == "8"
               else cuda_verify.verify_kernel_cached)
-    ok = kernel(arena, arena_ok,
-                **_unpack_rsk_on_device(_stage(lanes, "rsk", buf, dev),
-                                        flavor),
+    ok = kernel(arena, arena_ok, **_unpack_rsk_on_device(rsk, flavor),
                 idxs=slot_dev)
     return _readback(ok, bucket_size(n))
 
@@ -729,6 +818,69 @@ def verify_prepacked(buf: np.ndarray, keys, n: int, *, device="cuda",
     return lambda: np.concatenate([f() for f in finals])
 
 
+def _shard_devices(device, cache=None):
+    """The CUDA devices to shard a :func:`verify_batch` call over, or None
+    for the single-device route.
+
+    COMETBFT_TPU_SHARD, read at each call: "0" never shards; "auto" (the
+    default) and "1" shard when the call's device is CUDA and the process
+    sees two or more CUDA devices (libs/accel, probed once). Any other
+    value raises. A call that names a ``cache`` keeps the single-device
+    route: that arena lives on one device. Unlike the reference, "1" does
+    not shard over host devices: the CPU runs the plain versions only.
+    """
+    mode = os.environ.get("COMETBFT_TPU_SHARD", "auto")
+    if mode not in ("0", "1", "auto"):
+        raise ValueError(
+            f"COMETBFT_TPU_SHARD={mode!r}: expected '0', '1' or 'auto'")
+    if mode == "0" or cache is not None:
+        return None
+    if torch.device(device).type != "cuda":
+        return None
+    count = libaccel.cuda_device_count()
+    if count < 2:
+        return None
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+def _verify_batch_sharded(pubkeys, msgs, sigs, n_dev: int, mesh=None):
+    """One flat batch over the signature axis of ``mesh`` (default: every
+    CUDA device, parallel/mesh.default_mesh): (all_valid, (n,) bool).
+
+    The lanes pad to n_dev x a power of two (at least _MIN_BUCKET per
+    device), host_ok with False, and the limb arrays of
+    :func:`pack_inputs` go to parallel/mesh.verify_sharded as one commit.
+    K1 runs once a mesh entry whatever the ``flavor``: the 8-bit kernels
+    take S as bytes, which pack_inputs does not ship."""
+    from ..parallel import mesh as pmesh
+
+    if mesh is None:
+        mesh = pmesh.default_mesh()
+    n = len(pubkeys)
+    t0 = time.perf_counter()
+    arrays, host_ok = pack_inputs(pubkeys, msgs, sigs)
+    per_dev = _MIN_BUCKET
+    while per_dev * n_dev < n:
+        per_dev *= 2
+    nb = per_dev * n_dev
+    if nb != n:
+        arrays = {
+            k: np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, nb - n)])
+            for k, v in arrays.items()
+        }
+        host_ok = np.pad(host_ok, (0, nb - n))
+    t1 = time.perf_counter()
+    libmetrics.observe_verify_phase("pack", "ed25519-tpu", t1 - t0, n,
+                                    arena="sharded")
+    ok = pmesh.verify_sharded(arrays, host_ok, mesh, 1, nb)[0][:n]
+    # every shard is read back inside verify_sharded: dispatch and
+    # readback are one phase on this route, as in the reference
+    libmetrics.observe_verify_phase("dispatch", "ed25519-tpu",
+                                    time.perf_counter() - t1, n,
+                                    arena="sharded")
+    return bool(ok.all()), ok
+
+
 def verify_batch(pubkeys, msgs, sigs, *, device="cuda",
                  cache: PubkeyTableCache | None = None, flavor=None):
     """Verify a batch of ed25519 signatures on ``device``.
@@ -743,6 +895,12 @@ def verify_batch(pubkeys, msgs, sigs, *, device="cuda",
     in their places (see :func:`kernel_flavor`). Every verdict is ANDed
     with the host checks: a zeroed malformed lane decodes to a small-order
     point the cofactored equation would accept.
+
+    With two or more CUDA devices (:func:`_shard_devices`) the batch is
+    sharded over all of them instead, K1 once a device
+    (:func:`_verify_batch_sharded`). The phases go to
+    ``crypto_verify_phase_seconds`` and ``verify.*`` trace events, with
+    the arena's disposition (hit, miss, bypass, off or sharded).
     """
     dev = resolve_device(device)
     flavor = kernel_flavor(flavor)
@@ -751,20 +909,43 @@ def verify_batch(pubkeys, msgs, sigs, *, device="cuda",
     n = len(pubkeys)
     if n == 0:
         return True, np.zeros(0, bool)
+    devs = _shard_devices(dev, cache)
+    if devs is not None:
+        return _verify_batch_sharded(pubkeys, msgs, sigs, len(devs))
     if cache is None and _cache_enabled():
         cache = pubkey_cache(dev)
     finals, host_oks = [], []
+    # pack = host staging with the arena lookup (a miss's builder launch
+    # included), dispatch = the launches, readback = reading the verdicts;
+    # summed over chunks, they tile the call
+    pack_s = disp_s = 0.0
+    arena_state = "hit" if cache is not None else "off"
+    builds_before = cache.builds if cache is not None else 0
     for lo in range(0, n, _CHUNK):
         hi = min(lo + _CHUNK, n)
+        tp = time.perf_counter()
         buf, hok = pack_bytes(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi])
         hit = cache.lookup(pubkeys[lo:hi]) if cache is not None else None
+        td = time.perf_counter()
+        pack_s += td - tp
         if hit is not None:
             idxs, arena, arena_ok = hit
             finals.append(verify_rsk_async(buf[32:], idxs, arena, arena_ok,
                                            hi - lo, flavor))
         else:
+            if cache is not None:
+                arena_state = "bypass"  # the keys overflowed the arena
             finals.append(verify_bytes_async(buf, hi - lo, dev, flavor))
+        disp_s += time.perf_counter() - td
         host_oks.append(hok)
+    if arena_state == "hit" and cache.builds > builds_before:
+        arena_state = "miss"  # the lookup had to build tables
+    tr = time.perf_counter()
     device_ok = np.concatenate([f() for f in finals])
+    read_s = time.perf_counter() - tr
+    for phase, seconds in (("pack", pack_s), ("dispatch", disp_s),
+                           ("readback", read_s)):
+        libmetrics.observe_verify_phase(phase, "ed25519-tpu", seconds, n,
+                                        arena=arena_state)
     valid = device_ok & np.concatenate(host_oks)
     return bool(valid.all()), valid

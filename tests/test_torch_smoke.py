@@ -550,3 +550,85 @@ def test_lane_check_refuses_an_x5_shape_not_compared():
                        cuda_rlc=x5)
     with pytest.raises(RuntimeError, match="X5 ran at"):
         cs.check_lanes(quiet, "slice", cuda_rlc=x5)
+
+
+def test_mesh_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
+    """chip_smoke.phase_mesh end to end on a 12-validator set (12 commit
+    lanes, 48 catch-up lanes): "cuda" mapped to the CPU, the plain versions
+    counted as launches. The default-argument verify_batch takes K2 and
+    does not shard; each mesh run equals it and names the tampered lane;
+    K1 runs once a mesh entry at the padded shard counts; the h2d bytes
+    are pack_inputs' 680 a padded lane."""
+    import types
+
+    import torch
+
+    from cometbft_tpu_torch.libs import devstats
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    n = 12
+    for name, value in (("N_VALIDATORS", n), ("MESH_TAMPERED", 7),
+                        ("K1_MESH_LANES", (8, 16, 64))):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "device_busy_ms", lambda torch, fn: (
+        1.0, 0.5, 1))
+    monkeypatch.setattr(cs, "get_context", lambda method: types.
+                        SimpleNamespace(Pool=lambda n: _InlinePool()))
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    monkeypatch.setenv("COMETBFT_TPU_PRESTAGE", "1")
+    real_resolve = ov.resolve_device
+    monkeypatch.setattr(ov, "resolve_device", lambda d: real_resolve(
+        "cpu" if torch.device(d).type == "cuda" else d))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    for name in ("verify_kernel", "verify_kernel_cached",
+                 "build_pubkey_tables"):
+        def counted(*a, _real=getattr(cv, name), _name=name, **k):
+            lanes = (k["y_r"] if "y_r" in k else a[0]).shape[-1]
+            cv.LAUNCHES[_name] += 1
+            cv.LAUNCH_LANES[_name][lanes] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(cv, name, counted)
+    from cometbft_tpu_torch.ops import cuda_rlc as cr
+
+    # the rlc phase ran before this one: its X5 counts must not reach the
+    # mesh path's lane check
+    cr.LAUNCH_SHAPES["rlc"][(16, 16)] = 1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    devstats.enable()
+    try:
+        pool = _SerialPool()
+        vals, _, commit = cs.make_commit(pool)
+        launches, lanes = cs.phase_mesh(torch, pool, "cpu", vals, commit)
+    finally:
+        devstats.disable()
+        torch.set_num_threads(threads)
+        cv.reset_launches()
+        cr.reset_launches()
+    single = [x for x in lines if x["phase"] == "mesh.single"]
+    assert [(x["lanes"], x["rejected"], x["sharded_calls"]) for x in single
+            ] == [(n, [7], 0), (4 * n, [7], 0)]
+    assert all("verify_kernel" not in x["launches"]
+               and x["launches"]["verify_kernel_cached"] >= 1
+               for x in single)
+    runs = [x for x in lines if x["phase"] == "mesh.run"]
+    # 12 lanes: 16 on (1, 1), 4 x 8 on (1, 4), 32 on (2, 2) with the
+    # commit axis padded to 2 (4 x 16); 48: 64 on (1, 1), 4 x 16 on (1, 4)
+    assert [(x["mesh"], x["lanes"], x["k1_by_lanes"], x["rejected"])
+            for x in runs] == [
+        ("1x1", n, {16: 1}, [7]), ("1x4", n, {8: 4}, [7]),
+        ("2x2", n, {16: 4}, [7]), ("1x1", 4 * n, {64: 1}, [7]),
+        ("1x4", 4 * n, {16: 4}, [7])]
+    assert [x["h2d_bytes"] for x in runs] == [680 * w for w in (16, 32, 64,
+                                                               64, 64)]
+    assert [x["h2d_ops"] for x in runs] == [1, 4, 4, 1, 4]
+    assert launches["verify_kernel"] == 14 and launches[
+        "verify_kernel_cached"] == 0
+    assert lanes["verify_kernel"] == {8: 4, 16: 9, 64: 1}
+    assert [x["idle_share"] for x in lines
+            if x["phase"] == "mesh.trace"] == [0.5]
