@@ -189,7 +189,47 @@ each printing one JSON line:
              lanes, and one warm (1, 4) run under torch.profiler in a
              process of its own for the card's idle share (mesh.trace).
 
-After the mesh phase one line "libs": the phase observations of the
+11. ledger — the device-time ledger and the libs the two planes report to
+             (libs/devledger, libs/health's flight recorder, libs/lockprof
+             with COMETBFT_TPU_LOCKPROF=1, devstats), on from the start of
+             the phase, read through a PrometheusServer and a PprofServer
+             on 127.0.0.1:0. After the hash phase (whose X4 check it
+             reuses). Both sets go into the card's arena first (X1 at
+             1,000 and 150 lanes). (1) BASELINE config 3: a fresh
+             1,000-validator set's prevote and precommit rounds, one
+             tampered vote each, through add_vote from 50 threads and a
+             pushed VerifyCoalescer(device="cuda") (add_vote verifies
+             under the vote set's lock, so every window carries one lane:
+             the coalescer's cut is held at LEDGER_CUT = 1 to put them on
+             the card, K2); decisions equal host_batch.verify_many's, 2/3
+             reached, make_commit passes verify_commit ("consensus-vote",
+             then "commit-verify" for the direct batch); (2) BASELINE
+             config 2: a 150-validator commit and a tampered one routed to
+             a coalescer (the batch cut raised above the commit, the
+             windows' kept at the seed: "commit-verify"); (3)
+             PartSet.from_data of the hash phase's block and the 8-thread
+             ingress through a pushed HashCoalescer(device="cuda")
+             ("merkle"). Then, read before anything else runs: both planes
+             reconcile (caller lanes = window lanes, |1 - ratio| <= 0.01);
+             the ledger's device windows equal the coalescers' and the K2
+             launches the coalescers made, and the hash plane's equal its
+             X4 launches; the three caller rows carry every lane; the ring
+             holds plane.budget rows for the verify plane and as many
+             device hash.flush rows as device hash windows; /metrics
+             carries the ledger's consensus-vote lanes, the coalescer's
+             flushes, crypto.coalesce._mtx's hold time and the hottest
+             lock's wait (lockprof's, the vote set's); every pprof
+             route answers 200, an unknown one 404. Then run (1)'s
+             prevote round timed with the accounting off and on in turns
+             (LEDGER_TURNS each, the checked round the first "on"). Every
+             K1/K2/X1 launch of the
+             phase is held against its plain version (WindowRecorder) and
+             may run only at counts so compared; X4 only at shapes the
+             hash phase compared. Last, in a process of its own, the pprof
+             server's /debug/torch/start_trace -> run (1)'s prevote round
+             -> /debug/torch/stop_trace: the trace must name K2.
+
+After the ledger phase one line "libs": the phase observations of the
 NodeMetrics pushed for the whole run (crypto_verify_phase_seconds, after
 the slice phase and at the end), the devstats transfer counters (on for
 the whole run) and device-memory gauges, the fast25519 tier in force
@@ -3741,7 +3781,431 @@ def phase_hash(torch, card, vals, commit):
               "card": card})
     x4_row["launches_by_shape"] = {f"{bb}x{lb}": n
                                    for (bb, lb), n in shapes.items()}
-    return launches, x4_row
+    return launches, x4_row, compared
+
+
+# The ledger phase: the device-time ledger and the libs the two planes
+# report to, driven through the planes on the card.
+LEDGER_VALIDATORS = 1_000  # BASELINE config 3, a fresh set
+LEDGER_TAMPERED = 555
+LEDGER_SMALL = 150  # BASELINE config 2
+LEDGER_SMALL_TAMPERED = 99
+LEDGER_TURNS = 3  # run (1)'s prevote round, accounting off and on in turns
+# run (1)'s coalescer cut: add_vote verifies under the vote set's lock, so
+# its windows carry one lane each, and only a cut of 1 puts them on the card
+LEDGER_CUT = 1
+LEDGER_RING = 1 << 14
+LEDGER_CALLERS = ("consensus-vote", "commit-verify", "merkle")
+K2_SYMBOL = "k2_verify_cached"  # K2's kernel in a torch.profiler trace
+PPROF_ROUTES = ("/debug/pprof/", "/debug/pprof", "/debug/pprof/goroutine",
+                "/debug/pprof/heap", "/debug/heap/start", "/debug/heap/stop",
+                "/debug/locks", "/debug/devstats", "/debug/budget",
+                "/debug/flight", "/debug/contention", "/debug/trace",
+                "/debug/trace/start", "/debug/trace/stop")
+
+
+def make_ledger_sets(pool):
+    """The ledger phase's inputs: a fresh LEDGER_VALIDATORS set with its
+    prevote and precommit rounds (one tampered vote each), and a fresh
+    LEDGER_SMALL set's commit, signed in the pool."""
+    from cometbft_tpu_torch.types import block, canonical
+
+    vals, seeds = make_validators(pool, b"ledger-validator",
+                                  LEDGER_VALIDATORS)
+    bid = block.BlockID(hashlib.sha256(b"ledger-block").digest(),
+                        block.PartSetHeader(1, hashlib.sha256(
+                            b"ledger-parts").digest()))
+    rounds = {t: make_round_votes(pool, vals, seeds, t, bid, LEDGER_TAMPERED)
+              for t in (canonical.PREVOTE_TYPE, canonical.PRECOMMIT_TYPE)}
+    small_vals, small_seeds = make_validators(pool, b"ledger-small",
+                                              LEDGER_SMALL)
+    small = make_small_commit(pool, small_vals, small_seeds, bid)
+    cs = small.signatures[LEDGER_SMALL_TAMPERED]
+    bad = block.Commit(HEIGHT, 0, bid, list(small.signatures))
+    bad.signatures[LEDGER_SMALL_TAMPERED] = block.CommitSig(
+        cs.block_id_flag, cs.validator_address, cs.timestamp_ns,
+        cs.signature[:40] + bytes([cs.signature[40] ^ 1])
+        + cs.signature[41:])
+    return {"vals": vals, "bid": bid, "rounds": rounds,
+            "small_vals": small_vals, "small": small, "small_bad": bad}
+
+
+def ledger_round(vals, msg_type, votes):
+    """One round's votes through VoteSet.add_vote from PEER_THREADS
+    threads, each verified through a fresh pushed
+    VerifyCoalescer(device="cuda") of cut LEDGER_CUT: (decisions, the vote
+    set, host ms, the coalescer)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cometbft_tpu_torch.crypto import coalesce
+    from cometbft_tpu_torch.types.vote_set import VoteSet
+
+    def decision(v):
+        try:
+            return (vs.add_vote(v), None)
+        except Exception as e:  # the decision is the error's type
+            return (False, type(e).__name__)
+
+    vs = VoteSet(CHAIN_ID, HEIGHT, 0, msg_type, vals)
+    co = coalesce.VerifyCoalescer(device="cuda", min_device_lanes=LEDGER_CUT)
+    co.start()
+    coalesce.push_active(co)
+    try:
+        t = time.perf_counter()
+        with ThreadPoolExecutor(PEER_THREADS) as ex:
+            out = list(ex.map(decision, votes))
+        ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        coalesce.pop_active(co)
+        co.stop()
+    return out, vs, ms, co
+
+
+def _ledger_accounting(on: bool) -> None:
+    """The record paths the ledger phase measures: the device-time ledger,
+    the flight recorder, the lock profiler and devstats, on or off."""
+    from cometbft_tpu_torch.libs import devledger, devstats, health, lockprof
+
+    for lib in (devledger, health, lockprof, devstats):
+        lib.enable() if on else lib.disable()
+
+
+def _http_get(port: int, path: str):
+    """(status, body) of a GET to 127.0.0.1:port."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=120) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, ""
+
+
+def _metric(body: str, series: str):
+    """The value of one exposition series line, or None."""
+    for line in body.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def _traced_ledger(vals, votes):
+    """Worker: the pprof server's torch.profiler round trip around run (1)'s
+    prevote round on a prestaged set: /debug/torch/start_trace, the round,
+    /debug/torch/stop_trace; what the written trace holds."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.libs import pprof
+    from cometbft_tpu_torch.types import canonical
+
+    trace_dir = Path(__file__).resolve().parent / "build" / "ledger_trace"
+    with env("COMETBFT_TPU_PRESTAGE", "auto"):
+        crypto_batch.prestage_validators(vals)
+    srv = pprof.PprofServer("tcp://127.0.0.1:0")
+    srv.start()
+    try:
+        started = _http_get(srv.bound_port,
+                            f"/debug/torch/start_trace?dir={trace_dir}")
+        with env("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "0"):
+            out, _, ms, co = ledger_round(vals, canonical.PREVOTE_TYPE, votes)
+        stopped = _http_get(srv.bound_port, "/debug/torch/stop_trace")
+    finally:
+        srv.stop()
+    check(started[0] == 200 and stopped[0] == 200
+          and stopped[1].startswith("trace written to "),
+          f"torch trace round trip: {started} {stopped}")
+    path = Path(stopped[1][len("trace written to "):])
+    text = path.read_text()
+    path.unlink()
+    return {"trace_bytes": len(text), "names_k2": K2_SYMBOL in text,
+            "k2_rows": text.count(K2_SYMBOL), "host_ms": ms,
+            "device_windows": co.device_windows, "windows": co.windows,
+            "rejected": [i for i, (a, e) in enumerate(out) if e]}
+
+
+def phase_ledger(torch, card, sets, x4_compared):
+    """The device-time ledger phase (see the module docstring, phase 11).
+    Returns ({kernel: launches}, {kernel: {lanes: launches}}, the window
+    comparisons' (err, mismatches), X4's launches, X4's launches by
+    shape)."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.crypto import hashplane, host_batch
+    from cometbft_tpu_torch.libs import devledger, devstats, health
+    from cometbft_tpu_torch.libs import lockprof, metrics, pprof
+    from cometbft_tpu_torch.ops import cuda_sha256, cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.types import canonical, part_set, validation
+
+    t_phase = time.perf_counter()
+    vals, rounds = sets["vals"], sets["rounds"]
+    V, H = devledger.PLANE_VERIFY, devledger.PLANE_HASH
+    m = metrics.NodeMetrics()
+    metrics.push_node_metrics(m)
+    saved_lockprof = os.environ.get("COMETBFT_TPU_LOCKPROF")
+    os.environ["COMETBFT_TPU_LOCKPROF"] = "1"
+    devstats.acquire()
+    devledger.reset()
+    lockprof.reset()
+    health.enable(ring=LEDGER_RING)
+    health.reset()
+    _ledger_accounting(True)
+
+    def refresh():
+        devstats.sample(m)
+        devledger.sample(m)
+        lockprof.sample(m)
+
+    prom = devstats.PrometheusServer("127.0.0.1:0", m.registry, refresh)
+    dbg = pprof.PprofServer("tcp://127.0.0.1:0")
+    prom.start()
+    dbg.start()
+    try:
+        want = {}
+        for t, votes in rounds.items():
+            want[t] = host_batch.verify_many(
+                [vals.validators[v.validator_index].pub_key.data
+                 for v in votes],
+                [v.sign_bytes(CHAIN_ID) for v in votes],
+                [v.signature for v in votes])
+            check([i for i, ok in enumerate(want[t]) if not ok]
+                  == [LEDGER_TAMPERED], "host batch: the tampered vote is "
+                  "not the only invalid one")
+        torch.cuda.synchronize()
+        cuda_verify.reset_launches()  # the ledger path starts here
+        cuda_sha256.reset_launches()
+        coalescers = []
+        with WindowRecorder(ov, cuda_verify) as recorder, \
+                env("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "0"):
+            # both sets into the card's arena (X1, X2), then (1) BASELINE
+            # config 3 through add_vote, accounting on
+            with env("COMETBFT_TPU_PRESTAGE", "auto"):
+                built = (crypto_batch.prestage_validators(vals),
+                         crypto_batch.prestage_validators(
+                             sets["small_vals"]))
+            runs = []
+            for t, votes in rounds.items():
+                out, vs, ms, co = ledger_round(vals, t, votes)
+                coalescers.append(co)
+                check([ok for ok, _ in out] == [
+                    bool(w) for w in want[t]], f"round {t}: add_vote "
+                    "decisions != host_batch.verify_many")
+                check([i for i, (a, e) in enumerate(out) if e]
+                      == [LEDGER_TAMPERED]
+                      and out[LEDGER_TAMPERED][1] == "VoteError",
+                      f"round {t}: the tampered vote was not the one "
+                      "rejected")
+                check(vs.has_two_thirds_majority(), f"round {t}: no 2/3")
+                runs.append({"msg_type": t, "host_ms": ms,
+                             "device_windows": co.device_windows,
+                             "windows": co.windows})
+                if t == canonical.PRECOMMIT_TYPE:
+                    k2_before = cuda_verify.LAUNCHES["verify_kernel_cached"]
+                    validation.verify_commit(CHAIN_ID, vals, sets["bid"],
+                                             HEIGHT, vs.make_commit())
+                    k2_direct = (cuda_verify.LAUNCHES["verify_kernel_cached"]
+                                 - k2_before)
+            emit({"phase": "ledger.run", "run": "(1) BASELINE config 3, "
+                  "add_vote from 50 threads", "rounds": runs,
+                  "commit_verify_k2_launches": k2_direct,
+                  "prestage_builds": built, "card": card})
+
+            # (2) BASELINE config 2: the 150-validator commit routed to the
+            # coalescer (the batch cut above the commit, the windows'
+            # held at the seed)
+            from cometbft_tpu_torch.crypto import coalesce
+
+            co = coalesce.VerifyCoalescer(
+                device="cuda", min_device_lanes=crypto_batch.HOST_BATCH_THRESHOLD)
+            co.start()
+            coalesce.push_active(co)
+            seed_cut = crypto_batch.HOST_BATCH_THRESHOLD
+            crypto_batch.HOST_BATCH_THRESHOLD = LEDGER_SMALL + 1
+            errors = {}
+            try:
+                t = time.perf_counter()
+                for tag, c in (("good", sets["small"]),
+                               ("tampered", sets["small_bad"])):
+                    try:
+                        validation.verify_commit(
+                            CHAIN_ID, sets["small_vals"], sets["bid"],
+                            HEIGHT, c)
+                        errors[tag] = None
+                    except validation.VerificationError as e:
+                        errors[tag] = str(e)
+                ms = 1e3 * (time.perf_counter() - t)
+            finally:
+                crypto_batch.HOST_BATCH_THRESHOLD = seed_cut
+                coalesce.pop_active(co)
+                co.stop()
+            coalescers.append(co)
+            check(errors["good"] is None
+                  and f"(#{LEDGER_SMALL_TAMPERED})" in errors["tampered"],
+                  f"150-validator commit through the coalescer: {errors}")
+            emit({"phase": "ledger.run", "run": "(2) BASELINE config 2, "
+                  "routed", "host_ms": ms, "windows": co.windows,
+                  "device_windows": co.device_windows, "card": card})
+
+            # (3) the hash plane: from_data of the default block, then the
+            # 8-thread ingress, through a pushed plane
+            _, data = make_hash_block()
+            plane = hashplane.HashCoalescer(device="cuda")
+            plane.start()
+            hashplane.push_active(plane)
+            try:
+                t = time.perf_counter()
+                ps = part_set.PartSet.from_data(data)
+                assembled, rejected = _ingress(ps)
+                ms = 1e3 * (time.perf_counter() - t)
+            finally:
+                hashplane.pop_active(plane)
+                plane.stop()
+            check(assembled == data and "leaf hash mismatch" in rejected,
+                  "hash plane: ingress did not give the block back")
+            emit({"phase": "ledger.run", "run": "(3) PartSet.from_data and "
+                  "8-thread ingress, routed", "host_ms": ms,
+                  "windows": plane.windows,
+                  "device_windows": plane.device_windows, "card": card})
+
+            # what the reports say, read before anything else runs
+            torch.cuda.synchronize()
+            k2 = cuda_verify.LAUNCHES["verify_kernel_cached"]
+            x4 = cuda_sha256.LAUNCHES["sha256"]
+            snap = devledger.snapshot()
+            rec = devledger.reconcile()
+            occ = devledger.occupancy()
+            ring = health.recorder().dump()
+            lanes_cv = devledger.cell(V, devledger.CALLER_CODES[
+                "consensus-vote"])["lanes"]
+            hottest = lockprof.snapshot()["hottest"]
+            status, body = _http_get(prom.bound_port, "/metrics")
+            routes = {r: _http_get(dbg.bound_port, r)[0]
+                      for r in PPROF_ROUTES + ("/debug/nope",)}
+            budget = json.loads(_http_get(dbg.bound_port,
+                                          "/debug/budget")[1])
+
+            # the accounting's cost on run (1)'s prevote round: off and on
+            # in turns, the checked round above the first "on"
+            turns = {"off": [], "on": [runs[0]["host_ms"]]}
+            for i in range(2 * LEDGER_TURNS - 1):
+                mode = "off" if i % 2 == 0 else "on"
+                _ledger_accounting(mode == "on")
+                out, _, ms, _ = ledger_round(
+                    vals, canonical.PREVOTE_TYPE,
+                    rounds[canonical.PREVOTE_TYPE])
+                check([i for i, (a, e) in enumerate(out) if e]
+                      == [LEDGER_TAMPERED], "a timed round decided "
+                      "differently")
+                turns[mode].append(ms)
+            _ledger_accounting(True)
+        launches = dict(cuda_verify.LAUNCHES)  # read just after the path
+        x4_shapes = dict(sorted(cuda_sha256.LAUNCH_SHAPES["sha256"].items()))
+        x4_all = cuda_sha256.LAUNCHES["sha256"]
+    finally:
+        prom.stop()
+        dbg.stop()
+        for lib in (devledger, health, lockprof):
+            lib.disable()
+        devstats.release()  # devstats stays on for the caller's holders
+        metrics.pop_node_metrics(m)
+        if saved_lockprof is None:
+            del os.environ["COMETBFT_TPU_LOCKPROF"]
+        else:
+            os.environ["COMETBFT_TPU_LOCKPROF"] = saved_lockprof
+
+    # the checks on what the reports said
+    for plane_name, r in rec.items():
+        check(r["caller_lanes"] == r["window_lanes"] > 0
+              and abs(1 - r["ratio"]) <= 0.01,
+              f"{plane_name} plane does not reconcile: {r}")
+    co_dev = sum(c.device_windows for c in coalescers)
+    check(occ["verify"]["device_windows"] == co_dev == k2 - k2_direct > 0,
+          f"verify device windows: ledger {occ['verify']['device_windows']}"
+          f", coalescers {co_dev}, K2 on the coalescers {k2 - k2_direct}")
+    check(occ["hash"]["device_windows"] == plane.device_windows == x4 > 0,
+          f"hash device windows: ledger {occ['hash']['device_windows']}, "
+          f"plane {plane.device_windows}, X4 {x4}")
+    callers = snap["callers"]
+    for plane_name, rows in callers.items():
+        check(set(rows) <= set(LEDGER_CALLERS),
+              f"{plane_name} plane: lanes outside {LEDGER_CALLERS}: "
+              f"{sorted(rows)}")
+    check(all(callers["verify"].get(c, {}).get("lanes") for c in
+              ("consensus-vote", "commit-verify"))
+          and callers["hash"].get("merkle", {}).get("lanes"),
+          f"a caller row carries no lanes: {callers}")
+    budget_rows = [e for e in ring if e["event"] == "plane.budget"]
+    hash_rows = [e for e in ring if e["event"] == "hash.flush"]
+    check(any(e["plane"] == "verify" for e in budget_rows),
+          "no plane.budget row for the verify plane")
+    check(sum(1 for e in hash_rows if e["device"]) == plane.device_windows,
+          "hash.flush rows on the device != the plane's device windows")
+    check(len(ring) < LEDGER_RING, "the ring wrapped")
+    scraped = _metric(body, 'cometbft_tpu_device_lanes_total{plane="verify"'
+                      ',caller="consensus-vote"}')
+    check(status == 200 and scraped == lanes_cv,
+          f"/metrics: consensus-vote lanes {scraped} != the ledger's "
+          f"{lanes_cv}")
+    flushes = {r: _metric(body, "cometbft_tpu_crypto_coalesce_flush_total"
+                          f'{{reason="{r}"}}')
+               for r in ("size", "deadline", "drain")}
+    # the lock families: crypto.coalesce._mtx is held on every submit and
+    # flush, but waited on only when a submit meets the executor inside it
+    # (add_vote's callers reach it one at a time, behind the vote set's
+    # lock), so its wait series may be absent; the hottest lock's is not
+    locks = {name: {kind: _metric(body, f"cometbft_tpu_lock_{kind}_seconds"
+                                  f'_total{{lock="{name}"}}')
+                    for kind in ("wait", "hold")}
+             for name in ("crypto.coalesce._mtx", hottest)}
+    check(any(flushes.values())
+          and locks["crypto.coalesce._mtx"]["hold"]
+          and hottest is not None and locks[hottest]["wait"],
+          f"/metrics lacks the flush or lock series: {flushes}, {locks}")
+    check(routes.pop("/debug/nope") == 404
+          and set(routes.values()) == {200}, f"pprof routes: {routes}")
+    check(budget["ledger"]["reconciliation"] == json.loads(json.dumps(rec)),
+          "/debug/budget disagrees with reconcile()")
+
+    # every K1/K2/X1 launch of the path against its plain version, X4's
+    # shapes against those its check compared
+    err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
+    mismatches = dict(err)
+    compared = compare_windows(torch, recorder.records, err, mismatches)
+    check(not any(mismatches.values()),
+          f"ledger windows != plain: {mismatches}")
+    lanes = check_lanes(cuda_verify, "ledger", compared)
+    check(launches["verify_kernel_cached"] > 0, "K2 did not run")
+    for name in ("verify_kernel", "verify_kernel8", "verify_kernel8_cached"):
+        check(launches[name] == 0, f"{name} launched on the ledger path")
+    check(set(x4_shapes) <= x4_compared,
+          f"ledger: X4 ran at {sorted(x4_shapes)}, compared at "
+          f"{sorted(x4_compared)} only")
+
+    # the pprof server's torch.profiler round trip, in a process of its own
+    with get_context("spawn").Pool(1) as tracer:
+        traced = tracer.apply(_traced_ledger, (vals,
+                                               rounds[canonical.PREVOTE_TYPE]))
+        tracer.close()
+        tracer.join()
+    check(traced["names_k2"] and traced["rejected"] == [LEDGER_TAMPERED],
+          f"the torch trace does not name K2: {traced}")
+
+    emit({"phase": "ledger", "launches": launches, "lanes": lanes,
+          "x4_launches": x4_all, "x4_by_shape": {
+              f"{bb}x{lb}": n for (bb, lb), n in x4_shapes.items()},
+          "windows_compared": len(recorder.records),
+          "mismatches": dict(mismatches), "max_abs_err": dict(err),
+          "reconcile": rec, "occupancy": occ, "callers": callers,
+          "plane_budget_rows": len(budget_rows),
+          "hash_flush_rows": len(hash_rows), "ring_rows": len(ring),
+          "metrics": {"device_lanes_consensus_vote": scraped,
+                      "coalesce_flushes": flushes, "lock_seconds": locks},
+          "pprof": routes, "torch_trace": traced,
+          "prevote_round_host_ms": {"accounting_on": turns["on"],
+                                    "accounting_off": turns["off"]},
+          "lockprof_hottest": hottest,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return launches, lanes, (err, mismatches), x4_all, x4_shapes
 
 
 # X2's and X3's launches on each path (ops.cuda_verify.OP_LAUNCHES), read
@@ -3962,7 +4426,7 @@ def main() -> int:
 
     node = metrics.NodeMetrics()
     metrics.push_node_metrics(node)
-    devstats.enable()
+    devstats.acquire()
     with get_context("spawn").Pool(WORKERS) as pool:
         timed = phase_kernels(torch, pool)
         slice_launches, slice_lanes, slice_cache, vals, commit = phase_slice(
@@ -3979,11 +4443,16 @@ def main() -> int:
         emit(time_torch_ops(torch, smi, vals, commit))
         rlc_shapes = rlc_lanes["rlc"]
         mesh_launches, mesh_lanes = phase_mesh(torch, pool, smi, vals, commit)
+        ledger_sets = make_ledger_sets(pool)
         pool.close()
         pool.join()
+    hash_launches, x4_row, x4_compared = phase_hash(torch, smi, vals, commit)
+    (ledger_launches, ledger_lanes, (ledger_err, ledger_mismatches),
+     ledger_x4, ledger_x4_shapes) = phase_ledger(torch, smi, ledger_sets,
+                                                 x4_compared)
     emit(libs_line(torch, node, after_slice, vals, commit, smi))
     metrics.pop_node_metrics(node)
-    hash_launches, x4_row = phase_hash(torch, smi, vals, commit)
+    devstats.release()
 
     replaces = {
         "verify_kernel": "cometbft_tpu/ops/pallas_verify.py:922",
@@ -4002,14 +4471,16 @@ def main() -> int:
                            + collections.Counter(vote_lanes[name])
                            + collections.Counter(mixed_lanes[name])
                            + collections.Counter(rlc_lanes[name])
-                           + collections.Counter(mesh_lanes[name]))
+                           + collections.Counter(mesh_lanes[name])
+                           + collections.Counter(ledger_lanes[name]))
                 for name in cuda_verify.LAUNCHES}
-    # the vote and mixed paths' launches were compared too: their
+    # the vote, mixed and ledger paths' launches were compared too: their
     # differences join the kernels phase's
     for name in ("verify_kernel", "verify_kernel_cached",
                  "build_pubkey_tables"):
         for path_err, path_mismatches in ((vote_err, vote_mismatches),
-                                          (mixed_err, mixed_mismatches)):
+                                          (mixed_err, mixed_mismatches),
+                                          (ledger_err, ledger_mismatches)):
             timed[name]["max_abs_err"] = max(timed[name]["max_abs_err"],
                                              path_err[name])
             timed[name]["mismatches"] += path_mismatches[name]
@@ -4019,13 +4490,15 @@ def main() -> int:
          "replaces": replaces[name],
          "launches": (slice_launches[name] + light_launches[name]
                       + vote_launches[name] + mixed_launches[name]
-                      + rlc_launches[name] + mesh_launches[name]),
+                      + rlc_launches[name] + mesh_launches[name]
+                      + ledger_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
                               "light": light_launches[name],
                               "vote": vote_launches[name],
                               "mixed": mixed_launches[name],
                               "rlc": rlc_launches[name],
-                              "mesh": mesh_launches[name]},
+                              "mesh": mesh_launches[name],
+                              "ledger": ledger_launches[name]},
          "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",
@@ -4042,8 +4515,14 @@ def main() -> int:
         {"name": "sha256", "route": "cuda",
          "source": "cometbft_tpu_torch/ops/csrc/sha256.cu",
          "replaces": "cometbft_tpu/ops/sha256.py:178",
-         "launches": hash_launches, "launches_by_path": {"hash": hash_launches},
-         **x4_row, "library_ms": None},
+         "launches": hash_launches + ledger_x4,
+         "launches_by_path": {"hash": hash_launches, "ledger": ledger_x4},
+         **x4_row, "launches_by_shape": {
+             f"{bb}x{lb}": n for (bb, lb), n in sorted((collections.Counter(
+                 {tuple(map(int, k.split("x"))): v for k, v in
+                  x4_row["launches_by_shape"].items()})
+                 + collections.Counter(ledger_x4_shapes)).items())},
+         "library_ms": None},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..libs import metrics as libmetrics
+from ..libs import sync as libsync
 from . import ed25519_ref, keys
 from .keys import Ed25519PubKey
 
@@ -374,7 +375,7 @@ class AdaptiveCrossover:
 
     def __init__(self, lo: int = LO) -> None:
         self.lo = lo
-        self._mtx = threading.Lock()
+        self._mtx = libsync.Mutex("crypto.batch._crossover")
         # decayed least-squares moments of (n, seconds) pairs per side
         self._host = [0.0, 0.0, 0.0, 0.0, 0.0]  # sw, sx, sy, sxx, sxy
         self._dev = [0.0, 0.0, 0.0, 0.0, 0.0]

@@ -31,6 +31,25 @@ verified on the host a second time to cover for the device, and there is
 no breaker. Routing stays what it is: with no coalescer pushed
 (:func:`push_active`) verification is unrouted.
 
+Request deadlines (:func:`request_deadline`, :func:`deadline_remaining`,
+from crypto/plane): departure from the reference, whose ``try_verify``
+returns None once the thread's deadline has passed, so that the caller
+verifies on the host instead. Here ``try_verify`` raises TimeoutError
+before submitting, or caps the ticket wait at the deadline and raises
+TimeoutError when it runs out; it never answers from the host in the
+device's place.
+
+Reports, as the reference makes them: every window observes
+``crypto_coalesce_window_lanes`` and ``crypto_coalesce_flush_total{reason}``
+and its pack, dispatch, readback (device) or fallback (host window)
+phases under the "ed25519-coalesce" backend; each ticket is charged to
+its caller class in the device-time ledger (libs/devledger: queue wait
+from submit to the window's pop, and a pro-rata share by lanes of the
+window's pack+dispatch+readback time, or of its host time) and observes
+``device_queue_wait_seconds{plane="verify",caller}``; consensus callers'
+shares leave an EV_BUDGET row in the flight ring (libs/health); a
+``coalesce.flush`` trace event closes each window.
+
 ``device="cpu"`` runs the kernels' plain PyTorch versions through the same
 windows (the tests' path); the default ``"cuda"`` raises without a GPU.
 """
@@ -43,13 +62,22 @@ import time
 
 import torch
 
+from ..libs import devledger as libdevledger
+from ..libs import health as libhealth
+from ..libs import metrics as libmetrics
+from ..libs import trace as libtrace
 from ..libs.service import ServiceError
 from ..ops import cuda_verify
 from ..ops import verify as ov
 from . import batch as crypto_batch
 from . import host_batch
 from .keys import ED25519_KEY_TYPE
-from .plane import WindowPlane
+from .plane import (  # noqa: F401  (the reference's public names)
+    WindowPlane,
+    deadline_remaining,
+    knob,
+    request_deadline,
+)
 
 # Deadline window before a sub-size window flushes anyway: about an order
 # of magnitude under a device window's cost, so concurrent callers pile
@@ -69,24 +97,24 @@ class CoalescerStoppedError(ServiceError):
     before its window ran."""
 
 
-def _env_int(name: str) -> int | None:
-    try:
-        return int(os.environ.get(name, ""))
-    except ValueError:
-        return None
-
-
 class _Inflight:
     """A device window dispatched, not yet read back."""
 
-    __slots__ = ("finish", "host_ok", "staged", "lanes", "prep_s")
+    __slots__ = ("finish", "host_ok", "staged", "lanes", "prep_s", "reason",
+                 "t_launch")
 
-    def __init__(self, finish, host_ok, staged, lanes, prep_s):
+    def __init__(self, finish, host_ok, staged, lanes, prep_s, reason,
+                 t_launch):
         self.finish = finish  # the readback closure of ops/verify
         self.host_ok = host_ok
         self.staged = staged  # [(ticket, first window index)]
         self.lanes = lanes
-        self.prep_s = prep_s  # pack + dispatch seconds, for the crossover
+        # pack + dispatch seconds: with the readback, what the crossover
+        # and the ledger charge the window (not its wall time to _finish,
+        # which holds the next window's collect wait and pack)
+        self.prep_s = prep_s
+        self.reason = reason  # why the window flushed
+        self.t_launch = t_launch  # its pop: the tickets' queue-wait anchor
 
 
 class VerifyCoalescer(WindowPlane):
@@ -94,6 +122,7 @@ class VerifyCoalescer(WindowPlane):
     ``device`` (see the module docstring and crypto/plane.py)."""
 
     STOPPED_ERROR = CoalescerStoppedError
+    LEDGER_PLANE = libdevledger.PLANE_VERIFY
 
     def __init__(
         self,
@@ -103,14 +132,8 @@ class VerifyCoalescer(WindowPlane):
         device="cuda",
         max_inflight: int | None = None,
     ):
-        def knob(value, name, default):
-            if value is not None:
-                return value
-            env = _env_int(name)
-            return default if env is None else env
-
         super().__init__(
-            "VerifyCoalescer", device,
+            "VerifyCoalescer", "crypto.coalesce", device,
             knob(window_us, "COMETBFT_TPU_COALESCE_WINDOW_US",
                  _DEFAULT_WINDOW_US) / 1e6,
             knob(max_lanes, "COMETBFT_TPU_COALESCE_MAX_LANES",
@@ -155,10 +178,8 @@ class VerifyCoalescer(WindowPlane):
         step = self.max_lanes
         groups = [(pubkeys[i : i + step], msgs[i : i + step],
                    sigs[i : i + step]) for i in range(0, n, step)]
-        bits: list[bool] = []
-        for ticket in self.submit_many(groups or [(pubkeys, msgs, sigs)]):
-            bits.extend(ticket.result(_RESULT_TIMEOUT_S))
-        return bits
+        return self._submit_and_wait(groups or [(pubkeys, msgs, sigs)],
+                                     _RESULT_TIMEOUT_S)
 
     # -- windows -----------------------------------------------------------
 
@@ -192,47 +213,110 @@ class VerifyCoalescer(WindowPlane):
                 sigs.append(s)
         return pubkeys, msgs, sigs, staged
 
-    def _launch(self, groups) -> _Inflight | None:
+    def _launch(self, groups, reason, t_pop) -> _Inflight | None:
         """Stage and dispatch one window: at its device cut, packed and
         launched asynchronously on the coalescer's stream (the in-flight
         window returns); below it, verified here by the host batch."""
         pubkeys, msgs, sigs, staged = self._stage(groups)
         if not staged:
+            # every group failed staging: no window to count
             return None
         n = len(pubkeys)
+        m = libmetrics.node_metrics()
+        m.coalesce_window_lanes.observe(n)
+        m.coalesce_flushes.labels(reason).inc()
         self.windows += 1
         t0 = time.perf_counter()
         if n < self._device_cut():
             bits = host_batch.verify_many(pubkeys, msgs, sigs)
-            crypto_batch.note_host_window(n, time.perf_counter() - t0,
-                                          self.device)
+            dt = time.perf_counter() - t0
+            libmetrics.observe_verify_phase("fallback", "ed25519-coalesce",
+                                            dt, n)
+            crypto_batch.note_host_window(n, dt, self.device)
             self.host_lanes += n
             self.window_lanes["host"][n] += 1
-            self._resolve(staged, bits)
+            self._note_window(n, False)
+            self._resolve_bits(staged, bits, reason, "host", t_pop, dt)
             return None
         buf, host_ok = ov.pack_bytes(pubkeys, msgs, sigs)
         with torch.cuda.stream(self._stream):
             hit = (ov.pubkey_cache(self.device).lookup(pubkeys)
                    if ov._cache_enabled() else None)
+            arena = "hit" if hit is not None else "bypass"
+            t1 = time.perf_counter()
+            libmetrics.observe_verify_phase("pack", "ed25519-coalesce",
+                                            t1 - t0, n, arena=arena)
             if hit is not None:
-                idxs, arena, arena_ok = hit
-                finish = ov.verify_rsk_async(buf[32:], idxs, arena, arena_ok,
-                                             n, lanes=self._lanes)
+                idxs, arena_buf, arena_ok = hit
+                finish = ov.verify_rsk_async(buf[32:], idxs, arena_buf,
+                                             arena_ok, n, lanes=self._lanes)
             else:
                 finish = ov.verify_bytes_async(buf, n, self.device,
                                                lanes=self._lanes)
+        libmetrics.observe_verify_phase(
+            "dispatch", "ed25519-coalesce", time.perf_counter() - t1, n,
+            arena=arena)
         self.device_windows += 1
         self.device_lanes += n
         self.window_lanes["device"][n] += 1
-        return _Inflight(finish, host_ok, staged, n, time.perf_counter() - t0)
+        self._note_window(n, True)
+        return _Inflight(finish, host_ok, staged, n,
+                         time.perf_counter() - t0, reason, t_pop)
 
     def _finish(self, fl: _Inflight) -> None:
         """Read back a device window and resolve its tickets."""
+        mark = self._readback_mark()
         t0 = time.perf_counter()
         valid = fl.finish() & fl.host_ok
-        crypto_batch.note_device_window(
-            fl.lanes, fl.prep_s + time.perf_counter() - t0, self.device)
-        self._resolve(fl.staged, [bool(b) for b in valid])
+        readback_s = time.perf_counter() - t0
+        self._note_readback(mark)
+        libmetrics.observe_verify_phase("readback", "ed25519-coalesce",
+                                        readback_s, fl.lanes)
+        crypto_batch.note_device_window(fl.lanes, fl.prep_s + readback_s,
+                                        self.device)
+        self._resolve_bits(fl.staged, [bool(b) for b in valid], fl.reason,
+                           "device", fl.t_launch, fl.prep_s + readback_s)
+
+    def _resolve_bits(self, staged, bits, reason, backend, t_launch,
+                      exec_s) -> None:
+        """Resolve a window's tickets, then charge them: each ticket's
+        queue wait runs from its submit to the window's pop (``t_launch``),
+        and the window's ``exec_s`` (pack+dispatch+readback on the device,
+        the batch on the host) is split among its tickets by lanes. The
+        whole block rides the ledger's switch (COMETBFT_TPU_LEDGER=0 costs
+        one flag check), the wait histogram of the coalescer aside."""
+        self._resolve(staged, bits)
+        m = libmetrics.node_metrics()
+        now = time.perf_counter()
+        total = sum(ticket.n for ticket, _ in staged)
+        plane = self.LEDGER_PLANE
+        ledger_on = libdevledger.enabled()
+        exec_ns = int(exec_s * 1e9)
+        if ledger_on and exec_ns > 0:
+            libdevledger.note_window_time(plane, exec_ns)
+        device = backend == "device"
+        bw = bx = 0  # consensus callers' wait and execute (the budget row)
+        for ticket, _ in staged:
+            m.coalesce_wait_seconds.observe(now - ticket.t_submit)
+            if not ledger_on:
+                continue
+            wait_ns = max(0, int((t_launch - ticket.t_submit) * 1e9))
+            share = exec_ns * ticket.n // total
+            cid = ticket.caller
+            libdevledger.note_resolve(plane, cid, ticket.n, wait_ns,
+                                      share if device else 0,
+                                      0 if device else share)
+            m.device_queue_wait.labels(
+                "verify", libdevledger.caller_name(cid)).observe(wait_ns / 1e9)
+            if cid in libdevledger.BUDGET_VERIFY_CALLERS:
+                bw += wait_ns
+                bx += share
+        if bw or bx:
+            # the per-height budget's overlay row (libs/health.budget)
+            libhealth.record(libhealth.EV_BUDGET, 0, plane, bw, bx)
+        if libtrace.enabled():
+            libtrace.event("coalesce.flush", reason=reason, backend=backend,
+                           lanes=total, tickets=len(staged))
 
 
 # -- process-wide routing switch ------------------------------------------
@@ -272,6 +356,17 @@ def configured_mode() -> str:
     if v in ("0", "off", "false", "no"):
         return "off"
     return "auto"
+
+
+def node_wants_coalescer() -> bool:
+    """Whether a node should start a VerifyCoalescer: forced by
+    COMETBFT_TPU_COALESCE on or off, else (auto) when CUDA is there."""
+    mode = configured_mode()
+    if mode != "auto":
+        return mode == "on"
+    from ..libs.accel import accelerator_backend
+
+    return accelerator_backend()
 
 
 def eligible(pub_key) -> bool:

@@ -27,7 +27,24 @@ No fallback, unlike the reference: a device fault (at dispatch or at
 readback) or a ticket that outlives its wait fails the tickets of its
 window, and the routed helpers raise to their caller. Nothing is hashed
 on the host to cover for the device. Stopping drains the pending windows
-through the plane's device and fails what a dead executor left.
+through the plane's device and fails what a dead executor left. A
+request deadline (crypto/plane.request_deadline) that has passed raises
+TimeoutError, as in the verify coalescer.
+
+Knobs, as in the reference: ``COMETBFT_TPU_HASH_WINDOW_US``,
+``COMETBFT_TPU_HASH_MAX_LANES`` (clamped to the kernel's per-launch
+cap), ``COMETBFT_TPU_HASH_MIN_DEVICE_LANES`` and
+``COMETBFT_TPU_HASH_INFLIGHT``; a constructor argument wins.
+
+Reports, as the reference makes them: every window observes
+``crypto_hash_window_lanes`` and ``crypto_hash_flush_total{reason}``, its
+buckets' dispatch, readback or fallback (inline hashlib) phases
+(``observe_hash_phase``), and a ``hash.flush`` trace event; each ticket
+is charged to its caller class in the device-time ledger (libs/devledger)
+with the window's device bucket time and its inline bucket time split
+apart, so a mixed window charges its device share and its host share
+separately; FSM-adjacent callers (merkle, mempool) leave an EV_BUDGET row
+and every window an EV_HASH row (lanes, device flag) in the flight ring.
 
 ``device="cpu"`` runs the plain PyTorch version through the same windows
 (the tests' path); the default ``"cuda"`` raises without a GPU.
@@ -42,12 +59,17 @@ import time
 
 import torch
 
+from ..libs import devledger as libdevledger
+from ..libs import health as libhealth
+from ..libs import metrics as libmetrics
+from ..libs import sync as libsync
+from ..libs import trace as libtrace
 from ..libs.service import ServiceError
 from ..ops import cuda_sha256
 from ..ops import sha256 as osha
 from ..ops.verify import resolve_device
 from . import batch as crypto_batch
-from .plane import WindowPlane
+from .plane import WindowPlane, knob
 
 # Deadline window before a sub-size window flushes anyway.
 _DEFAULT_WINDOW_US = 500
@@ -81,13 +103,24 @@ class HashplaneStoppedError(ServiceError):
 class _Inflight:
     """A window whose device buckets are dispatched, not yet read back."""
 
-    __slots__ = ("finishes", "out", "staged")
+    __slots__ = ("finishes", "out", "staged", "msgs", "reason", "t_launch",
+                 "host_s")
 
-    def __init__(self, finishes, out, staged):
+    def __init__(self, finishes, out, staged, msgs, reason, t_launch,
+                 host_s):
         # [(materializer, window indices, block bucket, dispatch seconds)]
         self.finishes = finishes
         self.out = out  # window-ordered digests (host buckets filled)
         self.staged = staged  # [(ticket, first window index)]
+        self.msgs = msgs  # the window's messages, in window order
+        self.reason = reason  # why the window flushed
+        self.t_launch = t_launch  # its pop: the tickets' queue-wait anchor
+        self.host_s = host_s  # its inline (hashlib) buckets' seconds
+
+
+def fl_msg(fl: _Inflight, i: int) -> bytes:
+    """Window-ordered message i of an in-flight window."""
+    return fl.msgs[i]
 
 
 class _BucketCrossover:
@@ -103,7 +136,7 @@ class _BucketCrossover:
 
     def __init__(self, device) -> None:
         self._device = device
-        self._mtx = threading.Lock()
+        self._mtx = libsync.Mutex("crypto.hashplane._crossover")
         self._fits: dict[int, crypto_batch.AdaptiveCrossover] = {}
 
     def _adaptive(self) -> bool:
@@ -160,6 +193,7 @@ class HashCoalescer(WindowPlane):
     ``device`` (see the module docstring and crypto/plane.py)."""
 
     STOPPED_ERROR = HashplaneStoppedError
+    LEDGER_PLANE = libdevledger.PLANE_HASH
 
     def __init__(
         self,
@@ -170,15 +204,18 @@ class HashCoalescer(WindowPlane):
         max_inflight: int | None = None,
     ):
         super().__init__(
-            "HashCoalescer", device,
-            (_DEFAULT_WINDOW_US if window_us is None else window_us) / 1e6,
+            "HashCoalescer", "crypto.hashplane", device,
+            knob(window_us, "COMETBFT_TPU_HASH_WINDOW_US",
+                 _DEFAULT_WINDOW_US) / 1e6,
             # clamped to the kernel's per-launch cap
-            min(osha.MAX_LANES,
-                _DEFAULT_MAX_LANES if max_lanes is None else max_lanes),
-            _DEFAULT_MAX_INFLIGHT if max_inflight is None else max_inflight,
+            min(osha.MAX_LANES, knob(max_lanes, "COMETBFT_TPU_HASH_MAX_LANES",
+                                     _DEFAULT_MAX_LANES)),
+            knob(max_inflight, "COMETBFT_TPU_HASH_INFLIGHT",
+                 _DEFAULT_MAX_INFLIGHT),
         )
         # None defers to the per-bucket crossover at flush time
-        self.min_device_lanes = min_device_lanes
+        self.min_device_lanes = knob(
+            min_device_lanes, "COMETBFT_TPU_HASH_MIN_DEVICE_LANES", None)
         self.crossover = crossover(self.device)
         # lanes hashed on the device, with hashlib inside windows, and
         # with hashlib inline by the routed helpers (below their cut)
@@ -218,10 +255,7 @@ class HashCoalescer(WindowPlane):
         n = len(msgs)
         groups = [msgs[i : i + self.max_lanes]
                   for i in range(0, n, self.max_lanes)] or [msgs]
-        digests: list[bytes] = []
-        for ticket in self.submit_many(groups):
-            digests.extend(ticket.result(_RESULT_TIMEOUT_S))
-        return digests
+        return self._submit_and_wait(groups, _RESULT_TIMEOUT_S)
 
     def batch_worth_routing(self, msgs) -> bool:
         """True when this batch alone puts at least one of its block
@@ -271,7 +305,7 @@ class HashCoalescer(WindowPlane):
             msgs.extend(lanes)
         return msgs, staged
 
-    def _launch(self, groups) -> _Inflight | None:
+    def _launch(self, groups, reason, t_pop) -> _Inflight | None:
         """Stage and dispatch one window, split by block bucket. Buckets
         at their device cut dispatch asynchronously on the plane's stream;
         the others hash inline with hashlib. Returns the in-flight window
@@ -279,13 +313,18 @@ class HashCoalescer(WindowPlane):
         msgs, staged = self._stage(groups)
         if not staged:
             return None
+        n = len(msgs)
+        m = libmetrics.node_metrics()
+        m.hash_window_lanes.observe(n)
+        m.hash_flushes.labels(reason).inc()
         self.windows += 1
         buckets: dict[int, list[int]] = {}
         for i, msg in enumerate(msgs):
             bb = osha.block_bucket(osha.n_blocks(len(msg)))
             buckets.setdefault(bb, []).append(i)
-        out: list[bytes | None] = [None] * len(msgs)
+        out: list[bytes | None] = [None] * n
         finishes = []
+        host_s = 0.0
         for bb in sorted(buckets):
             idxs = buckets[bb]
             sub = [msgs[i] for i in idxs]
@@ -294,29 +333,82 @@ class HashCoalescer(WindowPlane):
                 with torch.cuda.stream(self._stream):
                     finish = osha.sha256_many_async(sub, bb,
                                                     device=self.device)
-                finishes.append((finish, idxs, bb, time.perf_counter() - t0))
+                prep = time.perf_counter() - t0
+                libmetrics.observe_hash_phase("dispatch", prep, len(idxs))
+                finishes.append((finish, idxs, bb, prep))
                 self.device_lanes += len(idxs)
                 continue
-            for i, m in zip(idxs, sub):
-                out[i] = hashlib.sha256(m).digest()
-            self.crossover.note_host(bb, len(idxs), time.perf_counter() - t0)
+            for i, msg in zip(idxs, sub):
+                out[i] = hashlib.sha256(msg).digest()
+            dt = time.perf_counter() - t0
+            host_s += dt
+            libmetrics.observe_hash_phase("fallback", dt, len(idxs))
+            self.crossover.note_host(bb, len(idxs), dt)
             self.host_lanes += len(idxs)
         if finishes:
             self.device_windows += 1
-            return _Inflight(finishes, out, staged)
-        self._resolve(staged, out)
+            self._note_window(n, True)
+            return _Inflight(finishes, out, staged, msgs, reason, t_pop,
+                             host_s)
+        self._note_window(n, False)
+        self._resolve_bits(staged, out, reason, "host", t_pop, 0.0, host_s)
         return None
 
     def _finish(self, fl: _Inflight) -> None:
         """Read back a window's device buckets and resolve its tickets."""
+        mark = self._readback_mark()
+        device_s = 0.0
         for finish, idxs, bb, prep in fl.finishes:
             t0 = time.perf_counter()
             digests = finish()
-            self.crossover.note_device(bb, len(idxs),
-                                       prep + time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            device_s += prep + dt
+            libmetrics.observe_hash_phase("readback", dt, len(idxs))
+            self.crossover.note_device(bb, len(idxs), prep + dt)
             for j, i in enumerate(idxs):
                 fl.out[i] = digests[j]
-        self._resolve(fl.staged, fl.out)
+        self._note_readback(mark)
+        self._resolve_bits(fl.staged, fl.out, fl.reason, "device",
+                           fl.t_launch, device_s, fl.host_s)
+
+    def _resolve_bits(self, staged, out, reason, backend, t_launch, exec_s,
+                      host_s) -> None:
+        """Resolve a window's tickets, then charge them. ``exec_s`` is the
+        window's device bucket time (dispatch and readback), ``host_s``
+        its inline hashlib bucket time; each ticket takes a share of both
+        by lanes, apart, so a mixed window never reports host work as
+        device time. The ledger block rides the ledger's switch."""
+        self._resolve(staged, out)
+        total = sum(ticket.n for ticket, _ in staged)
+        if libdevledger.enabled():
+            m = libmetrics.node_metrics()
+            plane = self.LEDGER_PLANE
+            exec_ns = int(exec_s * 1e9)
+            host_ns = int(host_s * 1e9)
+            if exec_ns + host_ns > 0:
+                libdevledger.note_window_time(plane, exec_ns + host_ns)
+            bw = bx = 0  # FSM-adjacent (merkle, mempool) wait and execute
+            for ticket, _ in staged:
+                wait_ns = max(0, int((t_launch - ticket.t_submit) * 1e9))
+                dev_share = exec_ns * ticket.n // total
+                host_share = host_ns * ticket.n // total
+                cid = ticket.caller
+                libdevledger.note_resolve(plane, cid, ticket.n, wait_ns,
+                                          dev_share, host_share)
+                m.device_queue_wait.labels(
+                    "hash", libdevledger.caller_name(cid)).observe(
+                        wait_ns / 1e9)
+                if cid in libdevledger.BUDGET_HASH_CALLERS:
+                    bw += wait_ns
+                    bx += dev_share + host_share
+            if bw or bx:
+                libhealth.record(libhealth.EV_BUDGET, 0, plane, bw, bx)
+        if libhealth.enabled():
+            libhealth.record(libhealth.EV_HASH, a=total,
+                             b=1 if backend == "device" else 0)
+        if libtrace.enabled():
+            libtrace.event("hash.flush", reason=reason, backend=backend,
+                           lanes=total, tickets=len(staged))
 
 
 # -- process-wide routing switch ------------------------------------------
@@ -358,6 +450,17 @@ def configured_mode() -> str:
     if v in ("0", "off", "false", "no"):
         return "off"
     return "auto"
+
+
+def node_wants_hashplane() -> bool:
+    """Whether a node should start a HashCoalescer: forced by
+    COMETBFT_TPU_HASH on or off, else (auto) when CUDA is there."""
+    mode = configured_mode()
+    if mode != "auto":
+        return mode == "on"
+    from ..libs.accel import accelerator_backend
+
+    return accelerator_backend()
 
 
 def prewarm() -> bool:

@@ -35,12 +35,12 @@ from __future__ import annotations
 
 import ctypes
 import secrets
-import threading
 from pathlib import Path
 
 import numpy as np
 
 from ..libs import native_build
+from ..libs import sync as libsync
 from . import ed25519_ref as ref
 
 L = ref.L
@@ -48,7 +48,7 @@ _B_ENC = bytes([0x58]) + bytes([0x66]) * 31  # compressed base point
 
 SRC = Path(__file__).resolve().parents[1] / "native" / "edbatch.cpp"
 
-_load_lock = threading.Lock()
+_load_lock = libsync.Mutex("crypto.host_batch._build_lock")
 _lib = None
 
 

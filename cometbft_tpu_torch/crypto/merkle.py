@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ..libs import devledger
 from . import hashplane, tmhash
 
 LEAF_PREFIX = b"\x00"
@@ -25,8 +26,10 @@ INNER_PREFIX = b"\x01"
 
 def _leaf_hash(item: bytes) -> bytes:
     # a 64 KiB PartSet leaf coalesces into a device window when a plane is
-    # routed; small leaves take hashlib
-    return hashplane.hash_bytes(LEAF_PREFIX + item)
+    # routed; small leaves take hashlib. The ledger's default tenant is
+    # "merkle"; an outer declaration wins.
+    with devledger.caller_class("merkle"):
+        return hashplane.hash_bytes(LEAF_PREFIX + item)
 
 
 def _inner_hash(left: bytes, right: bytes) -> bytes:
@@ -43,18 +46,20 @@ def _split_point(n: int) -> int:
 
 def _compute_levels(items: list[bytes]) -> list[list[bytes]]:
     """All tree levels bottom-up: level 0 the leaf hashes, the last [root].
-    Each level pairs adjacent nodes; an odd tail node is promoted."""
-    level = hashplane.hash_many([LEAF_PREFIX + bytes(x) for x in items])
-    levels = [level]
-    while len(level) > 1:
-        nxt = hashplane.hash_many([
-            INNER_PREFIX + level[i] + level[i + 1]
-            for i in range(0, len(level) - 1, 2)
-        ])
-        if len(level) % 2:
-            nxt.append(level[-1])
-        level = nxt
-        levels.append(level)
+    Each level pairs adjacent nodes; an odd tail node is promoted. Charged
+    to the "merkle" caller class unless an outer caller declared one."""
+    with devledger.caller_class("merkle"):
+        level = hashplane.hash_many([LEAF_PREFIX + bytes(x) for x in items])
+        levels = [level]
+        while len(level) > 1:
+            nxt = hashplane.hash_many([
+                INNER_PREFIX + level[i] + level[i + 1]
+                for i in range(0, len(level) - 1, 2)
+            ])
+            if len(level) % 2:
+                nxt.append(level[-1])
+            level = nxt
+            levels.append(level)
     return levels
 
 

@@ -13,35 +13,95 @@ No fallback: a fault at launch or at readback fails the tickets of its
 window and the callers raise. Stopping drains the pending windows through
 the plane and fails what a dead or wedged executor left.
 
-A plane defines ``STOPPED_ERROR``, ``_group_size`` (a group's lanes and
-the weight its deadline budget reads), ``_launch`` (stage and dispatch one
-window: an in-flight handle with a ``staged`` list of (ticket, first
-index) pairs, or None once it resolved the window itself) and ``_finish``
-(read back and resolve a handle). It may override ``_window_budget``.
+Request deadlines: a caller that wraps its work in
+:func:`request_deadline` bounds every ticket wait of its thread by the
+request's remaining budget (nested scopes tighten, never loosen). A
+routed call whose deadline has passed raises TimeoutError before it
+submits anything, and a ticket wait past it raises TimeoutError too.
+
+Reports (libs/devledger, with the plane's ``LEDGER_PLANE`` code): every
+ticket carries the caller class its submitting thread declared
+(``devledger.caller_class``); the executor's busy section brackets each
+launch (``exec_begin``/``exec_end``), and the helpers below note each
+window and each readback's overlap with the executor. The per-ticket
+split of a window's time is each plane's own (its ``_resolve_bits``).
+
+A plane defines ``STOPPED_ERROR``, ``LEDGER_PLANE``, ``_group_size`` (a
+group's lanes and the weight its deadline budget reads), ``_launch``
+(stage and dispatch one window: an in-flight handle with a ``staged`` list
+of (ticket, first index) pairs, or None once it resolved the window
+itself) and ``_finish`` (read back and resolve a handle). It may override
+``_window_budget``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 import time
 from collections import deque
 
 import torch
 
+from ..libs import devledger as libdevledger
+from ..libs import sync as libsync
 from ..libs.service import BaseService, ServiceError
 from ..ops.verify import resolve_device
+
+
+def knob(value, env_name: str, default):
+    """A constructor argument, else the integer in ``env_name``, else
+    ``default``."""
+    if value is not None:
+        return value
+    try:
+        return int(os.environ.get(env_name, ""))
+    except ValueError:
+        return default
+
+
+# -- per-request deadlines ------------------------------------------------
+
+_DEADLINE_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def request_deadline(deadline_monotonic: float):
+    """Bound every plane wait on this thread by a monotonic deadline.
+    Nested scopes tighten, never loosen: an inner deadline later than the
+    enclosing one is clamped to the outer budget."""
+    prev = getattr(_DEADLINE_TLS, "deadline", None)
+    _DEADLINE_TLS.deadline = (
+        deadline_monotonic if prev is None else min(prev, deadline_monotonic))
+    try:
+        yield
+    finally:
+        _DEADLINE_TLS.deadline = prev
+
+
+def deadline_remaining() -> float | None:
+    """Seconds left in this thread's request deadline (None: unbounded).
+    Negative once the deadline has passed."""
+    d = getattr(_DEADLINE_TLS, "deadline", None)
+    if d is None:
+        return None
+    return d - time.monotonic()
 
 
 class Ticket:
     """One submit's pending values; settled exactly once (the first of
     resolve and fail wins)."""
 
-    __slots__ = ("n", "weight", "t_submit", "_done", "_lock", "_values",
-                 "_exc")
+    __slots__ = ("n", "weight", "caller", "t_submit", "_done", "_lock",
+                 "_values", "_exc")
 
-    def __init__(self, n: int, weight: int = 0):
+    def __init__(self, n: int, weight: int = 0, caller: int = 0):
         self.n = n
         self.weight = weight  # what the deadline budget reads (SHA blocks)
+        # the submitting thread's caller class (libs/devledger): the
+        # ledger's attribution key
+        self.caller = caller
         self.t_submit = time.perf_counter()
         self._done = threading.Event()
         self._lock = threading.Lock()
@@ -81,10 +141,11 @@ class WindowPlane(BaseService):
     on ``device`` (see the module docstring)."""
 
     STOPPED_ERROR = ServiceError
+    LEDGER_PLANE: int  # the plane's code in libs/devledger
     _JOIN_TIMEOUT_S = 10.0
 
-    def __init__(self, name: str, device, window_s: float, max_lanes: int,
-                 max_inflight: int):
+    def __init__(self, name: str, lock_name: str, device, window_s: float,
+                 max_lanes: int, max_inflight: int):
         super().__init__(name)
         self.device = resolve_device(device)
         self._stream = (torch.cuda.Stream(self.device)
@@ -92,8 +153,10 @@ class WindowPlane(BaseService):
         self.window_s = window_s
         self.max_lanes = max(1, max_lanes)
         self.max_inflight = max(1, max_inflight)
-        self._mtx = threading.Lock()  # the pending queue and counters
-        self._cv = threading.Condition(self._mtx)
+        # the pending queue and counters, named as the reference names
+        # the plane's locks (``lock_name``, e.g. "crypto.coalesce")
+        self._mtx = libsync.Mutex(f"{lock_name}._mtx")
+        self._cv = libsync.Condition(self._mtx, name=f"{lock_name}._mtx")
         self._pending: deque[tuple] = deque()  # (ticket, group)
         self._pending_lanes = 0
         self._pending_weight = 0
@@ -102,8 +165,9 @@ class WindowPlane(BaseService):
         self._thread: threading.Thread | None = None
         self._staging: list[tuple] | None = None  # the window being launched
         # executor -> drain handoff
-        self._rb_mtx = threading.Lock()
-        self._rb_cv = threading.Condition(self._rb_mtx)
+        self._rb_mtx = libsync.Mutex(f"{lock_name}._rb_mtx")
+        self._rb_cv = libsync.Condition(self._rb_mtx,
+                                        name=f"{lock_name}._rb_mtx")
         self._readback: deque = deque()
         self._rb_busy = 0
         self._rb_closed = False
@@ -121,7 +185,9 @@ class WindowPlane(BaseService):
     def _group_size(self, group) -> tuple[int, int]:
         raise NotImplementedError
 
-    def _launch(self, groups):
+    def _launch(self, groups, reason: str, t_pop: float):
+        """``reason``: why the window flushed; ``t_pop``: when it left the
+        queue (perf_counter), the anchor of its tickets' queue wait."""
         raise NotImplementedError
 
     def _finish(self, fl) -> None:
@@ -194,8 +260,9 @@ class WindowPlane(BaseService):
         ``STOPPED_ERROR`` once the drain began."""
         tickets: list[Ticket] = []
         staged: list[tuple] = []
+        cid = libdevledger.current_caller()
         for group in groups:
-            t = Ticket(*self._group_size(group))
+            t = Ticket(*self._group_size(group), cid)
             tickets.append(t)
             if t.n == 0:
                 t.resolve([])
@@ -214,6 +281,40 @@ class WindowPlane(BaseService):
             self._cv.notify_all()
         return tickets
 
+    def _submit_and_wait(self, groups, bound_s: float) -> list:
+        """Submit ``groups`` and wait for their values in order, each
+        ticket's wait bounded by ``bound_s`` and by the thread's request
+        deadline. Raises TimeoutError without submitting once the deadline
+        has passed, and TimeoutError when a wait runs out."""
+        rem = deadline_remaining()
+        if rem is not None and rem <= 0:
+            raise TimeoutError(
+                f"{self._name}: the request deadline passed before submit")
+        values: list = []
+        for ticket in self.submit_many(groups):
+            wait_s = bound_s
+            rem = deadline_remaining()
+            if rem is not None and rem < wait_s:
+                wait_s = max(rem, 0.0)
+            values.extend(ticket.result(wait_s))
+        return values
+
+    # -- the ledger's plane-grain notes ---------------------------------------
+
+    def _note_window(self, lanes: int, device: bool) -> None:
+        """One window flushed into launch."""
+        libdevledger.note_window(self.LEDGER_PLANE, lanes, device)
+
+    def _readback_mark(self) -> tuple[int, int]:
+        """Taken as a readback starts: (monotonic ns, executor-busy ns)."""
+        return (time.monotonic_ns(),
+                libdevledger.exec_busy_ns(self.LEDGER_PLANE))
+
+    def _note_readback(self, mark: tuple[int, int]) -> None:
+        """A readback begun at ``mark`` finished: its time, and how much of
+        it the executor's busy sections overlapped."""
+        libdevledger.note_readback(self.LEDGER_PLANE, *mark)
+
     # -- the executor --------------------------------------------------------
 
     def _run(self) -> None:
@@ -222,12 +323,18 @@ class WindowPlane(BaseService):
                 groups, reason = self._collect()
                 if groups:
                     self._staging = groups
+                    t_pop = time.perf_counter()
+                    # the busy section the ledger's overlap estimate reads:
+                    # staging, pack and dispatch, or the inline host window
+                    libdevledger.exec_begin(self.LEDGER_PLANE)
                     try:
-                        fl = self._launch(groups)
+                        fl = self._launch(groups, reason, t_pop)
                     except Exception as e:  # a dispatch fault: its window fails
                         for ticket, _ in groups:
                             ticket.fail(e)
                         fl = None
+                    finally:
+                        libdevledger.exec_end(self.LEDGER_PLANE)
                     self._staging = None
                     if fl is not None:
                         self._hand_to_drain(fl)

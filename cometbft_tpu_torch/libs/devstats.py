@@ -16,29 +16,49 @@ The JAX package also counts XLA compiles here (``track`` and its compile
 ledger). The port has no counterpart: its kernels build once per process
 with nvcc (ops/build.py), so its ``xla_*`` families stay at zero.
 
+* **A scrape endpoint.** :class:`PrometheusServer` (a
+  ``libs/service.HTTPService``, like ``libs/pprof.PprofServer``) serves a
+  registry's exposition at ``COMETBFT_TPU_PROM_ADDR``, the analog of the
+  reference CometBFT's Instrumentation listener (``prometheus_listen_addr``,
+  ``:26660``).
+
 * **Zero cost when off.** ``COMETBFT_TPU_DEVSTATS`` unset means every
   entry point is one module-flag check and an immediate return.
 * **Never initialises CUDA.** :func:`sample` reads memory statistics only
   when CUDA is already initialised in this process, so a scrape is never
   the thing that first brings the card up.
 
-Knob: ``COMETBFT_TPU_DEVSTATS`` (1/on/true/yes enables), read at import.
+Knobs: ``COMETBFT_TPU_DEVSTATS`` (1/on/true/yes enables; read at import,
+and :func:`acquire` / :func:`release` refcount it for a listener's
+lifetime) and ``COMETBFT_TPU_PROM_ADDR`` (scrape listener address).
 """
 
 from __future__ import annotations
 
+import json
 import os
-import threading
+import time
 
 from . import accel as libaccel
 from . import metrics as libmetrics
+from . import sync as libsync
+from .service import HTTPService
 
 _ENV_DEVSTATS = "COMETBFT_TPU_DEVSTATS"
+_ENV_PROM_ADDR = "COMETBFT_TPU_PROM_ADDR"
 
 _ON_VALUES = ("1", "on", "true", "yes")
 
-_enabled: bool = os.environ.get(_ENV_DEVSTATS, "").lower() in _ON_VALUES
-_mtx = threading.Lock()  # the tallies; never held across a metrics call
+
+
+def _env_on() -> bool:
+    return os.environ.get(_ENV_DEVSTATS, "").lower() in _ON_VALUES
+
+
+_enabled: bool = _env_on()
+_acquirers = 0
+# the tallies; never held across a metrics call
+_mtx = libsync.Mutex("libs.devstats._mtx")
 _c = {"h2d_ops": 0, "h2d_bytes": 0, "d2h_ops": 0, "d2h_bytes": 0}
 
 
@@ -55,6 +75,22 @@ def enable() -> None:
 def disable() -> None:
     global _enabled
     _enabled = False
+
+
+def acquire() -> None:
+    """Reference-counted enable: a Prometheus listener's owner acquires on
+    start and releases on stop, so telemetry stays on exactly while
+    someone can scrape it."""
+    global _acquirers
+    _acquirers += 1
+    enable()
+
+
+def release() -> None:
+    global _acquirers
+    _acquirers = max(0, _acquirers - 1)
+    if _acquirers == 0 and not _env_on():
+        disable()
 
 
 def record_h2d(nbytes: int) -> None:
@@ -199,5 +235,93 @@ def sample(metrics=None) -> dict:
 
 
 def snapshot() -> dict:
-    """The tallies and a live sample, one dict."""
-    return {"enabled": _enabled, "transfers": counters(), **sample()}
+    """The /debug/devstats JSON: the tallies, the device-time ledger and a
+    live sample, one dict."""
+    return {
+        "enabled": _enabled,
+        "transfers": counters(),
+        # who used the device: the per-(plane, caller) time/lane ledger
+        # and its occupancy view (libs/devledger; the full budget plane
+        # is /debug/budget)
+        "device_ledger": _ledger_block(),
+        **sample(),
+    }
+
+
+def _ledger_block() -> dict:
+    try:
+        from . import devledger as libdevledger
+
+        return libdevledger.snapshot()
+    except Exception as e:  # a ledger fault must not sink the snapshot
+        return {"error": repr(e)}
+
+
+# --------------------------------------------------------- scrape server
+
+
+def prometheus_addr(config=None) -> str:
+    """The scrape listener address: COMETBFT_TPU_PROM_ADDR wins, then a
+    config-like object's ``instrumentation`` section (``prometheus``,
+    ``prometheus_listen_addr``), else "" (no listener)."""
+    addr = os.environ.get(_ENV_PROM_ADDR, "")
+    if addr:
+        return addr
+    if config is not None and config.instrumentation.prometheus:
+        return config.instrumentation.prometheus_listen_addr
+    return ""
+
+
+class PrometheusServer(HTTPService):
+    """Dedicated /metrics listener (the reference CometBFT's
+    Instrumentation server): serves ``registry.render()`` with the
+    exposition content type; ``refresh`` (a pull-time gauge hook, such as
+    one that runs :func:`sample`) runs before each render."""
+
+    CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+    # a scrape target binds all interfaces on its ":26660" default, not
+    # loopback like the debug servers
+    DEFAULT_HOST = "0.0.0.0"
+
+    def __init__(self, addr: str, registry, refresh=None, logger=None):
+        super().__init__("prometheus", addr, logger)
+        self.registry = registry
+        self._refresh = refresh
+        # the scrape self-metric (one shared family definition, so the
+        # NodeMetrics registration and this one are the same instance)
+        self._scrape_hist = libmetrics.scrape_duration_histogram(registry)
+
+    def handle_get(self, path: str, query: dict) -> tuple[str, str]:
+        if path == "/":
+            return (
+                "text/plain; charset=utf-8",
+                "cometbft-tpu prometheus exporter\n"
+                "/metrics  registry exposition\n",
+            )
+        if path != "/metrics":
+            raise KeyError(path)
+        t0 = time.perf_counter()
+        if self._refresh is not None:
+            try:
+                self._refresh()
+            except Exception as e:
+                # pull-time gauges are best-effort; the counters and
+                # histograms must still scrape
+                if self.logger is not None:
+                    self.logger.error(
+                        "metrics refresh failed", err=repr(e)[:200])
+        body = self.registry.render()
+        # observed after the render, so it shows from the next scrape on
+        # (the usual exporter trade)
+        self._scrape_hist.labels("prometheus").observe(
+            time.perf_counter() - t0)
+        return self.CONTENT_TYPE, body
+
+
+def debug_devstats_json() -> str:
+    """Body of the pprof server's /debug/devstats route."""
+    t0 = time.perf_counter()
+    body = json.dumps(snapshot(), default=str)
+    libmetrics.node_metrics().health_scrape_seconds.labels(
+        "devstats").observe(time.perf_counter() - t0)
+    return body

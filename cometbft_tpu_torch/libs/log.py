@@ -13,8 +13,9 @@ are mutex-serialized — log lines from 20 threads must not interleave.
 from __future__ import annotations
 
 import sys
-import threading
 import time
+
+from . import sync as libsync
 
 DEBUG, INFO, ERROR, NONE = 0, 1, 2, 3
 _LEVEL_CHAR = {DEBUG: "D", INFO: "I", ERROR: "E"}
@@ -43,7 +44,7 @@ class Logger:
         level: int = INFO,
         fields: dict | None = None,
         module_levels: dict[str, int] | None = None,
-        _lock: threading.Lock | None = None,
+        _lock=None,
     ):
         self._sink = sink if sink is not None else sys.stderr
         self._level = level
@@ -53,7 +54,7 @@ class Logger:
         self._module_levels = (
             module_levels if module_levels is not None else {}
         )
-        self._lock = _lock if _lock is not None else threading.Lock()
+        self._lock = _lock if _lock is not None else libsync.Mutex("libs.log")
 
     # -- derivation --------------------------------------------------------
 

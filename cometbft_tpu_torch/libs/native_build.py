@@ -14,13 +14,14 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import threading
 from pathlib import Path
+
+from . import sync as libsync
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-funroll-loops", "-shared", "-fPIC", "-std=c++17")
 
-_lock = threading.Lock()
+_lock = libsync.Mutex("libs.native_build._lock")
 
 
 class NativeBuildError(RuntimeError):

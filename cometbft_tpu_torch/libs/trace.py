@@ -47,6 +47,7 @@ import time
 from collections import deque
 
 from . import autofile
+from . import sync as libsync
 
 _ENV_TRACE = "COMETBFT_TPU_TRACE"
 _ENV_TRACE_FILE = "COMETBFT_TPU_TRACE_FILE"
@@ -70,7 +71,7 @@ _enabled: bool = os.environ.get(_ENV_TRACE, "").lower() in _ON_VALUES
 _ring: deque = deque(maxlen=_ring_size_from_env())
 _ids = itertools.count(1)  # span ids; count.__next__ is GIL-atomic
 _tls = threading.local()  # .spans: stack of with-entered Span objects
-_mtx = threading.Lock()  # sink start/stop only
+_mtx = libsync.Mutex("libs.trace._mtx")  # sink start/stop only
 _sink: "_FileSink | None" = None
 
 

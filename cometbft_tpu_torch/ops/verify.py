@@ -50,6 +50,7 @@ from ..crypto import ed25519_ref
 from ..libs import accel as libaccel
 from ..libs import devstats as libdevstats
 from ..libs import metrics as libmetrics
+from ..libs import sync as libsync
 from . import cuda_verify, curve, field
 
 L = curve.L
@@ -427,7 +428,7 @@ class LaneArena:
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
-        self._lock = threading.Lock()
+        self._lock = libsync.Mutex("ops.verify._lane_mtx")
         self._slots: dict[tuple, deque] = {}  # of [host, dev, event]
         self.stages = 0
         self.allocs = 0  # slots made, at most PING_PONG a key
@@ -515,7 +516,7 @@ class PubkeyTableCache:
             raise ValueError("capacity must be in [1, 65535]: uint16 slots")
         self.device = resolve_device(device)
         self.capacity = capacity
-        self._lock = threading.Lock()
+        self._lock = libsync.Mutex("ops.verify._lock")
         self._slots: OrderedDict[bytes, int] = OrderedDict()
         self._arena = torch.zeros(
             (curve.TSIZE, 4, field.NLIMB, capacity + 1), dtype=torch.int32,

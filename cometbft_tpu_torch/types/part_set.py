@@ -18,6 +18,7 @@ import threading
 from dataclasses import dataclass
 
 from ..crypto import merkle
+from ..libs import sync as libsync
 from ..libs.bits import BitArray
 from .block import BLOCK_PART_SIZE_BYTES, PartSetHeader
 
@@ -100,6 +101,10 @@ class PartSet:
             self.parts_bit_array.set_index(part.index, True)
             self.count += 1
             self.byte_size += len(part.bytes_)
+            # the lockset sanitizer's seam: PartSet.count is a documented
+            # lock-free field in fieldguards.json (a single writer in the
+            # reference), so it records an empty guard set
+            libsync.lockset_note("PartSet.count")
             return True
 
     def get_part(self, index: int) -> Part | None:

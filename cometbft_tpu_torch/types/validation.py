@@ -168,19 +168,24 @@ def _verify(
     chain_id, vals, commit, needed, ignore, count, count_all, by_index,
     device, pubkey_cache, flavor,
 ) -> None:
-    if _should_batch_verify(vals, commit):
-        bv = crypto_batch.create_commit_batch_verifier(
-            vals, device=device, pubkey_cache=pubkey_cache, flavor=flavor
-        )
-        _verify_batch(
-            bv, chain_id, vals, commit, needed, ignore, count, count_all,
-            by_index,
-        )
-    else:
-        _verify_single(
-            chain_id, vals, commit, needed, ignore, count, count_all,
-            by_index,
-        )
+    from ..libs import devledger
+
+    # the ledger's default tenant of a commit check; an outer declaration
+    # (the light client's) wins
+    with devledger.caller_class("commit-verify"):
+        if _should_batch_verify(vals, commit):
+            bv = crypto_batch.create_commit_batch_verifier(
+                vals, device=device, pubkey_cache=pubkey_cache, flavor=flavor
+            )
+            _verify_batch(
+                bv, chain_id, vals, commit, needed, ignore, count, count_all,
+                by_index,
+            )
+        else:
+            _verify_single(
+                chain_id, vals, commit, needed, ignore, count, count_all,
+                by_index,
+            )
 
 
 def _walk(vals, commit, ignore, by_index):

@@ -66,14 +66,18 @@ class Vote:
 
     def verify(self, chain_id: str, pub_key) -> None:
         """Signature and address check (types/vote.go:210-232), the
-        signature through crypto/coalesce.verify_signature."""
+        signature through crypto/coalesce.verify_signature, charged to the
+        "consensus-vote" caller class unless an outer caller declared
+        one (libs/devledger)."""
         from ..crypto import coalesce
+        from ..libs import devledger
 
         if bytes(pub_key.address()) != self.validator_address:
             raise VoteError("invalid validator address")
-        if not coalesce.verify_signature(
-            pub_key, self.sign_bytes(chain_id), self.signature
-        ):
+        with devledger.caller_class("consensus-vote"):
+            ok = coalesce.verify_signature(
+                pub_key, self.sign_bytes(chain_id), self.signature)
+        if not ok:
             raise VoteError("invalid signature")
 
     def verify_vote_and_extension(self, chain_id: str, pub_key) -> None:
@@ -89,13 +93,15 @@ class Vote:
         """Extension signature only (types/vote.go:254-270), routed like
         :meth:`verify`."""
         from ..crypto import coalesce
+        from ..libs import devledger
 
         if self.msg_type != canonical.PRECOMMIT_TYPE or self.block_id.is_nil():
             return
-        if not coalesce.verify_signature(
-            pub_key, self.extension_sign_bytes(chain_id),
-            self.extension_signature,
-        ):
+        with devledger.caller_class("consensus-vote"):
+            ok = coalesce.verify_signature(
+                pub_key, self.extension_sign_bytes(chain_id),
+                self.extension_signature)
+        if not ok:
             raise VoteError("invalid extension signature")
 
     def commit_sig(self) -> CommitSig:

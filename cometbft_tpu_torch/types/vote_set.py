@@ -21,10 +21,10 @@ Reference: types/vote_set.go. Key behaviors preserved:
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 
 from ..crypto import batch as crypto_batch
+from ..libs import sync as libsync
 from ..libs.bits import BitArray
 from . import canonical
 from .block import BlockID, Commit, CommitSig
@@ -90,7 +90,7 @@ class VoteSet:
         # pops its entry and skips the signature check on a hit.
         self.sig_memo = sig_memo
         self.device = device  # where add_votes_batch's batches verify
-        self._mtx = threading.RLock()
+        self._mtx = libsync.RLock("vote_set")
         self.chain_id = chain_id
         self.height = height
         self.round = round_
@@ -152,6 +152,7 @@ class VoteSet:
         Returns True if the vote was newly added; raises on invalid votes.
         """
         with self._mtx:
+            libsync.lockset_note("VoteSet.votes")
             self._check_vote(vote)
             val = self.val_set.get_by_index(vote.validator_index)
             self._verify_vote_signature(vote, val.pub_key)

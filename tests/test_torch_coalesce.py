@@ -296,7 +296,7 @@ def test_a_wedged_window_times_out_and_stop_fails_it(monkeypatch, pushed):
     finished."""
     release = threading.Event()
 
-    def wedged(self, groups):
+    def wedged(self, groups, reason, t_pop):
         release.wait(30)
         raise RuntimeError("released")
 
@@ -343,13 +343,14 @@ def test_executor_death_fails_its_tickets(monkeypatch):
 def _fake_launch(dispatched, finish_for):
     """A _launch that stages for real and returns an in-flight window
     whose readback is ``finish_for(seq, lanes)``."""
-    def launch(self, groups):
+    def launch(self, groups, reason, t_pop):
         pubkeys, _, _, staged = self._stage(groups)
         seq = len(dispatched) + 1
         dispatched.append(seq)
         n = len(pubkeys)
         return coalesce._Inflight(lambda: finish_for(seq, n),
-                                  np.ones(n, bool), staged, n, 0.0)
+                                  np.ones(n, bool), staged, n, 0.0, reason,
+                                  t_pop)
     return launch
 
 

@@ -66,7 +66,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     for rel in ("crypto/sr25519.py", "crypto/secp256k1.py",
                 "crypto/host_batch.py", "crypto/batch.py", "crypto/keys.py",
                 "crypto/__init__.py", "ops/verify.py", "convert.py",
-                "ops/rlc.py", "ops/cuda_rlc.py"):
+                "ops/rlc.py", "ops/cuda_rlc.py", "libs/sync.py",
+                "libs/lockprof.py", "libs/devledger.py", "libs/health.py",
+                "libs/pprof.py", "libs/service.py", "libs/devstats.py",
+                "crypto/plane.py"):
         assert ROOT / "cometbft_tpu_torch" / rel in files, rel
     bad = {
         f"{f.relative_to(ROOT)}: {mod}"
@@ -75,6 +78,23 @@ def test_port_imports_no_jax_and_no_reference_package():
         if mod in FORBIDDEN
     }
     assert not bad, sorted(bad)
+
+
+def test_lock_registries_are_read_from_the_ports_own_copy():
+    """libs/lockprof and libs/sync read lockorder.json and
+    fieldguards.json from cometbft_tpu_torch/devtools/lint/graph, copies
+    of the JAX package's files byte for byte."""
+    from cometbft_tpu_torch.libs import lockprof, sync
+
+    graph = ROOT / "cometbft_tpu_torch" / "devtools" / "lint" / "graph"
+    ref = ROOT / "cometbft_tpu" / "devtools" / "lint" / "graph"
+    paths = {"lockorder.json": {lockprof._registry_path(),
+                                sync._static_graph_path()},
+             "fieldguards.json": {sync._fieldguards_path()}}
+    for name, read in paths.items():
+        assert {Path(p).resolve() for p in read} == {graph / name}, name
+        assert (graph / name).read_bytes() == (ref / name).read_bytes()
+    assert len(lockprof.NAMES) > 60 and sync._load_field_guards()
 
 
 def _path_literals(path: Path):

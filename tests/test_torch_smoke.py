@@ -632,3 +632,109 @@ def test_mesh_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
     assert lanes["verify_kernel"] == {8: 4, 16: 9, 64: 1}
     assert [x["idle_share"] for x in lines
             if x["phase"] == "mesh.trace"] == [0.5]
+
+
+def test_ledger_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
+    """chip_smoke.phase_ledger end to end at 12 validators, a 10-validator
+    commit and a 64-part block: "cuda" mapped to the CPU, the plain versions
+    counted as launches. Run (1) keeps its windows on the host here (each
+    plain K2 window costs ~1 s on the CPU); run (2)'s two windows and the
+    hash plane's run on the plain versions. The listeners, the ledger's
+    reconciliation, its window counts against the launches, the caller
+    rows, the ring rows and the scraped lanes are checked as on the card;
+    the torch.profiler round trip (a spawned process) is stubbed."""
+    import types
+
+    import torch
+
+    from cometbft_tpu_torch.crypto import plane
+    from cometbft_tpu_torch.libs import devledger, devstats, health, lockprof
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    n = 12
+    monkeypatch.delenv("COMETBFT_TPU_DEVSTATS", raising=False)
+    for name, value in (("LEDGER_VALIDATORS", n), ("LEDGER_TAMPERED", 5),
+                        ("LEDGER_SMALL", 10), ("LEDGER_SMALL_TAMPERED", 3),
+                        ("LEDGER_TURNS", 1), ("LEDGER_CUT", 1 << 30),
+                        ("BLOCK_BYTES", 64 * 1_024)):
+        monkeypatch.setattr(cs, name, value)
+    # 1 KiB parts: 64 leaves of 17 blocks reach their bucket's seed cut
+    # (2,048 // 32 = 64 lanes), and X4's plain version hashes them fast
+    from cometbft_tpu_torch.types import part_set
+
+    monkeypatch.setattr(part_set.PartSet.from_data.__func__, "__defaults__",
+                        (1_024,))
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    monkeypatch.setattr(cs, "get_context", lambda method: types.
+                        SimpleNamespace(Pool=lambda n: _InlinePool()))
+    monkeypatch.setattr(cs, "_traced_ledger", lambda vals, votes: {
+        "names_k2": True, "rejected": [5]})
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    real_resolve = ov.resolve_device
+
+    def to_cpu(d):
+        return real_resolve("cpu" if torch.device(d).type == "cuda" else d)
+    for mod in (ov, plane, hashplane, sha256):
+        monkeypatch.setattr(mod, "resolve_device", to_cpu)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for name in ("verify_kernel", "verify_kernel_cached",
+                 "build_pubkey_tables"):
+        def counted(*a, _real=getattr(cv, name), _name=name, **k):
+            lanes = (k["y_r"] if "y_r" in k else k["y_a"] if "y_a" in k
+                     else a[0]).shape[-1]
+            cv.LAUNCHES[_name] += 1
+            cv.LAUNCH_LANES[_name][lanes] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(cv, name, counted)
+
+    def counted_x4(blocks, nblocks, _real=cuda_sha256.sha256):
+        cuda_sha256.LAUNCHES["sha256"] += 1
+        shape = (blocks.shape[0], blocks.shape[-1])
+        shapes = cuda_sha256.LAUNCH_SHAPES["sha256"]
+        shapes[shape] = shapes.get(shape, 0) + 1
+        return _real(blocks, nblocks)
+    monkeypatch.setattr(cuda_sha256, "sha256", counted_x4)
+    compared = {(bb, lb) for bb in (1, 2, 32, 2048)  # 32: the 1 KiB leaves
+                for lb in cs.X4_LANE_BUCKETS}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    devstats.acquire()  # as main() holds it for the libs line after
+    try:
+        sets = cs.make_ledger_sets(_SerialPool())
+        launches, lanes, (err, mismatches), x4, x4_shapes = cs.phase_ledger(
+            torch, "cpu", sets, compared)
+        assert devstats.enabled()  # the phase's own hold released, not all
+    finally:
+        devstats.release()
+        torch.set_num_threads(threads)
+        cv.reset_launches()
+        cuda_sha256.reset_launches()
+        devledger.reset()
+        health.reset()
+        lockprof.reset()
+    assert not devledger.enabled() and not health.enabled()
+    assert not lockprof.enabled()
+    out = [x for x in lines if x["phase"] == "ledger"][0]
+    # X1 at both sets' prestage, K2 on run (2)'s two windows and on the
+    # made commit's direct batch (11 signatures)
+    assert lanes["build_pubkey_tables"] == {n: 1, 10: 1}
+    assert lanes["verify_kernel_cached"] == {10: 2, n - 1: 1}
+    assert not any(mismatches.values()) and not any(err.values())
+    assert x4 == sum(x4_shapes.values()) > 0
+    assert set(out["callers"]["verify"]) == {"consensus-vote",
+                                             "commit-verify"}
+    assert out["callers"]["verify"]["consensus-vote"]["lanes"] == 2 * n
+    assert out["callers"]["verify"]["commit-verify"]["lanes"] == 20
+    assert set(out["callers"]["hash"]) == {"merkle"}
+    assert out["occupancy"]["verify"]["device_windows"] == 2
+    assert out["occupancy"]["hash"]["device_windows"] == x4 == 1
+    assert out["metrics"]["device_lanes_consensus_vote"] == 2 * n
+    assert set(out["pprof"].values()) == {200}
+    assert len(out["prevote_round_host_ms"]["accounting_on"]) == 1
+    assert len(out["prevote_round_host_ms"]["accounting_off"]) == 1
+    runs = [x for x in lines if x["phase"] == "ledger.run"]
+    assert [r["run"][:3] for r in runs] == ["(1)", "(2)", "(3)"]
