@@ -236,6 +236,38 @@ the whole run) and device-memory gauges, the fast25519 tier in force
 (whether the cryptography wheel is installed) and 1,000
 Ed25519PubKey.verify_signature calls, in us a verify.
 
+12. chain — block execution and storage on a seeded 10,000-validator
+             chain of fresh keys (the arena starts cold), equal power:
+             proxy.AppConns(local_client_creator(KVStoreApplication)),
+             state.Store, store.BlockStore, each on a FileDB under
+             build/chain/, an EventBus, a BlockExecutor on the card and a
+             HashCoalescer(device="cuda") pushed for the whole path.
+             Heights 1-6 each carry 1,024 seeded kvstore txs of 1 KiB
+             from a list-backed mempool stand-in; each height: the block
+             from create_proposal_block, PartSet.from_data over the
+             codec's bytes, apply_block (validate_block: the LastCommit
+             through verify_commit on K2 via the process-wide arena, X1
+             for the keys it lacks; FinalizeBlock, Commit, the state
+             save), the height's 10,000 precommits signed by a spawn pool,
+             BlockStore.save_block. Height 3 carries a val: tx adding a
+             fresh key, so height 6's LastCommit has 10,001 signatures
+             (K2 at 10,001 lanes, X1 at 1 key). Then a seventh block whose
+             LastCommit has one spoiled signature must raise
+             BlockValidationError naming its index, with the state, both
+             stores and the app untouched; then the three FileDBs are
+             reopened: Store.load() equals the last state,
+             BlockStore.load_block(h) each block, the app's info its app
+             hash. Per height it prints the host ms of validate_block
+             (verify_commit, hashing, the rest), FinalizeBlock, Commit,
+             the state save, the block save, and the launches; every
+             K2/X1 launch of the path is held against its plain version
+             (WindowRecorder) and every X4 launch against X4's plain
+             version on its own wire (X4Recorder), and each may run only
+             at counts or shapes so compared. Last, in a process of its
+             own, one warm height (3) under torch.profiler for the card's
+             idle share (chain.trace). The signing pool of phases 3-10
+             is closed by then: the phase opens its own.
+
 In the slice and light phases K1-K4 and X1 must run only at lane counts
 the kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3
 checks; X1 builds a commit's missing keys); in the vote phase K1 and K2,
@@ -248,7 +280,8 @@ torch ops, at the commit cell's shapes beside their bytes bounds, with
 their launches on each path (ops.cuda_verify.OP_LAUNCHES, read with
 K1-K4's).
 
-Then one line {"kernels": [...]} (K1-K4, X1, X5 and X4), the card's
+Then one line {"kernels": [...]} (K1-K4, X1, X5 and X4; launches by
+path, the chain's included), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
 raises: the script exits nonzero and prints no last line. Without CUDA
 it exits 2.
@@ -4208,6 +4241,594 @@ def phase_ledger(torch, card, sets, x4_compared):
     return launches, lanes, (err, mismatches), x4_all, x4_shapes
 
 
+# The chain phase: block execution and storage (state/, store/, abci/
+# kvstore, proxy, libs/db) on a 10,000-validator chain, the LastCommits
+# on K2 (X1 for the keys the arena lacks), the block's hashes on X4.
+CHAIN_VALIDATORS = N_VALIDATORS  # fresh keys: the arena starts cold
+CHAIN_POWER = 100  # every validator's, the added one's too
+CHAIN_HEIGHTS = 6
+CHAIN_TXS = 1_024  # a height's kvstore txs, ...
+CHAIN_TX_BYTES = 1_024  # ... of 1 KiB each: ~1 MiB of txs a block
+CHAIN_UPDATE_HEIGHT = 3  # carries the val: tx that adds a fresh key
+CHAIN_TAMPERED = 6_173  # the seventh block's spoiled LastCommit signature
+CHAIN_TRACE_HEIGHT = 3  # the warm height profiled in a process of its own
+CHAIN_EXEC_ID = "chip-smoke-exec"
+CHAIN_T0_NS = 1_770_000_000_000_000_000
+CHAIN_SEED = b"chain"
+
+
+def _fast_pubkey_chunk(seeds):
+    """Worker: seeds -> public keys (crypto/fast25519: OpenSSL when the
+    cryptography wheel is installed)."""
+    from cometbft_tpu_torch.crypto import fast25519
+
+    return [fast25519.pubkey_from_seed(s) for s in seeds]
+
+
+def _fast_sign_chunk(items):
+    """Worker: [(seed, msg)] -> [signature] through crypto/fast25519."""
+    from cometbft_tpu_torch.crypto import fast25519
+
+    return [fast25519.sign_one(s, m) for s, m in items]
+
+
+def chain_seeds() -> list[bytes]:
+    """The chain's validator seeds, the added validator's last."""
+    return [_seed(CHAIN_SEED, i) for i in range(CHAIN_VALIDATORS + 1)]
+
+
+def chain_txs(height: int) -> list[bytes]:
+    """Height ``height``'s CHAIN_TXS seeded kvstore txs, ``key=value`` of
+    CHAIN_TX_BYTES each, and at CHAIN_UPDATE_HEIGHT nothing else: the
+    validator update comes on its own (chain_update_tx)."""
+    txs = []
+    for i in range(CHAIN_TXS):
+        key = b"h%02d-k%05d" % (height, i)
+        fill = CHAIN_TX_BYTES - len(key) - 1
+        value = hashlib.sha256(CHAIN_SEED + key).hexdigest().encode()
+        txs.append(key + b"=" + (value * (fill // len(value) + 1))[:fill])
+    return txs
+
+
+def chain_update_tx(pub: bytes) -> bytes:
+    """The kvstore's validator-update tx adding ``pub`` at CHAIN_POWER
+    (``val:<pubkey hex>!<power>``)."""
+    return b"val:" + pub.hex().encode() + b"!%d" % CHAIN_POWER
+
+
+class ListMempool:
+    """The chain phase's mempool stand-in (the mempool is not ported yet):
+    the height's txs in a list, reaped in order within the byte budget; a
+    commit drops the txs its block carried."""
+
+    def __init__(self):
+        self.txs: list[bytes] = []
+
+    def reap_max_bytes_max_gas(self, max_bytes: int, max_gas: int):
+        out, total = [], 0
+        for tx in self.txs:
+            if max_bytes >= 0 and total + len(tx) > max_bytes:
+                break
+            out.append(tx)
+            total += len(tx)
+        return out
+
+    def lock(self) -> None:
+        pass
+
+    def unlock(self) -> None:
+        pass
+
+    def update(self, height, txs, tx_results, *args, **kwargs) -> None:
+        done = set(txs)
+        self.txs = [tx for tx in self.txs if tx not in done]
+
+
+class ChainRig:
+    """The chain's node-side objects on the port: a KVStoreApplication
+    behind proxy.AppConns(local_client_creator(...)), state.Store,
+    store.BlockStore and an EventBus subscribed to every event, each store
+    a FileDB under ``root`` (a MemDB without one), and a BlockExecutor on
+    ``device``. The genesis set is CHAIN_VALIDATORS validators of equal
+    power; InitChain hands them to the app and its app hash to the
+    state."""
+
+    def __init__(self, pubs, device="cuda", root=None):
+        from cometbft_tpu_torch import proxy, state as st, store
+        from cometbft_tpu_torch.abci import kvstore, types as abci
+        from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+        from cometbft_tpu_torch.libs import db as dbm, pubsub
+        from cometbft_tpu_torch.types import event_bus, genesis
+
+        def db(name):
+            if root is None:
+                return dbm.MemDB()
+            return dbm.FileDB(str(Path(root) / f"{name}.db"))
+
+        self.dbs = {n: db(n) for n in ("app", "state", "blocks")}
+        self.app = kvstore.KVStoreApplication(self.dbs["app"])
+        self.conns = proxy.AppConns(proxy.local_client_creator(self.app))
+        self.conns.start()
+        gen = genesis.GenesisDoc(
+            chain_id=CHAIN_EXEC_ID, genesis_time_ns=CHAIN_T0_NS,
+            validators=[genesis.GenesisValidator(Ed25519PubKey(p),
+                                                 CHAIN_POWER)
+                        for p in pubs[:CHAIN_VALIDATORS]])
+        self.state = st.make_genesis_state(gen)
+        init = self.conns.consensus.init_chain(abci.RequestInitChain(
+            time_ns=CHAIN_T0_NS, chain_id=CHAIN_EXEC_ID,
+            validators=[abci.ValidatorUpdate("ed25519", p, CHAIN_POWER)
+                        for p in pubs[:CHAIN_VALIDATORS]]))
+        self.state.app_hash = init.app_hash
+        self.state_store = st.Store(self.dbs["state"])
+        self.state_store.save(self.state)
+        self.block_store = store.BlockStore(self.dbs["blocks"])
+        self.bus = event_bus.EventBus()
+        self.bus.start()
+        self.events = self.bus.subscribe("chip-smoke", pubsub.Empty(),
+                                         capacity=None)
+        self.mempool = ListMempool()
+        self.exe = st.BlockExecutor(
+            self.state_store, self.conns.consensus, mempool=self.mempool,
+            block_store=self.block_store, event_bus=self.bus, device=device)
+        self.blocks = {}
+        self.last_ext = None
+
+    def propose(self, height: int):
+        """Block ``height`` from create_proposal_block, its part set over
+        the codec's bytes and its BlockID; (block, part set, block id,
+        {step: host ms})."""
+        from cometbft_tpu_torch.types import block, part_set
+        from cometbft_tpu_torch.types import serialization as ser
+
+        ms = {}
+        t = time.perf_counter()
+        blk = self.exe.create_proposal_block(
+            height, self.state, self.last_ext,
+            self.state.validators.get_proposer().address,
+            time_ns=CHAIN_T0_NS + height * 10**9)
+        ms["create_proposal_block"] = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        data = ser.dumps(blk)
+        ms["codec"] = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        ps = part_set.PartSet.from_data(data)
+        bid = block.BlockID(blk.hash(), ps.header)
+        ms["part_set"] = 1e3 * (time.perf_counter() - t)
+        return blk, ps, bid, ms
+
+    def close(self) -> None:
+        self.bus.stop()
+        self.conns.stop()
+        for db in self.dbs.values():
+            db.close()
+
+
+def chain_commit(sign, seed_of, vals, height: int, bid):
+    """The precommits of ``vals`` for ``bid`` at ``height`` as a Commit,
+    every validator's sign bytes signed by ``sign`` ([(seed, msg)] ->
+    [signature]), as make_commit does."""
+    from cometbft_tpu_torch.types import block
+
+    t_ns = CHAIN_T0_NS + height * 10**9 + 500_000_000
+    unsigned = [block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, v.address,
+                                t_ns + 7919 * i)
+                for i, v in enumerate(vals.validators)]
+    commit = block.Commit(height, 0, bid, unsigned)
+    sigs = sign([(seed_of[cs.validator_address],
+                  commit.vote_sign_bytes(CHAIN_EXEC_ID, i))
+                 for i, cs in enumerate(unsigned)])
+    commit.signatures = [block.CommitSig(cs.block_id_flag,
+                                         cs.validator_address,
+                                         cs.timestamp_ns, sig)
+                         for cs, sig in zip(unsigned, sigs)]
+    return commit
+
+
+def chain_extended(commit):
+    """``commit`` as the ExtendedCommit the next proposal carries (no vote
+    extensions: they are off in the genesis params)."""
+    from cometbft_tpu_torch.types import block
+
+    return block.ExtendedCommit(
+        commit.height, commit.round, commit.block_id,
+        [block.ExtendedCommitSig(cs) for cs in commit.signatures])
+
+
+def chain_height(rig, height, sign, seed_of):
+    """One height on ``rig``: propose (the update tx at
+    CHAIN_UPDATE_HEIGHT), apply_block, the commit signed by the height's
+    validators, BlockStore.save_block. {step: host ms}."""
+    rig.mempool.txs = chain_txs(height)
+    if height == CHAIN_UPDATE_HEIGHT:
+        rig.mempool.txs.append(chain_update_tx(rig.added_pub))
+    blk, ps, bid, ms = rig.propose(height)
+    t = time.perf_counter()
+    rig.state = rig.exe.apply_block(rig.state, bid, blk)
+    ms["apply_block"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    commit = chain_commit(sign, seed_of, rig.state.last_validators, height,
+                          bid)
+    ms["sign"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    rig.block_store.save_block(blk, ps, commit)
+    ms["save_block"] = 1e3 * (time.perf_counter() - t)
+    rig.blocks[height] = blk
+    rig.last_ext = chain_extended(commit)
+    return ms, blk, ps
+
+
+class StepTimer:
+    """Host ms of the executor's steps while entered: validate_block, and
+    inside it verify_commit and the hashing (the outermost merkle roots
+    and tx-key batches); FinalizeBlock; Commit; the state save. Wraps the
+    module functions and the rig's instances, restores them on exit."""
+
+    def __init__(self, rig):
+        self.rig = rig
+        self.ms = collections.Counter()
+        self._depth = 0
+        self._saved = []
+
+    def _patch(self, owner, name, key, nested=False):
+        real = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            if nested and self._depth:
+                return real(*args, **kwargs)
+            self._depth += nested
+            t = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.ms[key] += 1e3 * (time.perf_counter() - t)
+                self._depth -= nested
+        self._saved.append((owner, name, real))
+        setattr(owner, name, timed)
+
+    def __enter__(self):
+        from cometbft_tpu_torch.crypto import hashplane, merkle
+        from cometbft_tpu_torch.state import execution
+        from cometbft_tpu_torch.types import validation
+
+        self._patch(merkle, "hash_from_byte_slices", "hashing", nested=True)
+        self._patch(hashplane, "hash_many", "hashing", nested=True)
+        self._patch(validation, "verify_commit", "verify_commit")
+        self._patch(self.rig.conns.consensus, "finalize_block",
+                    "finalize_block")
+        self._patch(self.rig.conns.consensus, "commit", "commit")
+        self._patch(self.rig.state_store, "save", "state_save")
+        real_validate = execution.validate_block
+
+        def validate(*args, **kwargs):
+            h0 = self.ms["hashing"]
+            t = time.perf_counter()
+            try:
+                return real_validate(*args, **kwargs)
+            finally:
+                self.ms["validate_block"] += 1e3 * (time.perf_counter() - t)
+                self.ms["validate_hashing"] += self.ms["hashing"] - h0
+        self._saved.append((execution, "validate_block", real_validate))
+        execution.validate_block = validate
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._saved):
+            if owner in (self.rig.conns.consensus, self.rig.state_store):
+                delattr(owner, name)  # back to the class's method
+            else:
+                setattr(owner, name, real)
+
+    def take(self) -> dict:
+        """This height's steps, and zero for the next."""
+        ms, self.ms = dict(self.ms), collections.Counter()
+        verify = ms.get("verify_commit", 0.0)
+        hashing = ms.pop("validate_hashing", 0.0)
+        total = ms.get("validate_block", 0.0)
+        ms.pop("hashing", None)
+        return {"validate_block": {"total": total, "verify_commit": verify,
+                                   "hashing": hashing,
+                                   "rest": total - verify - hashing},
+                "finalize_block": ms.get("finalize_block", 0.0),
+                "commit": ms.get("commit", 0.0),
+                "state_save": ms.get("state_save", 0.0)}
+
+
+class X4Recorder:
+    """Records every X4 launch (cuda_sha256.sha256) while entered: its
+    wire, block counts and output state (each dispatch's buffers are its
+    own, so the references stay valid), for compare_x4."""
+
+    def __init__(self, cuda_sha256):
+        self.mod = cuda_sha256
+        self.records = []
+
+    def __enter__(self):
+        real = self._real = self.mod.sha256
+
+        def recording(blocks, nblocks):
+            out = real(blocks, nblocks)
+            self.records.append((blocks, nblocks, out))
+            return out
+        self.mod.sha256 = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sha256 = self._real
+
+
+def compare_x4(torch, records):
+    """Each recorded X4 launch against the plain version on its own wire,
+    one plain call per block bucket over that bucket's wires side by
+    side: (largest difference, words that differ, {(block bucket, lane
+    bucket)} compared)."""
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import sha256 as osha
+
+    torch.cuda.synchronize()
+    err = mismatches = 0
+    compared = set()
+    for bb in sorted({b.shape[0] for b, _, _ in records}):
+        group = [r for r in records if r[0].shape[0] == bb]
+        plain = osha.sha256_plain(
+            torch.cat([b for b, _, _ in group], dim=2),
+            torch.cat([cuda_sha256.as_int64(nb) for _, nb, _ in group]))
+        got = torch.cat([cuda_sha256.as_int64(s) for _, _, s in group],
+                        dim=1)
+        diff = (got - cuda_sha256.as_int64(plain)).abs()
+        err = max(err, int(diff.max()))
+        mismatches += int((diff != 0).sum())
+        compared |= {(bb, b.shape[2]) for b, _, _ in group}
+    return err, mismatches, compared
+
+
+def _traced_chain(pubs):
+    """Worker: a MemDB chain on the card through heights 1 to
+    CHAIN_TRACE_HEIGHT - 1 (height 2's LastCommit builds the arena), then
+    the warm height CHAIN_TRACE_HEIGHT (propose: create_proposal_block,
+    the codec and from_data; then apply_block) under torch.profiler, through a pushed HashCoalescer
+    (device="cuda"): (host ms, card-busy ms, device events)."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import hashplane
+
+    seed_of, sign = _chain_signer(pubs, None)
+    rig = ChainRig(pubs, device="cuda")
+    rig.added_pub = pubs[CHAIN_VALIDATORS]
+    co = hashplane.HashCoalescer(device="cuda")
+    co.start()
+    hashplane.push_active(co)
+    try:
+        for h in range(1, CHAIN_TRACE_HEIGHT):
+            chain_height(rig, h, sign, seed_of)
+        h = CHAIN_TRACE_HEIGHT
+        rig.mempool.txs = chain_txs(h)
+        if h == CHAIN_UPDATE_HEIGHT:
+            rig.mempool.txs.append(chain_update_tx(rig.added_pub))
+
+        out = {}
+
+        def warm_height():
+            blk, ps, bid, _ = rig.propose(h)
+            out["state"] = rig.exe.apply_block(rig.state, bid, blk)
+        host_ms, busy_ms, events = device_busy_ms(torch, warm_height)
+        check(out["state"].last_block_height == h, "the traced height "
+              "was not applied")
+        return host_ms, busy_ms, events
+    finally:
+        hashplane.pop_active(co)
+        co.stop()
+        rig.close()
+
+
+def _chain_signer(pubs, pool):
+    """({address: seed}, sign): ``sign`` signs [(seed, msg)] through the
+    pool's workers, or in this process without a pool."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+
+    seeds = chain_seeds()
+    seed_of = {Ed25519PubKey(p).address(): s for p, s in zip(pubs, seeds)}
+    if pool is None:
+        return seed_of, _fast_sign_chunk
+    return seed_of, lambda items: _pool_map(pool, _fast_sign_chunk, items)
+
+
+def phase_chain(torch, card):
+    """The chain phase (see the module docstring, phase 12). Returns
+    ({kernel: launches}, {kernel: {lanes: launches}}, the window
+    comparisons' (err, mismatches), X4's launches, X4's launches by shape,
+    X4's (err, mismatches))."""
+    import shutil
+
+    from cometbft_tpu_torch.crypto import hashplane
+    from cometbft_tpu_torch.ops import cuda_sha256, cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.state import validation as sv
+    from cometbft_tpu_torch.state import State, Store
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.abci import kvstore, types as abci
+    from cometbft_tpu_torch.libs import db as dbm
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chain"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    with get_context("spawn").Pool(WORKERS) as pool:
+        t = time.perf_counter()
+        pubs = _pool_map(pool, _fast_pubkey_chunk, chain_seeds())
+        seed_of, sign = _chain_signer(pubs, pool)
+        keys_s = time.perf_counter() - t
+        rig = ChainRig(pubs, device="cuda", root=root)
+        rig.added_pub = pubs[CHAIN_VALIDATORS]
+        plane = hashplane.HashCoalescer(device="cuda")
+        plane.start()
+        hashplane.push_active(plane)
+        heights = []
+        try:
+            torch.cuda.synchronize()
+            cuda_verify.reset_launches()  # the chain path starts here
+            cuda_sha256.reset_launches()
+            with WindowRecorder(ov, cuda_verify) as recorder, \
+                    X4Recorder(cuda_sha256) as x4_recorder, \
+                    StepTimer(rig) as timer, \
+                    env("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "0"):
+                for h in range(1, CHAIN_HEIGHTS + 1):
+                    k2_0 = dict(cuda_verify.LAUNCH_LANES[
+                        "verify_kernel_cached"])
+                    x1_0 = dict(cuda_verify.LAUNCH_LANES[
+                        "build_pubkey_tables"])
+                    x4_0 = cuda_sha256.LAUNCHES["sha256"]
+                    proposer = rig.state.validators.get_proposer().address
+                    ms, blk, ps = chain_height(rig, h, sign, seed_of)
+                    torch.cuda.synchronize()
+                    row = {"height": h, "validators": len(
+                        rig.state.last_validators), "txs": len(
+                        blk.data.txs), "parts": ps.header.total,
+                        "block_bytes": sum(len(p.bytes_) for p in ps.parts),
+                        "proposer_index": rig.state.last_validators.
+                        get_by_address(proposer)[0],
+                        "host_ms": {**ms, **timer.take()},
+                        "k2_by_lanes": _lanes_since(cuda_verify, 
+                                                    "verify_kernel_cached", k2_0),
+                        "x1_by_lanes": _lanes_since(cuda_verify,
+                                                    "build_pubkey_tables", x1_0),
+                        "x4_launches": cuda_sha256.LAUNCHES["sha256"] - x4_0,
+                        "card": card}
+                    heights.append(row)
+                    emit({"phase": "chain.height", **row})
+                # the seventh block, its LastCommit spoiled at one lane:
+                # refused, nothing changed
+                before = {n: list(db.iterator())
+                          for n, db in rig.dbs.items()}
+                state_bytes = Store._encode_state(rig.state)
+                info0 = rig.conns.query.info(abci.RequestInfo())
+                sigs = list(rig.last_ext.extended_signatures)
+                cs = sigs[CHAIN_TAMPERED].commit_sig
+                bad = bytes([cs.signature[0] ^ 1]) + cs.signature[1:]
+                sigs[CHAIN_TAMPERED] = dataclasses.replace(
+                    sigs[CHAIN_TAMPERED], commit_sig=dataclasses.replace(
+                        cs, signature=bad))
+                rig.last_ext = dataclasses.replace(
+                    rig.last_ext, extended_signatures=sigs)
+                rig.mempool.txs = chain_txs(CHAIN_HEIGHTS + 1)
+                blk7, ps7, bid7, _ = rig.propose(CHAIN_HEIGHTS + 1)
+                try:
+                    rig.exe.apply_block(rig.state, bid7, blk7)
+                    refused = None
+                except sv.BlockValidationError as e:
+                    refused = str(e)
+                timer.take()
+            torch.cuda.synchronize()
+            launches = dict(cuda_verify.LAUNCHES)  # read just after the path
+            x4_shapes = dict(sorted(
+                cuda_sha256.LAUNCH_SHAPES["sha256"].items()))
+            x4_all = cuda_sha256.LAUNCHES["sha256"]
+        finally:
+            hashplane.pop_active(plane)
+            plane.stop()
+        check(refused is not None
+              and f"wrong signature (#{CHAIN_TAMPERED})" in refused,
+              f"the tampered seventh block was not refused as expected: "
+              f"{refused}")
+        check(Store._encode_state(rig.state) == state_bytes
+              and {n: list(db.iterator())
+                   for n, db in rig.dbs.items()} == before
+              and rig.conns.query.info(abci.RequestInfo()) == info0,
+              "the refused block changed the state, a store or the app")
+        events = collections.Counter()
+        while not rig.events.out.empty():
+            events[rig.events.out.get_nowait().events["tm.event"][0]] += 1
+        last = rig.state
+        blocks = dict(rig.blocks)
+        rig.close()
+
+        # the three FileDBs reopened: the state, every block and the app
+        # as they were left
+        t = time.perf_counter()
+        reopened = {n: dbm.FileDB(str(root / f"{n}.db"))
+                    for n in ("app", "state", "blocks")}
+        try:
+            loaded = Store(reopened["state"]).load()
+            check(isinstance(loaded, State) and Store._encode_state(loaded)
+                  == Store._encode_state(last),
+                  "the reopened state store does not hold the last state")
+            bs = BlockStore(reopened["blocks"])
+            check(bs.height() == CHAIN_HEIGHTS and all(
+                bs.load_block(h).hash() == blocks[h].hash()
+                for h in blocks), "the reopened block store lost a block")
+            info = kvstore.KVStoreApplication(reopened["app"]).info(
+                abci.RequestInfo())
+            check(info.last_block_app_hash == last.app_hash
+                  and info.last_block_height == CHAIN_HEIGHTS,
+                  f"the reopened app: {info} against {last.app_hash.hex()}")
+        finally:
+            for db in reopened.values():
+                db.close()
+        reopen_ms = 1e3 * (time.perf_counter() - t)
+        pool.close()
+        pool.join()
+    shutil.rmtree(root, ignore_errors=True)
+
+    # every K2/X1 launch of the path against its plain version, and every
+    # X4 launch: the chain's lane counts and shapes are its own
+    err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
+    mismatches = dict(err)
+    compared = compare_windows(torch, recorder.records, err, mismatches)
+    check(not any(mismatches.values()),
+          f"chain windows != plain: {mismatches}")
+    lanes = check_lanes(cuda_verify, "chain", compared)
+    k2_lanes = lanes["verify_kernel_cached"]
+    check(k2_lanes.get(CHAIN_VALIDATORS, 0) >= 1
+          and k2_lanes.get(CHAIN_VALIDATORS + 1, 0) >= 1,
+          f"K2 did not run at {CHAIN_VALIDATORS} and "
+          f"{CHAIN_VALIDATORS + 1} lanes: {k2_lanes}")
+    check(lanes["build_pubkey_tables"].get(1, 0) >= 1,
+          f"X1 did not build the added key alone: "
+          f"{lanes['build_pubkey_tables']}")
+    for name in ("verify_kernel", "verify_kernel8", "verify_kernel8_cached"):
+        check(launches[name] == 0, f"{name} launched on the chain path")
+    x4_err, x4_mismatches, x4_compared = compare_x4(
+        torch, x4_recorder.records)
+    check(x4_mismatches == 0, f"chain X4 != plain: {x4_mismatches} words")
+    check(x4_all > 0 and len(x4_recorder.records) == x4_all
+          and set(x4_shapes) <= x4_compared,
+          f"chain: X4 ran at {sorted(x4_shapes)}, compared at "
+          f"{sorted(x4_compared)} only")
+
+    # the card's busy and idle share of one warm height, in a process of
+    # its own (this process's profiler no longer sees the hash plane's
+    # threads after the X4 check)
+    with get_context("spawn").Pool(1) as tracer:
+        host_ms, busy_ms, ev = tracer.apply(_traced_chain, (pubs,))
+        tracer.close()
+        tracer.join()
+    check(ev > 0, "the traced warm height ran nothing on the card")
+    emit({"phase": "chain.trace", "step": f"height {CHAIN_TRACE_HEIGHT}, "
+          "warm, profiled (propose, from_data, apply_block)",
+          "host_ms": host_ms, "device_busy_ms": busy_ms,
+          "device_events": ev, "idle_share": 1 - busy_ms / host_ms,
+          "card": card})
+    emit({"phase": "chain", "validators": CHAIN_VALIDATORS,
+          "heights": CHAIN_HEIGHTS, "launches": launches, "lanes": lanes,
+          "x4_launches": x4_all, "x4_by_shape": {
+              f"{bb}x{lb}": n for (bb, lb), n in x4_shapes.items()},
+          "x4_mismatches": x4_mismatches, "x4_max_abs_err": x4_err,
+          "windows_compared": len(recorder.records),
+          "mismatches": dict(mismatches), "max_abs_err": dict(err),
+          "refused": refused, "events": dict(events),
+          "app_hash": last.app_hash.hex(), "reopen_ms": reopen_ms,
+          "keys_seconds": keys_s,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return launches, lanes, (err, mismatches), x4_all, x4_shapes, (
+        x4_err, x4_mismatches)
+
+
+def _lanes_since(cuda_verify, name, before) -> dict:
+    """{lanes: launches} of ``name`` since the snapshot ``before``."""
+    return {n: c - before.get(n, 0) for n, c in sorted(
+        cuda_verify.LAUNCH_LANES[name].items()) if c != before.get(n, 0)}
+
+
 # X2's and X3's launches on each path (ops.cuda_verify.OP_LAUNCHES), read
 # by check_lanes with K1-K4's just after the path
 OP_BY_PATH: dict[str, dict] = {}
@@ -4453,6 +5074,8 @@ def main() -> int:
     emit(libs_line(torch, node, after_slice, vals, commit, smi))
     metrics.pop_node_metrics(node)
     devstats.release()
+    (chain_launches, chain_lanes, (chain_err, chain_mismatches), chain_x4,
+     chain_x4_shapes, chain_x4_diff) = phase_chain(torch, smi)
 
     replaces = {
         "verify_kernel": "cometbft_tpu/ops/pallas_verify.py:922",
@@ -4472,15 +5095,17 @@ def main() -> int:
                            + collections.Counter(mixed_lanes[name])
                            + collections.Counter(rlc_lanes[name])
                            + collections.Counter(mesh_lanes[name])
-                           + collections.Counter(ledger_lanes[name]))
+                           + collections.Counter(ledger_lanes[name])
+                           + collections.Counter(chain_lanes[name]))
                 for name in cuda_verify.LAUNCHES}
-    # the vote, mixed and ledger paths' launches were compared too: their
-    # differences join the kernels phase's
+    # the vote, mixed, ledger and chain paths' launches were compared too:
+    # their differences join the kernels phase's
     for name in ("verify_kernel", "verify_kernel_cached",
                  "build_pubkey_tables"):
         for path_err, path_mismatches in ((vote_err, vote_mismatches),
                                           (mixed_err, mixed_mismatches),
-                                          (ledger_err, ledger_mismatches)):
+                                          (ledger_err, ledger_mismatches),
+                                          (chain_err, chain_mismatches)):
             timed[name]["max_abs_err"] = max(timed[name]["max_abs_err"],
                                              path_err[name])
             timed[name]["mismatches"] += path_mismatches[name]
@@ -4491,14 +5116,15 @@ def main() -> int:
          "launches": (slice_launches[name] + light_launches[name]
                       + vote_launches[name] + mixed_launches[name]
                       + rlc_launches[name] + mesh_launches[name]
-                      + ledger_launches[name]),
+                      + ledger_launches[name] + chain_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
                               "light": light_launches[name],
                               "vote": vote_launches[name],
                               "mixed": mixed_launches[name],
                               "rlc": rlc_launches[name],
                               "mesh": mesh_launches[name],
-                              "ledger": ledger_launches[name]},
+                              "ledger": ledger_launches[name],
+                              "chain": chain_launches[name]},
          "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",
@@ -4515,13 +5141,17 @@ def main() -> int:
         {"name": "sha256", "route": "cuda",
          "source": "cometbft_tpu_torch/ops/csrc/sha256.cu",
          "replaces": "cometbft_tpu/ops/sha256.py:178",
-         "launches": hash_launches + ledger_x4,
-         "launches_by_path": {"hash": hash_launches, "ledger": ledger_x4},
+         "launches": hash_launches + ledger_x4 + chain_x4,
+         "launches_by_path": {"hash": hash_launches, "ledger": ledger_x4,
+                              "chain": chain_x4},
          **x4_row, "launches_by_shape": {
              f"{bb}x{lb}": n for (bb, lb), n in sorted((collections.Counter(
                  {tuple(map(int, k.split("x"))): v for k, v in
                   x4_row["launches_by_shape"].items()})
-                 + collections.Counter(ledger_x4_shapes)).items())},
+                 + collections.Counter(ledger_x4_shapes)
+                 + collections.Counter(chain_x4_shapes)).items())},
+         "max_abs_err": max(x4_row["max_abs_err"], chain_x4_diff[0]),
+         "mismatches": x4_row["mismatches"] + chain_x4_diff[1],
          "library_ms": None},
     ]}), flush=True)
     print(smi, flush=True)

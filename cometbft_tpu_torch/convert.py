@@ -21,6 +21,16 @@ part sets come across the same way (:func:`block_from`,
 secp256k1) come across by their ``type`` and bytes (:func:`pubkey_from`),
 so mixed validator sets do too (:func:`validator_set_from`).
 
+A chain's state comes across the same way: its genesis
+(:func:`genesis_from`), the replicated ``State`` with its three validator
+sets exactly as they stand, priorities and proposer included
+(:func:`state_from`), and the records the stores keep: a block's
+``BlockMeta`` (:func:`block_meta_from`) and an ABCI ``FinalizeBlock``
+response (:func:`abci_response_from`). Each equals what ``ser.loads`` of
+this package makes of ``ser.dumps`` of the JAX package's object (the
+codec tags by class name and both packages' classes have the same
+fields): the tests hold the converters to that round trip.
+
 The RLC batch equation (ops/rlc.py and its kernel X5) keeps no weights
 and no state between calls: its inputs are a batch's bytes and fresh
 random scalars, so nothing of it is carried across. Its plans, encodings
@@ -33,10 +43,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import json
+
+from .abci import types as abci
 from .crypto import merkle
 from .crypto.keys import Ed25519PubKey, pubkey_from_type_and_bytes
 from .ops.verify import PubkeyTableCache
-from .types import block
+from .state.state import State
+from .types import block, evidence, params
+from .types.genesis import GenesisDoc, GenesisValidator
 from .types.light_block import LightBlock, SignedHeader
 from .types.part_set import Part, PartSet
 from .types.validator_set import Validator, ValidatorSet
@@ -143,14 +158,33 @@ def data_from(d) -> block.Data:
     return block.Data(txs=[bytes(tx) for tx in d.txs])
 
 
+def evidence_from(ev):
+    """This package's DuplicateVoteEvidence or LightClientAttackEvidence
+    with the fields of ``ev``."""
+    if type(ev).__name__ == "DuplicateVoteEvidence":
+        return evidence.DuplicateVoteEvidence(
+            vote_a=vote_from(ev.vote_a), vote_b=vote_from(ev.vote_b),
+            total_voting_power=int(ev.total_voting_power),
+            validator_power=int(ev.validator_power),
+            timestamp_ns=int(ev.timestamp_ns))
+    if type(ev).__name__ == "LightClientAttackEvidence":
+        return evidence.LightClientAttackEvidence(
+            conflicting_block=light_block_from(ev.conflicting_block),
+            common_height=int(ev.common_height),
+            byzantine_validators=[_validator_exact(v) for v in
+                                  ev.byzantine_validators],
+            total_voting_power=int(ev.total_voting_power),
+            timestamp_ns=int(ev.timestamp_ns))
+    raise ValueError(f"unknown evidence type {type(ev).__name__}")
+
+
 def block_from(b) -> block.Block:
-    """This package's Block with the header, txs and last commit of ``b``.
-    Evidence is not ported: a block that carries some raises."""
-    if b.evidence:
-        raise ValueError("blocks with evidence cannot be carried across yet")
+    """This package's Block with the header, txs, evidence and last commit
+    of ``b``."""
     return block.Block(
         header=header_from(b.header),
         data=data_from(b.data),
+        evidence=[evidence_from(ev) for ev in b.evidence],
         last_commit=(commit_from(b.last_commit)
                      if b.last_commit is not None else None),
     )
@@ -231,3 +265,114 @@ def vote_set_from(vs, device="cuda") -> VoteSet:
     out.peer_maj23s = {str(p): _block_id(b)
                        for p, b in vs.peer_maj23s.items()}
     return out
+
+
+def _validator_exact(v) -> Validator:
+    return Validator(pubkey_from(v.pub_key), int(v.voting_power),
+                     int(v.proposer_priority), bytes(v.address))
+
+
+def validator_set_exact(vs) -> ValidatorSet | None:
+    """This package's ValidatorSet in the state of ``vs``: the same
+    validators in the same order, with their proposer priorities and the
+    same proposer (no rotation, unlike :func:`validator_set_from`)."""
+    if vs is None:
+        return None
+    out = ValidatorSet.__new__(ValidatorSet)
+    out.validators = [_validator_exact(v) for v in vs.validators]
+    out._total = None
+    out._reindex()
+    out.proposer = None
+    if vs.proposer is not None:
+        _, out.proposer = out.get_by_address(bytes(vs.proposer.address))
+    return out
+
+
+def params_from(p) -> params.ConsensusParams:
+    """This package's ConsensusParams with the sections of ``p``."""
+    return params.ConsensusParams(
+        block=params.BlockParams(int(p.block.max_bytes),
+                                 int(p.block.max_gas)),
+        evidence=params.EvidenceParams(
+            int(p.evidence.max_age_num_blocks),
+            int(p.evidence.max_age_duration_ns), int(p.evidence.max_bytes)),
+        validator=params.ValidatorParams(
+            tuple(str(t) for t in p.validator.pub_key_types)),
+        version=params.VersionParams(int(p.version.app)),
+        abci=params.ABCIParams(int(p.abci.vote_extensions_enable_height)),
+    )
+
+
+def genesis_from(g) -> GenesisDoc:
+    """This package's GenesisDoc with the fields of ``g`` (its app state
+    through JSON, as the genesis file holds it)."""
+    return GenesisDoc(
+        chain_id=str(g.chain_id),
+        genesis_time_ns=int(g.genesis_time_ns),
+        initial_height=int(g.initial_height),
+        consensus_params=params_from(g.consensus_params),
+        validators=[GenesisValidator(pubkey_from(v.pub_key), int(v.power),
+                                     str(v.name), bytes(v.address))
+                    for v in g.validators],
+        app_hash=bytes(g.app_hash),
+        app_state=json.loads(json.dumps(g.app_state)),
+    )
+
+
+def state_from(s) -> State:
+    """This package's State with the fields of ``s``, its validator sets
+    carried exactly (:func:`validator_set_exact`)."""
+    return State(
+        chain_id=str(s.chain_id),
+        initial_height=int(s.initial_height),
+        last_block_height=int(s.last_block_height),
+        last_block_id=_block_id(s.last_block_id),
+        last_block_time_ns=int(s.last_block_time_ns),
+        next_validators=validator_set_exact(s.next_validators),
+        validators=validator_set_exact(s.validators),
+        last_validators=validator_set_exact(s.last_validators),
+        last_height_validators_changed=int(
+            s.last_height_validators_changed),
+        consensus_params=params_from(s.consensus_params),
+        last_height_consensus_params_changed=int(
+            s.last_height_consensus_params_changed),
+        last_results_hash=bytes(s.last_results_hash),
+        app_hash=bytes(s.app_hash),
+        app_version=int(s.app_version),
+    )
+
+
+def block_meta_from(m) -> block.BlockMeta:
+    """This package's BlockMeta with the fields of ``m``."""
+    return block.BlockMeta(block_id=_block_id(m.block_id),
+                           block_size=int(m.block_size),
+                           header=header_from(m.header),
+                           num_txs=int(m.num_txs))
+
+
+def _event_from(e) -> abci.Event:
+    return abci.Event(str(e.type), [
+        abci.EventAttribute(str(a.key), str(a.value), bool(a.index))
+        for a in e.attributes])
+
+
+def abci_response_from(r) -> abci.ResponseFinalizeBlock:
+    """This package's ResponseFinalizeBlock with the fields of ``r``: its
+    events, tx results, validator updates, parameter updates and app
+    hash."""
+    return abci.ResponseFinalizeBlock(
+        events=[_event_from(e) for e in r.events],
+        tx_results=[abci.ExecTxResult(
+            code=int(t.code), data=bytes(t.data), log=str(t.log),
+            info=str(t.info), gas_wanted=int(t.gas_wanted),
+            gas_used=int(t.gas_used),
+            events=[_event_from(e) for e in t.events],
+            codespace=str(t.codespace)) for t in r.tx_results],
+        validator_updates=[abci.ValidatorUpdate(
+            str(u.pub_key_type), bytes(u.pub_key_bytes), int(u.power))
+            for u in r.validator_updates],
+        consensus_param_updates=(
+            None if r.consensus_param_updates is None
+            else params_from(r.consensus_param_updates)),
+        app_hash=bytes(r.app_hash),
+    )

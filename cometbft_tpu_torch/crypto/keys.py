@@ -16,6 +16,7 @@ crypto package is imported (:func:`register_extra_key_types`).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 from . import tmhash
@@ -68,6 +69,10 @@ class Ed25519PrivKey:
     def __post_init__(self) -> None:
         if len(self.data) != PRIVKEY_SIZE:
             raise ValueError("ed25519 privkey must be 64 bytes (seed||pub)")
+
+    @classmethod
+    def generate(cls, rng=os.urandom) -> "Ed25519PrivKey":
+        return cls.from_seed(rng(32))
 
     @classmethod
     def from_seed(cls, seed: bytes) -> "Ed25519PrivKey":

@@ -1,5 +1,5 @@
-"""Block, Data, Header, Commit, CommitSig, BlockID, PartSetHeader
-(types/block.go).
+"""Block, Data, Header, Commit, CommitSig, BlockID, PartSetHeader,
+ExtendedCommit and BlockMeta (types/block.go, types/block_meta.go).
 
 Header.hash is the RFC-6962 merkle root of the proto-encoded fields
 (types/block.go:439-474), scalar fields wrapped in gogotypes value
@@ -21,6 +21,7 @@ from dataclasses import dataclass, field as dc_field
 from ..crypto import hashplane, merkle, tmhash
 from . import canonical, proto
 
+MAX_HEADER_BYTES = 626
 BLOCK_PART_SIZE_BYTES = 65536  # types/part_set.go part size
 
 # BlockIDFlag (types/block.go:574-583)
@@ -188,6 +189,9 @@ class CommitSig:
     def absent(cls) -> "CommitSig":
         return cls()
 
+    def for_block(self) -> bool:
+        return self.block_id_flag == BLOCK_ID_FLAG_COMMIT
+
     def block_id(self, commit_block_id: BlockID) -> BlockID:
         """The BlockID this sig voted for (types/block.go:632-644)."""
         if self.block_id_flag == BLOCK_ID_FLAG_ABSENT:
@@ -234,6 +238,9 @@ class Commit:
     block_id: BlockID
     signatures: list[CommitSig]
 
+    def size(self) -> int:
+        return len(self.signatures)
+
     def vote_sign_bytes(self, chain_id: str, val_idx: int) -> bytes:
         """Sign bytes of validator ``val_idx``'s precommit in this commit
         (types/block.go:871-883 — only the timestamp differs per validator).
@@ -265,6 +272,61 @@ class Commit:
                 raise ValueError("no signatures in commit")
             for cs in self.signatures:
                 cs.validate_basic()
+
+
+@dataclass(frozen=True, slots=True)
+class ExtendedCommitSig:
+    """A CommitSig and the vote extension it carried (types/block.go:646+)."""
+
+    commit_sig: CommitSig
+    extension: bytes = b""
+    extension_signature: bytes = b""
+
+    def validate_basic(self) -> None:
+        self.commit_sig.validate_basic()
+        if self.commit_sig.block_id_flag != BLOCK_ID_FLAG_COMMIT and (
+            self.extension or self.extension_signature
+        ):
+            raise ValueError("non-commit sig cannot carry an extension")
+
+    def ensure_extension(self) -> None:
+        if (
+            self.commit_sig.block_id_flag == BLOCK_ID_FLAG_COMMIT
+            and not self.extension_signature
+        ):
+            raise ValueError("commit sig missing required vote extension")
+
+
+@dataclass(slots=True)
+class ExtendedCommit:
+    """A Commit with the vote extensions, kept so that a restarted
+    proposer can hand them to PrepareProposal (types/block.go:736+)."""
+
+    height: int
+    round: int
+    block_id: BlockID
+    extended_signatures: list[ExtendedCommitSig]
+
+    def to_commit(self) -> Commit:
+        return Commit(
+            height=self.height,
+            round=self.round,
+            block_id=self.block_id,
+            signatures=[es.commit_sig for es in self.extended_signatures],
+        )
+
+    def size(self) -> int:
+        return len(self.extended_signatures)
+
+    def ensure_extensions(self, required: bool) -> None:
+        if required:
+            for es in self.extended_signatures:
+                es.ensure_extension()
+
+    def validate_basic(self) -> None:
+        self.to_commit().validate_basic()
+        for es in self.extended_signatures:
+            es.validate_basic()
 
 
 @dataclass(slots=True)
@@ -309,6 +371,16 @@ class Block:
         # (types/block.go:98)
         if self.header.evidence_hash != evidence_list_hash(self.evidence):
             raise ValueError("evidence hash mismatch")
+
+
+@dataclass(slots=True)
+class BlockMeta:
+    """The summary stored for each height (types/block_meta.go)."""
+
+    block_id: BlockID
+    block_size: int
+    header: Header
+    num_txs: int
 
 
 def make_block(height: int, txs: list[bytes], last_commit: Commit | None,

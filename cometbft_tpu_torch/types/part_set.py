@@ -65,6 +65,9 @@ class PartSet:
         self.count = 0
         self.byte_size = 0
 
+    def has_header(self, header: PartSetHeader) -> bool:
+        return self.header == header
+
     def add_part(self, part: Part) -> bool:
         """Verify the proof and store (part_set.go AddPart); False for a
         duplicate."""

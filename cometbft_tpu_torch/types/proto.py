@@ -14,7 +14,8 @@ directly with these primitives, following proto3 + gogoproto rules:
   requires size-independent encoding — proto/tendermint/types/canonical.proto).
 
 Also the uvarint length-delimited framing of protoio.MarshalDelimited
-(libs/protoio/writer.go) used for all sign bytes.
+(libs/protoio/writer.go) used for all sign bytes, and its reader
+(``read_delimited``) for the ABCI frames.
 """
 
 from __future__ import annotations
@@ -94,3 +95,22 @@ def timestamp(ns: int) -> bytes:
 def delimited(msg: bytes) -> bytes:
     """protoio.MarshalDelimited framing: uvarint byte-length prefix."""
     return uvarint(len(msg)) + msg
+
+
+def read_delimited(read_exact, max_bytes: int) -> bytes:
+    """Read one uvarint-length-prefixed frame through ``read_exact(n)``,
+    which returns exactly n bytes or raises (EOFError on a closed
+    stream): protoio.Reader with a hard size cap."""
+    length = 0
+    shift = 0
+    while True:
+        b = read_exact(1)
+        length |= (b[0] & 0x7F) << shift
+        if not b[0] & 0x80:
+            break
+        shift += 7
+        if shift > 35:
+            raise ValueError("frame length uvarint overflow")
+    if length > max_bytes:
+        raise ValueError(f"frame of {length} bytes exceeds limit")
+    return read_exact(length)

@@ -7,7 +7,9 @@ Reference: types/validator.go, types/validator_set.go:
   then `times` rounds of (everyone += power; max -= total)
   (validator_set.go:116-178);
 * set hash = merkle root of SimpleValidator proto encodings
-  (validator.go:117-133).
+  (validator.go:117-133);
+* updates: changed and added validators merged, an added one starting at
+  -1.125 x the new total's priority (validator_set.go:477-495).
 
 Clipping arithmetic (safeAddClip/safeSubClip) saturates at int64 bounds.
 """
@@ -59,6 +61,14 @@ class Validator:
             address=self.address,
         )
 
+    def validate_basic(self) -> None:
+        if self.pub_key is None:
+            raise ValueError("validator has nil pubkey")
+        if self.voting_power < 0:
+            raise ValueError("negative voting power")
+        if len(self.address) != 20:
+            raise ValueError("address must be 20 bytes")
+
     def bytes(self) -> bytes:
         """SimpleValidator proto encoding (validator.go:117-133)."""
         return proto.field_message(
@@ -89,12 +99,22 @@ class ValidatorSet:
         )
         self.proposer: Validator | None = None
         self._total: int | None = None
-        self._index = {v.address: i for i, v in enumerate(self.validators)}
+        self._reindex()
         if self.validators:
             self.increment_proposer_priority(1)
 
+    def _reindex(self) -> None:
+        """Rebuild the address -> index map after ``validators`` changed
+        (every path that sets the list calls this)."""
+        self._index = {v.address: i for i, v in enumerate(self.validators)}
+
     def __len__(self) -> int:
         return len(self.validators)
+
+    # --- queries -------------------------------------------------------------
+
+    def is_nil_or_empty(self) -> bool:
+        return not self.validators
 
     def total_voting_power(self) -> int:
         if self._total is None:
@@ -118,6 +138,21 @@ class ValidatorSet:
             return self.validators[index]
         return None
 
+    def has_address(self, address: bytes) -> bool:
+        return self.get_by_address(address)[0] >= 0
+
+    def copy(self) -> "ValidatorSet":
+        cp = ValidatorSet.__new__(ValidatorSet)
+        cp.validators = [v.copy() for v in self.validators]
+        cp.proposer = None
+        cp._total = self._total
+        cp._reindex()
+        if self.proposer is not None:
+            idx, _ = cp.get_by_address(self.proposer.address)
+            cp.proposer = (cp.validators[idx] if idx >= 0
+                           else self.proposer.copy())
+        return cp
+
     def hash(self) -> bytes:
         return merkle.hash_from_byte_slices(
             [v.bytes() for v in self.validators]
@@ -130,7 +165,7 @@ class ValidatorSet:
             raise ValueError("empty validator set")
         if times <= 0:
             raise ValueError("times must be positive")
-        self._rescale_priorities(
+        self.rescale_priorities(
             PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
         )
         self._shift_by_avg_proposer_priority()
@@ -139,7 +174,12 @@ class ValidatorSet:
             proposer = self._increment_proposer_priority()
         self.proposer = proposer
 
-    def _rescale_priorities(self, diff_max: int) -> None:
+    def copy_increment_proposer_priority(self, times: int) -> "ValidatorSet":
+        cp = self.copy()
+        cp.increment_proposer_priority(times)
+        return cp
+
+    def rescale_priorities(self, diff_max: int) -> None:
         if diff_max <= 0:
             return
         prios = [v.proposer_priority for v in self.validators]
@@ -164,9 +204,7 @@ class ValidatorSet:
             v.proposer_priority = _clip(
                 v.proposer_priority + v.voting_power
             )
-        mostest = self.validators[0]
-        for v in self.validators[1:]:
-            mostest = mostest.compare_proposer_priority(v)
+        mostest = self._find_proposer()
         mostest.proposer_priority = _clip(
             mostest.proposer_priority - self.total_voting_power()
         )
@@ -174,8 +212,105 @@ class ValidatorSet:
 
     def get_proposer(self) -> Validator:
         if self.proposer is None:
-            mostest = self.validators[0]
-            for v in self.validators[1:]:
-                mostest = mostest.compare_proposer_priority(v)
-            self.proposer = mostest
+            self.proposer = self._find_proposer()
         return self.proposer
+
+    def _find_proposer(self) -> Validator:
+        mostest = self.validators[0]
+        for v in self.validators[1:]:
+            mostest = mostest.compare_proposer_priority(v)
+        return mostest
+
+    # --- updates -------------------------------------------------------------
+
+    def update_with_change_set(self, changes: list[Validator]) -> None:
+        """Apply ABCI validator updates (power 0 removes a validator).
+
+        As validator_set.go:477-650: changes deduplicated and sorted by
+        address, removals must exist, the new total computed, an added
+        validator starts at -(new_total + new_total >> 3); then merge,
+        sort by power, rescale and centre the priorities.
+        """
+        if not changes:
+            return
+        by_addr: dict[bytes, Validator] = {}
+        for c in sorted(changes, key=lambda v: v.address):
+            if c.address in by_addr:
+                raise ValueError(f"duplicate update for {c.address.hex()}")
+            if c.voting_power < 0:
+                raise ValueError("negative voting power in update")
+            by_addr[c.address] = c
+
+        removals = {a for a, c in by_addr.items() if c.voting_power == 0}
+        for addr in removals:
+            if not self.has_address(addr):
+                raise ValueError(
+                    f"cannot remove unknown validator {addr.hex()}"
+                )
+
+        new_total = 0
+        for v in self.validators:
+            upd = by_addr.get(v.address)
+            new_total += v.voting_power if upd is None else upd.voting_power
+        for addr, c in by_addr.items():
+            if not self.has_address(addr):
+                new_total += c.voting_power
+        if new_total > MAX_TOTAL_VOTING_POWER:
+            raise ValueError("updates exceed max total voting power")
+        if new_total == 0:
+            raise ValueError("updates would remove all validators")
+
+        merged: dict[bytes, Validator] = {
+            v.address: v for v in self.validators
+        }
+        for addr, c in by_addr.items():
+            if addr in removals:
+                merged.pop(addr, None)
+                continue
+            existing = merged.get(addr)
+            nv = c.copy()
+            if existing is None:
+                nv.proposer_priority = -(new_total + (new_total >> 3))
+            else:
+                nv.proposer_priority = existing.proposer_priority
+            merged[addr] = nv
+
+        self.validators = sorted(merged.values(), key=_sort_key)
+        self._total = None
+        self._reindex()
+        self.rescale_priorities(
+            PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        )
+        self._shift_by_avg_proposer_priority()
+        self.proposer = None
+
+    def validate_basic(self) -> None:
+        if not self.validators:
+            raise ValueError("empty validator set")
+        for v in self.validators:
+            v.validate_basic()
+        if self.proposer is not None:
+            self.proposer.validate_basic()
+
+    # --- commit verification (validator_set.go:660-678) ----------------------
+
+    def verify_commit(self, chain_id, block_id, height, commit, *,
+                      device="cuda"):
+        from . import validation
+
+        validation.verify_commit(chain_id, self, block_id, height, commit,
+                                 device=device)
+
+    def verify_commit_light(self, chain_id, block_id, height, commit, *,
+                            device="cuda"):
+        from . import validation
+
+        validation.verify_commit_light(chain_id, self, block_id, height,
+                                       commit, device=device)
+
+    def verify_commit_light_trusting(self, chain_id, commit, trust_level, *,
+                                     device="cuda"):
+        from . import validation
+
+        validation.verify_commit_light_trusting(chain_id, self, commit,
+                                                trust_level, device=device)

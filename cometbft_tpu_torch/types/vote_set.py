@@ -16,7 +16,8 @@ Reference: types/vote_set.go. Key behaviors preserved:
   tallies, so multi-field state never tears across readers. ``add_vote``
   holds it while it verifies, so concurrent adders of one set serialize.
 
-``make_extended_commit`` is not ported yet: it needs ExtendedCommit.
+``make_extended_commit`` adds each commit-flag vote's extension and its
+signature to the commit (vote_set.go MakeExtendedCommit).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from ..crypto import batch as crypto_batch
 from ..libs import sync as libsync
 from ..libs.bits import BitArray
 from . import canonical
-from .block import BlockID, Commit, CommitSig
+from .block import (BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig,
+                    ExtendedCommit, ExtendedCommitSig)
 from .validator_set import ValidatorSet
 from .vote import Vote, VoteError
 
@@ -402,25 +404,53 @@ class VoteSet:
     def make_commit(self) -> Commit:
         """A Commit from the 2/3 majority (vote_set.go MakeCommit)."""
         with self._mtx:
-            if self.signed_msg_type != canonical.PRECOMMIT_TYPE:
-                raise VoteSetError("cannot MakeCommit from non-precommit set")
-            if self.maj23 is None:
-                raise VoteSetError("cannot MakeCommit: no 2/3 majority")
-            sigs = []
-            for vote in self.votes:
-                if (
-                    vote is not None
-                    and vote.block_id == self.maj23
-                    and vote.block_id.is_complete()
-                ):
-                    sigs.append(vote.commit_sig())
-                elif vote is not None and vote.block_id.is_nil():
-                    sigs.append(vote.commit_sig())
+            return self._make_commit_locked()
+
+    def _make_commit_locked(self) -> Commit:
+        if self.signed_msg_type != canonical.PRECOMMIT_TYPE:
+            raise VoteSetError("cannot MakeCommit from non-precommit set")
+        if self.maj23 is None:
+            raise VoteSetError("cannot MakeCommit: no 2/3 majority")
+        sigs = []
+        for vote in self.votes:
+            if (
+                vote is not None
+                and vote.block_id == self.maj23
+                and vote.block_id.is_complete()
+            ):
+                sigs.append(vote.commit_sig())
+            elif vote is not None and vote.block_id.is_nil():
+                sigs.append(vote.commit_sig())
+            else:
+                sigs.append(CommitSig.absent())
+        return Commit(
+            height=self.height,
+            round=self.round,
+            block_id=self.maj23,
+            signatures=sigs,
+        )
+
+    def make_extended_commit(self, require_extensions: bool = False
+                             ) -> ExtendedCommit:
+        """The commit with its vote extensions (vote_set.go
+        MakeExtendedCommit:636): only commit-flag signatures carry one
+        (types/block.go EnsureExtensions)."""
+        with self._mtx:
+            commit = self._make_commit_locked()
+            ext_sigs = []
+            for i, cs in enumerate(commit.signatures):
+                vote = self.votes[i]
+                if vote is not None and cs.block_id_flag == BLOCK_ID_FLAG_COMMIT:
+                    ext_sigs.append(ExtendedCommitSig(
+                        commit_sig=cs, extension=vote.extension,
+                        extension_signature=vote.extension_signature))
                 else:
-                    sigs.append(CommitSig.absent())
-            return Commit(
-                height=self.height,
-                round=self.round,
-                block_id=self.maj23,
-                signatures=sigs,
+                    ext_sigs.append(ExtendedCommitSig(commit_sig=cs))
+            ec = ExtendedCommit(
+                height=commit.height,
+                round=commit.round,
+                block_id=commit.block_id,
+                extended_signatures=ext_sigs,
             )
+            ec.ensure_extensions(require_extensions)
+            return ec

@@ -419,3 +419,84 @@ def test_rlc_entry_points_default_to_cuda_and_the_wrapper_checks():
     assert bool(cuda_rlc.rlc_equation(**inp))
     assert cuda_rlc.LAUNCHES == {"rlc": 0}
     assert not cuda_rlc.LAUNCH_SHAPES["rlc"]
+
+
+EXECUTION_LAYER = ("libs/jsoncodec.py", "libs/fail.py", "libs/db.py",
+                   "libs/pubsub.py", "types/params.py", "types/genesis.py",
+                   "types/priv_validator.py", "types/serialization.py",
+                   "types/event_bus.py", "types/evidence.py",
+                   "abci/__init__.py", "abci/types.py",
+                   "abci/application.py", "abci/codec.py", "abci/kvstore.py",
+                   "abci/client.py", "proxy.py", "store/__init__.py",
+                   "store/block_store.py", "state/__init__.py",
+                   "state/state.py", "state/store.py", "state/validation.py",
+                   "state/execution.py")
+
+
+@pytest.mark.parametrize("rel", EXECUTION_LAYER)
+def test_execution_layer_module_is_scanned_and_clean(rel):
+    """Each module of the block-execution and storage layer sits at its
+    reference path, is in the scan, and imports no jax and nothing of the
+    JAX package (not even its pure-Python jsoncodec, db or abci types)."""
+    path = ROOT / "cometbft_tpu_torch" / rel
+    assert (ROOT / "cometbft_tpu" / rel).exists(), rel
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & FORBIDDEN, rel
+    assert not list(_path_literals(path)), rel
+
+
+def _exec_chain():
+    """A two-validator genesis state, its state store, the app's proxy
+    connections and the first block a CPU executor proposes."""
+    from cometbft_tpu_torch import proxy
+    from cometbft_tpu_torch import state as tstate
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.types import GenesisDoc, GenesisValidator
+
+    pubs = [Ed25519PubKey(ref.pubkey_from_seed(bytes([i]) * 32))
+            for i in (1, 2)]
+    state = tstate.make_genesis_state(GenesisDoc(
+        chain_id="probe-chain", genesis_time_ns=1,
+        validators=[GenesisValidator(p, 10) for p in pubs]))
+    conns = proxy.AppConns(proxy.local_client_creator(KVStoreApplication()))
+    conns.start()
+    store = tstate.Store(MemDB())
+    exe = tstate.BlockExecutor(store, conns.consensus, device="cpu")
+    blk = exe.create_proposal_block(1, state, None,
+                                    state.validators.get_proposer().address,
+                                    time_ns=2)
+    return state, store, conns, blk
+
+
+def test_execution_entry_points_default_to_cuda():
+    """validate_block and BlockExecutor default to the GPU and raise
+    without one, whatever the commit's size (a first block has none);
+    with device="cpu" the same block validates and applies."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from cometbft_tpu_torch import state as tstate
+    from cometbft_tpu_torch.types import BlockID, PartSetHeader
+
+    state, store, conns, blk = _exec_chain()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstate.validate_block(state, blk)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstate.BlockExecutor(store, conns.consensus)
+    tstate.validate_block(state, blk, device="cpu")
+    exe = tstate.BlockExecutor(store, conns.consensus, device="cpu")
+    assert exe.device == "cpu"
+    new = exe.apply_block(state, BlockID(blk.hash(), PartSetHeader(
+        1, bytes(32))), blk)
+    assert new.last_block_height == 1
+
+
+def test_remote_abci_creators_raise_until_ported():
+    """The socket and gRPC ABCI clients come with the p2p/RPC slice:
+    asking for them raises instead of connecting."""
+    from cometbft_tpu_torch import proxy
+
+    with pytest.raises(NotImplementedError, match="socket"):
+        proxy.socket_client_creator("tcp://127.0.0.1:26658")
+    with pytest.raises(NotImplementedError, match="gRPC"):
+        proxy.grpc_client_creator("tcp://127.0.0.1:26658")

@@ -738,3 +738,93 @@ def test_ledger_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
     assert len(out["prevote_round_host_ms"]["accounting_off"]) == 1
     runs = [x for x in lines if x["phase"] == "ledger.run"]
     assert [r["run"][:3] for r in runs] == ["(1)", "(2)", "(3)"]
+
+
+def test_chain_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
+    """chip_smoke.phase_chain end to end at 12 validators and 3 heights:
+    "cuda" mapped to the CPU, the plain versions counted as launches. The
+    update comes at height 1 here, so the fourth block's LastCommit (the
+    tampered one) is signed by 13: K2 at 12 and 13 lanes, X1 at 12 keys
+    and at the added one. Every K2/X1/X4 launch held against its plain
+    version, the tampered block refused with nothing changed, the
+    reopened FileDBs equal to the last state and blocks; the traced warm
+    height (a spawned process) is stubbed."""
+    import types
+
+    import torch
+
+    from cometbft_tpu_torch.crypto import plane
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    n = 12
+    for name, value in (("CHAIN_VALIDATORS", n), ("CHAIN_HEIGHTS", 3),
+                        ("CHAIN_UPDATE_HEIGHT", 1), ("CHAIN_TAMPERED", 7),
+                        # 64 txs of 1 KiB reach their bucket's seed cut
+                        # (2,048 // 32 lanes): the tx keys go to X4
+                        ("CHAIN_TXS", 64)):
+        monkeypatch.setattr(cs, name, value)
+    # 1 KiB parts, as in the ledger case: X4's plain version hashes their
+    # leaves fast
+    from cometbft_tpu_torch.types import part_set
+
+    monkeypatch.setattr(part_set.PartSet.from_data.__func__, "__defaults__",
+                        (1_024,))
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    monkeypatch.setattr(cs, "get_context", lambda method: types.
+                        SimpleNamespace(Pool=lambda n: _InlinePool()))
+    monkeypatch.setattr(cs, "_traced_chain", lambda pubs: (10.0, 1.0, 3))
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    real_resolve = ov.resolve_device
+
+    def to_cpu(d):
+        return real_resolve("cpu" if torch.device(d).type == "cuda" else d)
+    for mod in (ov, plane, hashplane, sha256):
+        monkeypatch.setattr(mod, "resolve_device", to_cpu)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for name in ("verify_kernel", "verify_kernel_cached",
+                 "build_pubkey_tables"):
+        def counted(*a, _real=getattr(cv, name), _name=name, **k):
+            lanes = (k["y_r"] if "y_r" in k else k["y_a"] if "y_a" in k
+                     else a[0]).shape[-1]
+            cv.LAUNCHES[_name] += 1
+            cv.LAUNCH_LANES[_name][lanes] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(cv, name, counted)
+
+    def counted_x4(blocks, nblocks, _real=cuda_sha256.sha256):
+        cuda_sha256.LAUNCHES["sha256"] += 1
+        shape = (blocks.shape[0], blocks.shape[-1])
+        shapes = cuda_sha256.LAUNCH_SHAPES["sha256"]
+        shapes[shape] = shapes.get(shape, 0) + 1
+        return _real(blocks, nblocks)
+    monkeypatch.setattr(cuda_sha256, "sha256", counted_x4)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        (launches, lanes, (err, mismatches), x4, x4_shapes,
+         (x4_err, x4_mismatches)) = cs.phase_chain(torch, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+        cv.reset_launches()
+        cuda_sha256.reset_launches()
+    assert lanes["verify_kernel_cached"] == {n: 2, n + 1: 1}
+    assert lanes["build_pubkey_tables"] == {n: 1, 1: 1}
+    assert launches["verify_kernel"] == launches["verify_kernel8"] == 0
+    assert not any(mismatches.values()) and not any(err.values())
+    assert x4 == sum(x4_shapes.values()) > 0
+    assert x4_err == x4_mismatches == 0
+    out = [x for x in lines if x["phase"] == "chain"][0]
+    assert "wrong signature (#7)" in out["refused"]
+    assert out["events"]["NewBlock"] == 3 and out["events"]["Tx"] == 3 * 64 + 1
+    rows = [x for x in lines if x["phase"] == "chain.height"]
+    assert [r["height"] for r in rows] == [1, 2, 3]
+    assert [r["validators"] for r in rows] == [n, n, n + 1]
+    assert rows[0]["k2_by_lanes"] == {} and rows[1]["x1_by_lanes"] == {n: 1}
+    steps = rows[1]["host_ms"]["validate_block"]
+    assert steps["total"] >= steps["verify_commit"] > 0
+    assert steps["hashing"] > 0
+    assert [x for x in lines if x["phase"] == "chain.trace"]
