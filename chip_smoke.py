@@ -242,16 +242,19 @@ Ed25519PubKey.verify_signature calls, in us a verify.
              state.Store, store.BlockStore, each on a FileDB under
              build/chain/, an EventBus, a BlockExecutor on the card and a
              HashCoalescer(device="cuda") pushed for the whole path.
-             Heights 1-6 each carry 1,024 seeded kvstore txs of 1 KiB
-             from a list-backed mempool stand-in; each height: the block
+             Heights 1-4 (cut to fit the script's time limit) each carry
+             1,024 seeded kvstore txs of 1 KiB,
+             put through a CListMempool's check_tx from 8 threads (their
+             tx keys in X4 windows) and reaped from it; each height: the
+             block
              from create_proposal_block, PartSet.from_data over the
              codec's bytes, apply_block (validate_block: the LastCommit
              through verify_commit on K2 via the process-wide arena, X1
              for the keys it lacks; FinalizeBlock, Commit, the state
              save), the height's 10,000 precommits signed by a spawn pool,
-             BlockStore.save_block. Height 3 carries a val: tx adding a
-             fresh key, so height 6's LastCommit has 10,001 signatures
-             (K2 at 10,001 lanes, X1 at 1 key). Then a seventh block whose
+             BlockStore.save_block. Height 1 carries a val: tx adding a
+             fresh key, so height 4's LastCommit has 10,001 signatures
+             (K2 at 10,001 lanes, X1 at 1 key). Then a fifth block whose
              LastCommit has one spoiled signature must raise
              BlockValidationError naming its index, with the state, both
              stores and the app untouched; then the three FileDBs are
@@ -268,6 +271,46 @@ Ed25519PubKey.verify_signature calls, in us a verify.
              idle share (chain.trace). The signing pool of phases 3-10
              is closed by then: the phase opens its own.
 
+13. consensus — the consensus engine on the card (consensus/, mempool/,
+             evidence/), each node wired as cometbft_tpu/node/node.py wires
+             one without p2p (ConsensusNode: FileDBs under
+             build/consensus/, the kvstore on the local client, the ABCI
+             handshake, a CListMempool, an EvidencePool, a BlockExecutor,
+             a WAL, ConsensusState and a CommitPipeline on the card), the
+             card's arena emptied first as a node start leaves it. (1) The
+             burst: four validators of power 10 in this process with
+             perfect gossip, 64 kvstore txs in every mempool, until every
+             node stores five blocks; block and app hashes agree, every tx
+             is committed once, the mempools end empty. (2) Full width:
+             the chain cell's 10,000 keys at power 100, one node holding
+             validator 0's key, a VerifyCoalescer and a HashCoalescer
+             pushed (device="cuda"), the verify cut at its seed, rounds
+             timing out only after minutes. Heights 1-4: 1,024 kvstore txs
+             of 1 KiB through check_tx from 8 threads (tx keys in X4
+             windows); where another validator proposes, the phase builds
+             the block with the node's create_proposal_block (reaping its
+             mempool and evidence pool) and signs the proposal with the
+             proposer's key; 9,999 prevotes, then 9,999 precommits, one of
+             each spoiled, through add_vote_from_peer from 16 threads in a
+             seeded order (the receive loop preverifies each drained batch:
+             K2, or the coalescer's windows below the cut). At height 2
+             validator 17 also precommits another block (its
+             DuplicateVoteEvidence must be committed in block 3) and a
+             header forged at height 2, signed by 3,334 of the 10,000,
+             goes through EvidencePool.add_evidence (the trusting check:
+             K2 at 3,334 lanes) and must be committed. Each height must
+             commit in round 0; it prints the host ms from the proposal fed
+             to the block stored and the node's steps (preverify,
+             admission, validate_block, FinalizeBlock, Commit, the saves,
+             the WAL), each preverify window's lanes and the K2, X1 and X4
+             launches by shape. The spoiled votes must not count; the
+             reopened FileDBs hold the node's state, blocks and app hash.
+             Every K2/X1/X4 launch of the phase is held against its plain
+             version and may run only at counts or shapes so compared.
+             Last, in a process of its own, run (2)'s warm height 2 from
+             its proposal to its block under torch.profiler
+             (consensus.trace).
+
 In the slice and light phases K1-K4 and X1 must run only at lane counts
 the kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3
 checks; X1 builds a commit's missing keys); in the vote phase K1 and K2,
@@ -281,7 +324,7 @@ their launches on each path (ops.cuda_verify.OP_LAUNCHES, read with
 K1-K4's).
 
 Then one line {"kernels": [...]} (K1-K4, X1, X5 and X4; launches by
-path, the chain's included), the card's
+path, the chain's and the consensus phase's included), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
 raises: the script exits nonzero and prints no last line. Without CUDA
 it exits 2.
@@ -367,8 +410,14 @@ X4_PATH_SHAPES = tuple((bb, lb) for bb in (1, 2, 64)
 WORKERS = min(8, len(os.sched_getaffinity(0)))
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started (the
+    phases' share of the time limit)."""
+    print(json.dumps({**obj, "elapsed_s": round(time.perf_counter() - _T0,
+                                                1)}), flush=True)
 
 
 def check(cond, msg) -> None:
@@ -1456,6 +1505,11 @@ def window_record(rec) -> dict:
             "mismatches": rec.get("mismatches")}
 
 
+# Lanes a plain call takes in compare_windows: the plain versions' time
+# goes to their launches more than to their lanes.
+PLAIN_CHUNK = 1 << 16
+
+
 def compare_windows(torch, records, err, mismatches):
     """Each recorded window against its kernel's plain version on the
     card, on the window's own wire rows (and arena): the elements that
@@ -1494,8 +1548,8 @@ def compare_windows(torch, records, err, mismatches):
                 [np.asarray(r["idxs"], np.uint16) for r in recs])
                 .view(np.int16)).to(dev)
         parts = []  # the plain version a chunk of lanes at a time
-        for lo in range(0, rows.shape[1], ov._CHUNK):
-            hi = min(lo + ov._CHUNK, rows.shape[1])
+        for lo in range(0, rows.shape[1], PLAIN_CHUNK):
+            hi = min(lo + PLAIN_CHUNK, rows.shape[1])
             if name == "verify_kernel_cached":
                 parts.append(curve.verify_kernel_slots(
                     recs[0]["arena"], recs[0]["arena_ok"], idxs[lo:hi],
@@ -3538,10 +3592,14 @@ def check_x4(torch, leaves, txs, card):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        plain = osha.sha256_plain(cat_b, cat_nb)
+        ref = osha.sha256_plain(cat_b, cat_nb)
         end.record()
         end.synchronize()
         plain_ms[bb] = start.elapsed_time(end)
+        # the helper every phase compares X4 with, itself held against
+        # sha256_plain on these wires
+        plain = check_plain_x4(torch, cat_b, cat_nb, f"block bucket {bb}",
+                               ref)
         x4 = torch.cat([cuda_sha256.as_int64(wires[s]["state"])
                         for s in group], dim=1)
         diff = (x4 - cuda_sha256.as_int64(plain)).abs()
@@ -3567,7 +3625,8 @@ def check_x4(torch, leaves, txs, card):
     over[::3] = bb + 1 + np.arange(len(over[::3])) % 8
     over_nb = torch.from_numpy(over).to(dev)
     diff = (cuda_sha256.as_int64(cuda_sha256.sha256(wire, over_nb))
-            - cuda_sha256.as_int64(osha.sha256_plain(wire, over_nb)))
+            - cuda_sha256.as_int64(check_plain_x4(torch, wire, over_nb,
+                                                  "the over-bucket wire")))
     emit({"phase": "kernels.x4.over_bucket", "block_bucket": bb,
           "lanes": lanes, "mismatches": int((diff != 0).sum())})
     check(not bool(diff.any()), "X4 read a block past its bucket")
@@ -4246,11 +4305,11 @@ def phase_ledger(torch, card, sets, x4_compared):
 # on K2 (X1 for the keys the arena lacks), the block's hashes on X4.
 CHAIN_VALIDATORS = N_VALIDATORS  # fresh keys: the arena starts cold
 CHAIN_POWER = 100  # every validator's, the added one's too
-CHAIN_HEIGHTS = 6
+CHAIN_HEIGHTS = 4  # cut to fit the script's time limit (PERF.md §4)
 CHAIN_TXS = 1_024  # a height's kvstore txs, ...
 CHAIN_TX_BYTES = 1_024  # ... of 1 KiB each: ~1 MiB of txs a block
-CHAIN_UPDATE_HEIGHT = 3  # carries the val: tx that adds a fresh key
-CHAIN_TAMPERED = 6_173  # the seventh block's spoiled LastCommit signature
+CHAIN_UPDATE_HEIGHT = 1  # carries the val: tx that adds a fresh key
+CHAIN_TAMPERED = 6_173  # the last block's spoiled LastCommit signature
 CHAIN_TRACE_HEIGHT = 3  # the warm height profiled in a process of its own
 CHAIN_EXEC_ID = "chip-smoke-exec"
 CHAIN_T0_NS = 1_770_000_000_000_000_000
@@ -4296,32 +4355,20 @@ def chain_update_tx(pub: bytes) -> bytes:
     return b"val:" + pub.hex().encode() + b"!%d" % CHAIN_POWER
 
 
-class ListMempool:
-    """The chain phase's mempool stand-in (the mempool is not ported yet):
-    the height's txs in a list, reaped in order within the byte budget; a
-    commit drops the txs its block carried."""
+def check_txs(mempool, txs, threads=INGRESS_THREADS) -> float:
+    """``txs`` through ``mempool.check_tx`` from ``threads`` threads at
+    once (their tx keys share the pushed hash plane's windows); host ms.
+    Every tx must be admitted."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    def __init__(self):
-        self.txs: list[bytes] = []
-
-    def reap_max_bytes_max_gas(self, max_bytes: int, max_gas: int):
-        out, total = [], 0
-        for tx in self.txs:
-            if max_bytes >= 0 and total + len(tx) > max_bytes:
-                break
-            out.append(tx)
-            total += len(tx)
-        return out
-
-    def lock(self) -> None:
-        pass
-
-    def unlock(self) -> None:
-        pass
-
-    def update(self, height, txs, tx_results, *args, **kwargs) -> None:
-        done = set(txs)
-        self.txs = [tx for tx in self.txs if tx not in done]
+    n0 = mempool.size()
+    t = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        list(ex.map(mempool.check_tx, txs))
+    ms = 1e3 * (time.perf_counter() - t)
+    check(mempool.size() == n0 + len(txs),
+          f"the mempool admitted {mempool.size() - n0} of {len(txs)} txs")
+    return ms
 
 
 class ChainRig:
@@ -4329,7 +4376,8 @@ class ChainRig:
     behind proxy.AppConns(local_client_creator(...)), state.Store,
     store.BlockStore and an EventBus subscribed to every event, each store
     a FileDB under ``root`` (a MemDB without one), and a BlockExecutor on
-    ``device``. The genesis set is CHAIN_VALIDATORS validators of equal
+    ``device``, its mempool a CListMempool on the app's mempool
+    connection. The genesis set is CHAIN_VALIDATORS validators of equal
     power; InitChain hands them to the app and its app hash to the
     state."""
 
@@ -4337,7 +4385,9 @@ class ChainRig:
         from cometbft_tpu_torch import proxy, state as st, store
         from cometbft_tpu_torch.abci import kvstore, types as abci
         from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+        from cometbft_tpu_torch import config as tconfig
         from cometbft_tpu_torch.libs import db as dbm, pubsub
+        from cometbft_tpu_torch.mempool import CListMempool
         from cometbft_tpu_torch.types import event_bus, genesis
 
         def db(name):
@@ -4367,7 +4417,8 @@ class ChainRig:
         self.bus.start()
         self.events = self.bus.subscribe("chip-smoke", pubsub.Empty(),
                                          capacity=None)
-        self.mempool = ListMempool()
+        self.mempool = CListMempool(tconfig.default_config().mempool,
+                                    self.conns.mempool, device=device)
         self.exe = st.BlockExecutor(
             self.state_store, self.conns.consensus, mempool=self.mempool,
             block_store=self.block_store, event_bus=self.bus, device=device)
@@ -4436,13 +4487,17 @@ def chain_extended(commit):
 
 
 def chain_height(rig, height, sign, seed_of):
-    """One height on ``rig``: propose (the update tx at
-    CHAIN_UPDATE_HEIGHT), apply_block, the commit signed by the height's
-    validators, BlockStore.save_block. {step: host ms}."""
-    rig.mempool.txs = chain_txs(height)
+    """One height on ``rig``: the height's txs through the mempool's
+    check_tx (the update tx at CHAIN_UPDATE_HEIGHT), propose, apply_block
+    (whose Commit drops the block's txs from the mempool), the commit
+    signed by the height's validators, BlockStore.save_block. {step:
+    host ms}."""
+    txs = chain_txs(height)
     if height == CHAIN_UPDATE_HEIGHT:
-        rig.mempool.txs.append(chain_update_tx(rig.added_pub))
+        txs.append(chain_update_tx(rig.added_pub))
+    check_ms = check_txs(rig.mempool, txs)
     blk, ps, bid, ms = rig.propose(height)
+    ms["check_tx"] = check_ms
     t = time.perf_counter()
     rig.state = rig.exe.apply_block(rig.state, bid, blk)
     ms["apply_block"] = 1e3 * (time.perf_counter() - t)
@@ -4455,6 +4510,8 @@ def chain_height(rig, height, sign, seed_of):
     ms["save_block"] = 1e3 * (time.perf_counter() - t)
     rig.blocks[height] = blk
     rig.last_ext = chain_extended(commit)
+    check(rig.mempool.size() == 0, f"height {height}: the mempool kept "
+          f"{rig.mempool.size()} txs after the commit")
     return ms, blk, ps
 
 
@@ -4557,6 +4614,68 @@ class X4Recorder:
         self.mod.sha256 = self._real
 
 
+def plain_x4(torch, blocks, nblocks):
+    """ops.sha256.sha256_plain's state through its per-block step (the
+    plain compression, then the lanes whose message goes on keep it). On
+    the card the step is captured once in a CUDA graph and replayed block
+    by block: the same operations on the same tensors, without one host
+    launch each (~1,300 a block, ~40 s for a part set's 1,025 blocks). On
+    the CPU the step runs as it is. check_x4 holds it against sha256_plain
+    on every wire it compares."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import sha256 as osha
+
+    dev = blocks.device
+    lanes = blocks.shape[2]
+    nb = cuda_sha256.as_int64(nblocks).clamp(max=blocks.shape[0])
+    h0 = torch.from_numpy(osha._H0.astype(np.int64)).to(dev)[:, None]
+    state = h0.repeat(1, lanes)
+    k = torch.from_numpy(osha._K.astype(np.int64)).to(dev)[:, None]
+    rots = osha._rot_consts(dev)
+    words = torch.zeros((16, lanes), dtype=torch.int64, device=dev)
+    live = torch.zeros(lanes, dtype=torch.bool, device=dev)
+
+    def step():
+        state.copy_(torch.where(live[None, :], osha._compress_plain(
+            state, words, k, rots), state))
+    run = step
+    if dev.type == "cuda":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()  # the warm-up capture needs: its result is dropped below
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        run = graph.replay
+    state.copy_(h0.expand(8, lanes))
+    for b in range(int(nb.max()) if lanes else 0):
+        words.copy_(cuda_sha256.as_int64(blocks[b]))
+        live.copy_(nb > b)
+        run()
+    return state.to(torch.int32).view(torch.uint32)
+
+
+def check_plain_x4(torch, blocks, nblocks, what, ref=None):
+    """plain_x4 on one wire, held word for word against sha256_plain's
+    state on the same wire (``ref``, when the caller has it already;
+    ``what`` names the wire in a failure)."""
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import sha256 as osha
+
+    ours = plain_x4(torch, blocks, nblocks)
+    if ref is None:
+        ref = osha.sha256_plain(blocks, nblocks)
+    diff = (cuda_sha256.as_int64(ours) - cuda_sha256.as_int64(ref)).abs()
+    check(not bool(diff.any()),
+          f"plain_x4 != sha256_plain at {what}: "
+          f"{int((diff != 0).sum())} words differ")
+    return ours
+
+
 def compare_x4(torch, records):
     """Each recorded X4 launch against the plain version on its own wire,
     one plain call per block bucket over that bucket's wires side by
@@ -4570,8 +4689,8 @@ def compare_x4(torch, records):
     compared = set()
     for bb in sorted({b.shape[0] for b, _, _ in records}):
         group = [r for r in records if r[0].shape[0] == bb]
-        plain = osha.sha256_plain(
-            torch.cat([b for b, _, _ in group], dim=2),
+        plain = plain_x4(
+            torch, torch.cat([b for b, _, _ in group], dim=2),
             torch.cat([cuda_sha256.as_int64(nb) for _, nb, _ in group]))
         got = torch.cat([cuda_sha256.as_int64(s) for _, _, s in group],
                         dim=1)
@@ -4602,9 +4721,10 @@ def _traced_chain(pubs):
         for h in range(1, CHAIN_TRACE_HEIGHT):
             chain_height(rig, h, sign, seed_of)
         h = CHAIN_TRACE_HEIGHT
-        rig.mempool.txs = chain_txs(h)
+        txs = chain_txs(h)
         if h == CHAIN_UPDATE_HEIGHT:
-            rig.mempool.txs.append(chain_update_tx(rig.added_pub))
+            txs.append(chain_update_tx(rig.added_pub))
+        check_txs(rig.mempool, txs)
 
         out = {}
 
@@ -4696,7 +4816,7 @@ def phase_chain(torch, card):
                         "card": card}
                     heights.append(row)
                     emit({"phase": "chain.height", **row})
-                # the seventh block, its LastCommit spoiled at one lane:
+                # one more block, its LastCommit spoiled at one lane:
                 # refused, nothing changed
                 before = {n: list(db.iterator())
                           for n, db in rig.dbs.items()}
@@ -4710,10 +4830,10 @@ def phase_chain(torch, card):
                         cs, signature=bad))
                 rig.last_ext = dataclasses.replace(
                     rig.last_ext, extended_signatures=sigs)
-                rig.mempool.txs = chain_txs(CHAIN_HEIGHTS + 1)
-                blk7, ps7, bid7, _ = rig.propose(CHAIN_HEIGHTS + 1)
+                check_txs(rig.mempool, chain_txs(CHAIN_HEIGHTS + 1))
+                bad_blk, _, bad_bid, _ = rig.propose(CHAIN_HEIGHTS + 1)
                 try:
-                    rig.exe.apply_block(rig.state, bid7, blk7)
+                    rig.exe.apply_block(rig.state, bad_bid, bad_blk)
                     refused = None
                 except sv.BlockValidationError as e:
                     refused = str(e)
@@ -4728,7 +4848,7 @@ def phase_chain(torch, card):
             plane.stop()
         check(refused is not None
               and f"wrong signature (#{CHAIN_TAMPERED})" in refused,
-              f"the tampered seventh block was not refused as expected: "
+              f"the tampered last block was not refused as expected: "
               f"{refused}")
         check(Store._encode_state(rig.state) == state_bytes
               and {n: list(db.iterator())
@@ -4816,6 +4936,898 @@ def phase_chain(torch, card):
           "windows_compared": len(recorder.records),
           "mismatches": dict(mismatches), "max_abs_err": dict(err),
           "refused": refused, "events": dict(events),
+          "app_hash": last.app_hash.hex(), "reopen_ms": reopen_ms,
+          "keys_seconds": keys_s,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return launches, lanes, (err, mismatches), x4_all, x4_shapes, (
+        x4_err, x4_mismatches)
+
+
+CONS_CHAIN_ID = "chip-smoke-consensus"
+CONS_BURST_NODES = 4  # run (1): in-process validators, perfect gossip
+CONS_BURST_POWER = 10
+CONS_BURST_HEIGHTS = 5
+CONS_BURST_TXS = 64  # into every node's mempool before the start
+CONS_VALIDATORS = CHAIN_VALIDATORS  # run (2): the chain cell's keys
+CONS_HEIGHTS = 4
+CONS_TX_THREADS = INGRESS_THREADS  # check_tx callers of a height's txs
+CONS_PEER_THREADS = 16  # add_vote_from_peer callers of a round's votes
+CONS_TAMPERED = (4_242, 5_151)  # the spoiled prevote's and precommit's
+CONS_DUP_HEIGHT = 2  # validator CONS_DUP_VALIDATOR precommits twice
+CONS_DUP_VALIDATOR = 17
+CONS_ATTACK_HEIGHT = 2  # the light-client attack goes to add_evidence
+CONS_ATTACK_SIGNERS = N_TRUST  # 3,334 of 10,000: over the 1/3 trust level
+# The attack's codec bytes (3,334 signatures, its 3,334-validator set and
+# the byzantine list as tagged JSON: ~2.5 MB) are over the default 1 MiB
+# of evidence a block: the cell's genesis raises it.
+CONS_EVIDENCE_BYTES = 4 << 20
+CONS_TRACE_HEIGHT = 2  # the warm height profiled in a process of its own
+CONS_WAIT_S = 180.0  # the most the others wait for one step of the node
+CONS_SEED = b"consensus"
+
+
+def consensus_config(burst: bool):
+    """The port's Config for a consensus node: run (1)'s test_config
+    timeouts with the propose window widened to 30 s and the prevote and
+    precommit waits to 5 s (the nodes share one process and a host, and
+    perfect gossip sends a block's parts once: a node that moves to a
+    later round than its peers on a loaded host cannot fetch the block
+    they commit); run (2)'s timeouts long enough that no round times out
+    while the others sign and feed 10,000 votes, and CometBFT's default
+    1 s commit timeout (the late precommits join the LastCommit)."""
+    from cometbft_tpu_torch import config as tconfig
+
+    cfg = tconfig.test_config()
+    ms = 1_000_000
+    if burst:
+        cfg.consensus = dataclasses.replace(
+            cfg.consensus, timeout_propose_ns=30_000 * ms,
+            timeout_prevote_ns=5_000 * ms, timeout_precommit_ns=5_000 * ms)
+    else:
+        cfg.consensus = dataclasses.replace(
+            cfg.consensus, timeout_propose_ns=600_000 * ms,
+            timeout_prevote_ns=600_000 * ms,
+            timeout_precommit_ns=600_000 * ms, timeout_commit_ns=1_000 * ms,
+            skip_timeout_commit=False)
+    return cfg
+
+
+class ConsensusNode:
+    """One port node in this process, wired as cometbft_tpu/node/node.py
+    wires one (without p2p): the kvstore behind proxy.AppConns(local
+    client), state.Store, store.BlockStore and the evidence pool's DB, each
+    a FileDB under ``root`` (MemDB without one), an EventBus, the ABCI
+    handshake (InitChain at genesis), a CListMempool, an EvidencePool, the
+    BlockExecutor, the WAL (none without a root), the ConsensusState with
+    ``pv`` and a CommitPipeline (COMETBFT_TPU_PIPELINE, _SPEC_EXEC), all
+    on ``device``. A fatal error lands in ``fatal``."""
+
+    def __init__(self, genesis, pv, cfg, root=None, device="cuda"):
+        from cometbft_tpu_torch import proxy
+        from cometbft_tpu_torch.abci import kvstore
+        from cometbft_tpu_torch.consensus import ConsensusState
+        from cometbft_tpu_torch.consensus.pipeline import (
+            CommitPipeline, pipeline_mode, spec_mode)
+        from cometbft_tpu_torch.consensus.replay import Handshaker
+        from cometbft_tpu_torch.consensus.wal import WAL
+        from cometbft_tpu_torch.evidence import EvidencePool
+        from cometbft_tpu_torch.libs import db as dbm
+        from cometbft_tpu_torch.mempool import CListMempool
+        from cometbft_tpu_torch.state import (
+            BlockExecutor, Store, make_genesis_state)
+        from cometbft_tpu_torch.store import BlockStore
+        from cometbft_tpu_torch.types.event_bus import EventBus
+
+        def db(name):
+            if root is None:
+                return dbm.MemDB()
+            return dbm.FileDB(str(Path(root) / f"{name}.db"))
+
+        self.dbs = {n: db(n) for n in ("app", "state", "blocks", "evidence")}
+        self.fatal = []
+        self.app = kvstore.KVStoreApplication(self.dbs["app"])
+        self.conns = proxy.AppConns(proxy.local_client_creator(self.app))
+        self.conns.start()
+        self.state_store = Store(self.dbs["state"])
+        self.block_store = BlockStore(self.dbs["blocks"])
+        state = self.state_store.load()
+        if state is None:
+            state = make_genesis_state(genesis)
+            self.state_store.save(state)
+        self.bus = EventBus()
+        self.bus.start()
+        hs = Handshaker(self.state_store, state, self.block_store, genesis,
+                        block_exec=BlockExecutor(
+                            self.state_store, self.conns.consensus,
+                            block_store=self.block_store, device=device))
+        hs.handshake(self.conns)
+        state = hs.state
+        self.mempool = CListMempool(cfg.mempool, self.conns.mempool,
+                                    height=state.last_block_height,
+                                    device=device)
+        self.evidence = EvidencePool(self.dbs["evidence"], self.state_store,
+                                     self.block_store, device=device)
+        self.exe = BlockExecutor(
+            self.state_store, self.conns.consensus, mempool=self.mempool,
+            evidence_pool=self.evidence, block_store=self.block_store,
+            event_bus=self.bus, device=device)
+        self.wal = (WAL(str(Path(root) / "cs.wal" / "wal"))
+                    if root is not None else None)
+        self.cs = ConsensusState(
+            cfg.consensus, state, self.exe, self.block_store,
+            tx_notifier=self.mempool, evidence_pool=self.evidence,
+            event_bus=self.bus, wal=self.wal, device=device)
+        self.cs.set_priv_validator(pv)
+        self.cs.on_fatal = self.fatal.append
+        pipe = CommitPipeline(self.exe, self.cs.wal,
+                              on_fatal=self.fatal.append, device=device)
+        pmode = pipeline_mode()
+        pipe.enabled = pmode in ("auto", "on", "inline")
+        pipe.inline = pmode == "inline"
+        smode = spec_mode()
+        pipe.spec_enabled = smode == "on" or (
+            smode == "auto" and self.conns.consensus.supports_speculation())
+        pipe.note_base(state.last_block_height)
+        self.exe.prune_gate = pipe.durable_height
+        self.cs.pipeline = pipe
+        self.address = bytes(pv.get_pub_key().address())
+
+    def stop(self) -> None:
+        """Stop consensus (draining the pipeline; a kept prestage error
+        raises here), then the bus, the app connections, the WAL and the
+        DBs."""
+        try:
+            if self.cs.is_running():
+                self.cs.stop()
+        finally:
+            self.bus.stop()
+            self.conns.stop()
+            if self.wal is not None:
+                self.wal.close()
+            for d in self.dbs.values():
+                d.close()
+
+
+def wire_gossip(nodes) -> None:
+    """Perfect gossip (tests/helpers.py wire_perfect_gossip): every
+    message a node sends itself also goes to every other node."""
+    from cometbft_tpu_torch.consensus.messages import (
+        BlockPartMessage, ProposalMessage, VoteMessage)
+
+    css = [n.cs for n in nodes]
+    for me, cs in enumerate(css):
+        def send(msg, orig=cs._send_internal, me=me):
+            orig(msg)
+            for j, other in enumerate(css):
+                if j == me:
+                    continue
+                if isinstance(msg, VoteMessage):
+                    other.add_vote_from_peer(msg.vote, f"node{me}")
+                elif isinstance(msg, ProposalMessage):
+                    other.set_proposal_from_peer(msg.proposal, f"node{me}")
+                elif isinstance(msg, BlockPartMessage):
+                    other.add_block_part_from_peer(
+                        msg.height, msg.round, msg.part, f"node{me}")
+        cs._send_internal = send
+
+
+def wait_for(cond, what: str, timeout: float = CONS_WAIT_S, nodes=(),
+             state=None):
+    """Poll ``cond()`` until it holds; fail naming ``what`` (and any
+    node's fatal error, and ``state()`` when given) past ``timeout``
+    seconds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        for n in nodes:
+            check(not n.fatal, f"{what}: the node fail-stopped: {n.fatal}")
+        check(time.monotonic() < deadline, f"timed out waiting for {what}"
+              + (f": {state()}" if state is not None else ""))
+        time.sleep(0.005)
+
+
+def burst_txs() -> list[bytes]:
+    return [b"burst-%03d=%s" % (i, hashlib.sha256(b"%d" % i).hexdigest()
+                                .encode()) for i in range(CONS_BURST_TXS)]
+
+
+def consensus_burst(root, device="cuda") -> dict:
+    """Run (1): CONS_BURST_NODES port validators of power
+    CONS_BURST_POWER in this process with perfect gossip, each a
+    ConsensusNode under ``root``, CONS_BURST_TXS kvstore txs in every
+    mempool; until every node stores CONS_BURST_HEIGHTS blocks. All must
+    agree on each block and app hash, commit every tx once and end with
+    empty mempools."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.types import GenesisDoc, GenesisValidator, MockPV
+
+    pvs = [MockPV(Ed25519PrivKey.from_seed(_seed(CONS_SEED + b"-burst", i)))
+           for i in range(CONS_BURST_NODES)]
+    genesis = GenesisDoc(
+        chain_id=CONS_CHAIN_ID + "-burst", genesis_time_ns=time.time_ns(),
+        validators=[GenesisValidator(pv.get_pub_key(), CONS_BURST_POWER)
+                    for pv in pvs])
+    cfg = consensus_config(burst=True)
+    nodes = [ConsensusNode(genesis, pv, cfg, Path(root) / f"node{i}",
+                           device) for i, pv in enumerate(pvs)]
+    wire_gossip(nodes)
+    txs = burst_txs()
+    t = time.perf_counter()
+    try:
+        for n in nodes:
+            for tx in txs:
+                n.mempool.check_tx(tx)
+        for n in nodes:
+            n.cs.start()
+        wait_for(lambda: min(n.block_store.height() for n in nodes)
+                 >= CONS_BURST_HEIGHTS and all(
+                     n.mempool.size() == 0 for n in nodes),
+                 f"{CONS_BURST_NODES} nodes to commit {CONS_BURST_HEIGHTS} "
+                 f"heights", nodes=nodes,
+                 state=lambda: [(n.block_store.height(), n.mempool.size(),
+                                 n.cs.get_round_state().round,
+                                 n.cs.get_round_state().step.name)
+                                for n in nodes])
+        seconds = time.perf_counter() - t
+    finally:
+        for n in nodes:
+            n.stop()
+    for n in nodes:
+        check(not n.fatal, f"a burst node fail-stopped: {n.fatal}")
+    reopened = [ConsensusNode(genesis, pv, cfg, Path(root) / f"node{i}",
+                              device) for i, pv in enumerate(pvs)]
+    try:
+        stores = [n.block_store for n in reopened]
+        rounds, committed = [], collections.Counter()
+        for h in range(1, CONS_BURST_HEIGHTS + 1):
+            hashes = {bs.load_block(h).hash() for bs in stores}
+            check(len(hashes) == 1, f"burst: the nodes disagree on block "
+                  f"{h}")
+            apps = {n.state_store.load_finalize_block_response(h).app_hash
+                    for n in reopened}
+            check(len(apps) == 1, f"burst: the nodes disagree on the app "
+                  f"hash after block {h}")
+            committed.update(stores[0].load_block(h).data.txs)
+            rounds.append(stores[0].load_block_commit(h).round
+                          if stores[0].height() > h else None)
+        check(committed == collections.Counter(txs),
+              f"burst: txs committed {sum(committed.values())} times, "
+              f"{len(committed)} distinct, against {len(txs)} once each")
+        apps = [n.state_store.load().app_hash for n in reopened]
+        heights = [n.block_store.height() for n in reopened]
+    finally:
+        for n in reopened:
+            n.stop()
+    return {"nodes": CONS_BURST_NODES, "heights": heights,
+            "commit_rounds": rounds, "txs": len(txs),
+            "app_hashes": sorted({a.hex() for a in apps}),
+            "seconds": seconds}
+
+
+class NodeTimer:
+    """Host ms of a consensus node's steps while entered, each summed over
+    the threads that run it (the FSM, the commit writer, the speculation
+    worker) and exclusive of the other steps nested in it: preverify (the
+    receive loop's batch), admission (_try_add_vote, which also runs the
+    transitions a vote triggers), validate_block, FinalizeBlock (or its
+    speculation), Commit, the mempool's update, the state and block saves
+    and the WAL. Also each preverify window's lanes."""
+
+    STEPS = (("cs", "_preverify_queued_votes", "preverify"),
+             ("cs", "_try_add_vote", "admission"),
+             ("exe", "validate_block", "validate_block"),
+             ("client", "finalize_block", "finalize_block"),
+             ("client", "speculate_finalize", "finalize_block"),
+             ("client", "commit", "commit"),
+             ("mempool", "update", "mempool_update"),
+             ("state_store", "save", "state_save"),
+             ("block_store", "save_block", "block_save"),
+             ("wal", "write", "wal"),
+             ("wal", "write_sync", "wal"),
+             ("wal", "flush_and_sync", "wal"))
+
+    def __init__(self, node):
+        import threading
+
+        self.node = node
+        self.owners = {"cs": node.cs, "exe": node.exe,
+                       "client": node.conns.consensus,
+                       "mempool": node.mempool,
+                       "state_store": node.state_store,
+                       "block_store": node.block_store, "wal": node.cs.wal}
+        self.ms = collections.Counter()
+        self.windows = []
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._patched = []
+
+    def _wrap(self, real, key):
+        def timed(*args, **kwargs):
+            stack = self._local.__dict__.setdefault("stack", [])
+            stack.append(0.0)
+            t = time.perf_counter()
+            try:
+                out = real(*args, **kwargs)
+                if key == "preverify":
+                    with self._lock:
+                        self.windows.append(len(out) if out else 0)
+                return out
+            finally:
+                spent = time.perf_counter() - t
+                nested = stack.pop()
+                if stack:
+                    stack[-1] += spent
+                with self._lock:
+                    self.ms[key] += 1e3 * (spent - nested)
+        return timed
+
+    def __enter__(self):
+        for owner, name, key in self.STEPS:
+            obj = self.owners[owner]
+            if obj is None or not hasattr(obj, name):
+                continue
+            setattr(obj, name, self._wrap(getattr(obj, name), key))
+            self._patched.append((obj, name))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name in self._patched:
+            delattr(obj, name)  # back to the class's method
+
+    def take(self) -> tuple[dict, list]:
+        """The steps' ms and the preverify windows' lanes so far, and zero
+        for the next height."""
+        with self._lock:
+            ms, self.ms = dict(self.ms), collections.Counter()
+            windows, self.windows = self.windows, []
+        return ms, windows
+
+
+class OtherValidators:
+    """Plays every validator of a chain but the node's: builds a proposal
+    when another validator is the proposer (through the node's own
+    create_proposal_block, which reaps its mempool and evidence pool),
+    signs it with the proposer's key, feeds it and its parts; then each
+    round's votes of the other validators, one of them spoiled, through
+    add_vote_from_peer from CONS_PEER_THREADS threads in a seeded shuffled
+    order. ``sign`` signs [(seed, msg)]."""
+
+    def __init__(self, node, genesis, seed_of, sign):
+        self.node = node
+        self.chain_id = genesis.chain_id
+        self.seed_of = seed_of
+        self.sign = sign
+        self.hvs = {}  # height -> the node's HeightVoteSet
+
+    def prepare(self, h: int, extra=None) -> dict:
+        """Height ``h`` up to its votes: wait for the node to reach it,
+        take or build the proposal, sign both rounds' votes for it. With
+        ``extra`` (h -> callable), run it before a block is built."""
+        from cometbft_tpu_torch.types import BlockID, PartSet, Proposal
+        from cometbft_tpu_torch.types import canonical
+        from cometbft_tpu_torch.types import serialization as ser
+
+        cs, node = self.node.cs, self.node
+        wait_for(lambda: cs.height() == h, f"the node to reach height {h}",
+                 nodes=(node,))
+        rs = cs.get_round_state()
+        self.hvs[h] = rs.votes
+        proposer = rs.validators.get_proposer()
+        out = {"height": h, "own_proposal": proposer.address ==
+               node.address}
+        if extra is not None:
+            extra(h)
+        if out["own_proposal"]:
+            # the node proposes round 0 itself once it enters PROPOSE
+            def proposed():
+                r = cs.get_round_state()
+                return (r.height == h and r.proposal is not None
+                        and r.proposal_block is not None)
+            wait_for(proposed, f"the node's own proposal at {h}",
+                     nodes=(node,))
+            r = cs.get_round_state()
+            out.update(block=r.proposal_block, parts=r.proposal_block_parts,
+                       block_id=r.proposal.block_id, proposal=None)
+        else:
+            # the proposer builds on a durable H-1, as the node's own
+            # _decide_proposal does (its evidence and mempool updated)
+            wait_for(lambda: cs.pipeline.durable_height() >= h - 1,
+                     f"height {h - 1} to be durable", nodes=(node,))
+            with cs._mtx:
+                state = cs.state
+                last = cs.rs.last_commit
+            t = time.perf_counter()
+            blk = node.exe.create_proposal_block(
+                h, state, last.make_extended_commit() if last is not None
+                else None, proposer.address, time_ns=time.time_ns())
+            ps = PartSet.from_data(ser.dumps(blk))
+            bid = BlockID(blk.hash(), ps.header)
+            prop = Proposal(height=h, round=0, pol_round=-1, block_id=bid,
+                            timestamp_ns=time.time_ns())
+            prop.signature = self.sign([(self.seed_of[proposer.address],
+                                         prop.sign_bytes(self.chain_id))])[0]
+            out.update(block=blk, parts=ps, block_id=bid, proposal=prop,
+                       propose_ms=1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        vals = rs.validators
+        out["prevotes"] = self.votes(vals, h, canonical.PREVOTE_TYPE,
+                                     out["block_id"], CONS_TAMPERED[0])
+        out["precommits"] = self.votes(vals, h, canonical.PRECOMMIT_TYPE,
+                                       out["block_id"], CONS_TAMPERED[1])
+        out["sign_ms"] = 1e3 * (time.perf_counter() - t)
+        return out
+
+    def votes(self, vals, h, msg_type, bid, tampered):
+        """Every validator's vote but the node's, signed; the one at index
+        ``tampered`` with a flipped signature byte."""
+        from cometbft_tpu_torch.types import Vote
+
+        t_ns = time.time_ns()
+        unsigned = [Vote(msg_type=msg_type, height=h, round=0, block_id=bid,
+                         timestamp_ns=t_ns + 7919 * i,
+                         validator_address=v.address, validator_index=i)
+                    for i, v in enumerate(vals.validators)
+                    if v.address != self.node.address]
+        sigs = self.sign([(self.seed_of[v.validator_address],
+                           v.sign_bytes(self.chain_id)) for v in unsigned])
+        votes = [dataclasses.replace(v, signature=s)
+                 for v, s in zip(unsigned, sigs)]
+        for i, v in enumerate(votes):
+            if v.validator_index == tampered:
+                votes[i] = dataclasses.replace(
+                    v, signature=bytes([v.signature[0] ^ 1])
+                    + v.signature[1:])
+        return votes
+
+    def feed(self, votes, first=()):
+        """``first`` from this thread in order, then ``votes`` shuffled
+        (seeded) from CONS_PEER_THREADS threads."""
+        import random
+        from concurrent.futures import ThreadPoolExecutor
+
+        cs = self.node.cs
+        for v in first:
+            cs.add_vote_from_peer(v, "peer")
+        order = list(votes)
+        random.Random(int.from_bytes(CONS_SEED, "big") + votes[0].height
+                      * 10 + votes[0].msg_type).shuffle(order)
+        chunks = [order[i::CONS_PEER_THREADS]
+                  for i in range(CONS_PEER_THREADS)]
+
+        def put(chunk, peer):
+            for v in chunk:
+                cs.add_vote_from_peer(v, peer)
+        with ThreadPoolExecutor(CONS_PEER_THREADS) as ex:
+            list(ex.map(put, chunks, [f"peer{i}" for i in
+                                      range(CONS_PEER_THREADS)]))
+
+    def play(self, prep, conflicting=None) -> dict:
+        """Feed height prep["height"]'s proposal (unless the node's own),
+        its parts, the prevotes, then (once the node precommits) the
+        precommits, ``conflicting`` right after its validator's genuine
+        one; wait until the node has committed the block. Host ms from
+        the proposal fed to the node's precommit, to the block stored, and
+        to the height durable (the app's Commit and the state saved)."""
+        from cometbft_tpu_torch.consensus.round_state import RoundStep
+
+        cs, node, h = self.node.cs, self.node, prep["height"]
+        t = time.perf_counter()
+        if prep["proposal"] is not None:
+            cs.set_proposal_from_peer(prep["proposal"], "peer")
+            for part in prep["parts"].parts:
+                cs.add_block_part_from_peer(h, 0, part, "peer")
+        self.feed(prep["prevotes"])
+        wait_for(lambda: cs.height() > h or cs.get_round_state().step
+                 >= RoundStep.PRECOMMIT, f"the node to precommit at {h}",
+                 nodes=(node,))
+        out = {"proposal_to_precommit": 1e3 * (time.perf_counter() - t)}
+        first = []
+        precommits = prep["precommits"]
+        if conflicting is not None:
+            i = next(i for i, v in enumerate(precommits)
+                     if v.validator_index == conflicting.validator_index)
+            first = [precommits[i], conflicting]
+            precommits = precommits[:i] + precommits[i + 1:]
+        self.feed(precommits, first)
+        wait_for(lambda: node.block_store.height() >= h,
+                 f"the node to commit height {h}", nodes=(node,))
+        out["proposal_to_stored"] = 1e3 * (time.perf_counter() - t)
+        wait_for(lambda: cs.pipeline.durable_height() >= h,
+                 f"height {h} to be durable", nodes=(node,))
+        out["proposal_to_durable"] = 1e3 * (time.perf_counter() - t)
+        return out
+
+    def settle(self, h: int) -> None:
+        """Wait until every valid precommit of height ``h`` is counted
+        (the node's own with them), or until the node has left the
+        commit timeout of height ``h + 1``, after which it drops late
+        precommits (as the reference does)."""
+        from cometbft_tpu_torch.consensus.round_state import RoundStep
+
+        cs = self.node.cs
+        pc = self.hvs[h].precommits(0)
+        vals = pc.val_set
+        want = (vals.total_voting_power()
+                - vals.validators[CONS_TAMPERED[1]].voting_power)
+
+        def settled():
+            if pc.sum >= want:
+                return True
+            rs = cs.get_round_state()
+            return rs.height > h + 1 or rs.step != RoundStep.NEW_HEIGHT
+        wait_for(settled, f"height {h}'s precommits to be counted",
+                 nodes=(self.node,))
+
+
+def conflicting_precommit(others, prep, index):
+    """Validator ``index``'s precommit at prep's height for another block,
+    signed."""
+    from cometbft_tpu_torch.types import (PRECOMMIT_TYPE, BlockID,
+                                          PartSetHeader, Vote)
+
+    vals = others.hvs[prep["height"]].val_set
+    v = vals.validators[index]
+    other = BlockID(hashlib.sha256(b"conflict").digest(),
+                    PartSetHeader(1, hashlib.sha256(b"parts").digest()))
+    vote = Vote(msg_type=PRECOMMIT_TYPE, height=prep["height"], round=0, block_id=other,
+                timestamp_ns=time.time_ns(), validator_address=v.address,
+                validator_index=index)
+    vote.signature = others.sign([(others.seed_of[v.address],
+                                   vote.sign_bytes(others.chain_id))])[0]
+    return vote
+
+
+def light_attack(others, common_height: int):
+    """A LightClientAttackEvidence against the node's chain: block
+    ``common_height + 1``'s header with another app hash, signed by the
+    first CONS_ATTACK_SIGNERS validators of the common height's set (its
+    commit carries their signatures alone)."""
+    from cometbft_tpu_torch.types import (BlockID, PartSetHeader,
+                                          ValidatorSet)
+    from cometbft_tpu_torch.types import block as tblock
+    from cometbft_tpu_torch.types.evidence import LightClientAttackEvidence
+    from cometbft_tpu_torch.types.light_block import LightBlock, SignedHeader
+
+    node = others.node
+    vals = node.state_store.load_validators(common_height)
+    trusted = node.block_store.load_block(common_height).header
+    header = dataclasses.replace(
+        trusted, height=common_height + 1, time_ns=trusted.time_ns + 10**9,
+        app_hash=hashlib.sha256(b"forged").digest())
+    bid = BlockID(header.hash(), PartSetHeader(1, hashlib.sha256(
+        b"forged-parts").digest()))
+    signers = vals.validators[:CONS_ATTACK_SIGNERS]
+    unsigned = [tblock.CommitSig(tblock.BLOCK_ID_FLAG_COMMIT, v.address,
+                                 header.time_ns + 7919 * i)
+                for i, v in enumerate(signers)]
+    commit = tblock.Commit(common_height + 1, 0, bid, unsigned)
+    sigs = others.sign([(others.seed_of[cs.validator_address],
+                         commit.vote_sign_bytes(others.chain_id, i))
+                        for i, cs in enumerate(unsigned)])
+    commit.signatures = [dataclasses.replace(cs, signature=s)
+                         for cs, s in zip(unsigned, sigs)]
+    return LightClientAttackEvidence(
+        conflicting_block=LightBlock(SignedHeader(header, commit),
+                                     ValidatorSet([dataclasses.replace(v)
+                                                   for v in signers])),
+        common_height=common_height, byzantine_validators=list(signers),
+        total_voting_power=vals.total_voting_power(),
+        timestamp_ns=trusted.time_ns)
+
+
+def consensus_genesis(pubs):
+    """Run (2)'s genesis: the chain cell's CONS_VALIDATORS keys at
+    CHAIN_POWER, evidence up to CONS_EVIDENCE_BYTES a block."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.types import (ConsensusParams, GenesisDoc,
+                                          GenesisValidator)
+    from cometbft_tpu_torch.types.params import EvidenceParams
+
+    return GenesisDoc(
+        chain_id=CONS_CHAIN_ID, genesis_time_ns=time.time_ns(),
+        consensus_params=ConsensusParams(evidence=EvidenceParams(
+            max_bytes=CONS_EVIDENCE_BYTES)),
+        validators=[GenesisValidator(Ed25519PubKey(p), CHAIN_POWER)
+                    for p in pubs[:CONS_VALIDATORS]])
+
+
+def consensus_node(pubs, root, device="cuda"):
+    """(genesis, {address: seed}, run (2)'s node holding validator 0's
+    key, in the set's order)."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey, Ed25519PubKey
+    from cometbft_tpu_torch.types import MockPV
+
+    genesis = consensus_genesis(pubs)
+    seeds = chain_seeds()
+    seed_of = {Ed25519PubKey(p).address(): s for p, s in zip(pubs, seeds)}
+    first = genesis.validator_set().validators[0].address
+    pv = MockPV(Ed25519PrivKey.from_seed(seed_of[first]))
+    node = ConsensusNode(genesis, pv, consensus_config(burst=False), root,
+                         device)
+    return genesis, seed_of, node
+
+
+def _traced_consensus(pubs):
+    """Worker: run (2)'s node on MemDBs with the planes pushed, through
+    heights 1 to CONS_TRACE_HEIGHT - 1 (the arena builds at the first),
+    then the warm height CONS_TRACE_HEIGHT from its proposal fed to its
+    block stored under torch.profiler (its votes signed before): (host
+    ms, card-busy ms, device events)."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import coalesce, hashplane
+
+    vco = coalesce.VerifyCoalescer(device="cuda")
+    hco = hashplane.HashCoalescer(device="cuda")
+    for co, mod in ((vco, coalesce), (hco, hashplane)):
+        co.start()
+        mod.push_active(co)
+    genesis, seed_of, node = consensus_node(pubs, None)
+    others = OtherValidators(node, genesis, seed_of, _fast_sign_chunk)
+    try:
+        with env("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "0"):
+            check_txs(node.mempool, consensus_txs(1), CONS_TX_THREADS)
+            node.cs.start()
+            for h in range(1, CONS_TRACE_HEIGHT + 1):
+                prep = others.prepare(h)
+                if h < CONS_HEIGHTS:
+                    check_txs(node.mempool, consensus_txs(h + 1),
+                              CONS_TX_THREADS)
+                if h < CONS_TRACE_HEIGHT:
+                    others.play(prep)
+                    continue
+                host_ms, busy_ms, events = device_busy_ms(
+                    torch, lambda: others.play(prep))
+        check(not node.fatal, f"the traced node fail-stopped: {node.fatal}")
+        return host_ms, busy_ms, events
+    finally:
+        node.stop()
+        for co, mod in ((hco, hashplane), (vco, coalesce)):
+            mod.pop_active(co)
+            co.stop()
+
+
+def consensus_txs(height: int) -> list[bytes]:
+    """Run (2)'s height ``height``: CHAIN_TXS kvstore txs of
+    CHAIN_TX_BYTES, distinct from the chain phase's."""
+    return chain_txs(100 + height)
+
+
+def phase_consensus(torch, card):
+    """The consensus phase (see the module docstring, phase 13). Returns
+    ({kernel: launches}, {kernel: {lanes: launches}}, the window
+    comparisons' (err, mismatches), X4's launches, X4's launches by shape,
+    X4's (err, mismatches))."""
+    import shutil
+
+    from cometbft_tpu_torch.crypto import coalesce, hashplane
+    from cometbft_tpu_torch.libs import db as dbm
+    from cometbft_tpu_torch.ops import cuda_sha256, cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.state import Store
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.abci import kvstore, types as abci
+    from cometbft_tpu_torch.types import BLOCK_ID_FLAG_COMMIT
+    from cometbft_tpu_torch.types.evidence import (DuplicateVoteEvidence,
+                                                   LightClientAttackEvidence)
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "consensus"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    # a node starts with the card's arena cold: the prestage of each new
+    # validator set builds its tables (X1)
+    ov._PUBKEY_CACHE = {}
+    with get_context("spawn").Pool(WORKERS) as pool:
+        t = time.perf_counter()
+        pubs = _pool_map(pool, _fast_pubkey_chunk, chain_seeds())
+        _, sign = _chain_signer(pubs, pool)
+        keys_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        cuda_verify.reset_launches()  # the consensus path starts here
+        cuda_sha256.reset_launches()
+        with WindowRecorder(ov, cuda_verify) as recorder, \
+                X4Recorder(cuda_sha256) as x4_recorder, \
+                env("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "0"):
+            burst = consensus_burst(root / "burst")
+            emit({"phase": "consensus.burst", **burst, "card": card})
+            vco = coalesce.VerifyCoalescer(device="cuda")
+            hco = hashplane.HashCoalescer(device="cuda")
+            for co, mod in ((vco, coalesce), (hco, hashplane)):
+                co.start()
+                mod.push_active(co)
+            genesis, seed_of, node = consensus_node(pubs, root / "node")
+            others = OtherValidators(node, genesis, seed_of, sign)
+            evidence, heights, seen = {}, [], {}
+
+            def attack(h):
+                if h == CONS_ATTACK_HEIGHT:
+                    ev = light_attack(others, h - 1)
+                    t = time.perf_counter()
+                    node.evidence.add_evidence(ev)
+                    evidence["light"] = ev
+                    evidence["light_ms"] = 1e3 * (time.perf_counter() - t)
+                    check(node.evidence.is_pending(ev), "the light-client "
+                          "attack did not reach the pool")
+            try:
+                tx_ms = check_txs(node.mempool, consensus_txs(1),
+                                  CONS_TX_THREADS)
+                node.cs.start()
+                with NodeTimer(node) as timer:
+                    for h in range(1, CONS_HEIGHTS + 1):
+                        k2_0 = dict(cuda_verify.LAUNCH_LANES[
+                            "verify_kernel_cached"])
+                        x1_0 = dict(cuda_verify.LAUNCH_LANES[
+                            "build_pubkey_tables"])
+                        x4_0 = dict(cuda_sha256.LAUNCH_SHAPES["sha256"])
+                        prep = others.prepare(h, attack)
+                        next_tx_ms = (check_txs(
+                            node.mempool, consensus_txs(h + 1),
+                            CONS_TX_THREADS) if h < CONS_HEIGHTS else None)
+                        timer.take()  # the node's steps before the feed
+                        conflicting = (conflicting_precommit(
+                            others, prep, CONS_DUP_VALIDATOR)
+                            if h == CONS_DUP_HEIGHT else None)
+                        ms = others.play(prep, conflicting)
+                        others.settle(h)
+                        torch.cuda.synchronize()
+                        steps, windows = timer.take()
+                        commit = seen[h] = node.block_store.load_seen_commit()
+                        x4_now = cuda_sha256.LAUNCH_SHAPES["sha256"]
+                        row = {
+                            "height": h, "round": commit.round,
+                            "own_proposal": prep["own_proposal"],
+                            "txs": len(prep["block"].data.txs),
+                            "evidence": [type(e).__name__ for e in
+                                         prep["block"].evidence],
+                            "parts": prep["parts"].header.total,
+                            "host_ms": {**ms, **{k: round(v, 3) for k, v in
+                                                 sorted(steps.items())}},
+                            "propose_ms": prep.get("propose_ms"),
+                            "sign_ms": prep["sign_ms"],
+                            "check_tx_ms": tx_ms,
+                            "preverify_lanes": windows,
+                            "k2_by_lanes": _lanes_since(
+                                cuda_verify, "verify_kernel_cached", k2_0),
+                            "x1_by_lanes": _lanes_since(
+                                cuda_verify, "build_pubkey_tables", x1_0),
+                            "x4_by_shape": {
+                                f"{bb}x{lb}": n - x4_0.get((bb, lb), 0)
+                                for (bb, lb), n in sorted(x4_now.items())
+                                if n != x4_0.get((bb, lb), 0)},
+                            "card": card}
+                        tx_ms = next_tx_ms
+                        heights.append(row)
+                        emit({"phase": "consensus.height", **row})
+                        check(commit.round == 0, f"height {h} committed in "
+                              f"round {commit.round}: a timeout moved the "
+                              f"round ({row['host_ms']})")
+                wait_for(lambda: node.cs.pipeline.durable_height()
+                         >= CONS_HEIGHTS, "the last height to be durable",
+                         nodes=(node,))
+                blocks = {h: node.block_store.load_block(h)
+                          for h in range(1, CONS_HEIGHTS + 1)}
+                stored = {h: node.block_store.load_block_commit(h)
+                          for h in range(1, CONS_HEIGHTS)}
+                dup_address = others.hvs[CONS_DUP_HEIGHT].val_set.validators[
+                    CONS_DUP_VALIDATOR].address
+                last = node.cs.state
+                dup = [e for b in blocks.values() for e in b.evidence
+                       if isinstance(e, DuplicateVoteEvidence)]
+                light = [e for b in blocks.values() for e in b.evidence
+                         if isinstance(e, LightClientAttackEvidence)]
+                committed_ev = [node.evidence.is_committed(e)
+                                for e in dup + light]
+                mempool_left = node.mempool.size()
+            finally:
+                node.stop()
+                for co, mod in ((hco, hashplane), (vco, coalesce)):
+                    mod.pop_active(co)
+                    co.stop()
+            # read once the node and both planes have stopped: a warm-up
+            # thread may launch after the last height
+            torch.cuda.synchronize()
+            launches = dict(cuda_verify.LAUNCHES)
+            x4_shapes = dict(sorted(
+                cuda_sha256.LAUNCH_SHAPES["sha256"].items()))
+            x4_all = cuda_sha256.LAUNCHES["sha256"]
+        check(not node.fatal, f"the node fail-stopped: {node.fatal}")
+        # the spoiled votes did not count: not in the node's vote sets,
+        # not in any commit it stored
+        for h, hvs in others.hvs.items():
+            counted = (hvs.prevotes(0).get_by_index(CONS_TAMPERED[0]),
+                       hvs.precommits(0).get_by_index(CONS_TAMPERED[1]))
+            check(counted == (None, None),
+                  f"height {h}: a tampered vote was counted: {counted}")
+            for c in (seen[h], stored.get(h)):
+                check(c is None or c.signatures[CONS_TAMPERED[1]]
+                      .block_id_flag != BLOCK_ID_FLAG_COMMIT,
+                      f"height {h}: the tampered precommit is in a commit")
+        check(len(dup) == 1 and dup[0].vote_a.validator_address
+              == dup_address, f"{len(dup)} duplicate-vote evidence "
+              f"committed, want 1 of validator {CONS_DUP_VALIDATOR}")
+        check(any(isinstance(e, DuplicateVoteEvidence)
+                  for e in blocks[CONS_DUP_HEIGHT + 1].evidence),
+              f"the duplicate vote is not in block {CONS_DUP_HEIGHT + 1}")
+        check(len(light) == 1 and light[0].hash()
+              == evidence["light"].hash(),
+              f"{len(light)} light-client attacks committed, want 1")
+        check(all(committed_ev), "the pool did not mark the committed "
+              "evidence")
+        check(mempool_left == 0, f"the mempool kept {mempool_left} txs")
+
+        # the four FileDBs reopened: the state, every block and the app
+        t = time.perf_counter()
+        reopened = {n: dbm.FileDB(str(root / "node" / f"{n}.db"))
+                    for n in ("app", "state", "blocks")}
+        try:
+            loaded = Store(reopened["state"]).load()
+            check(Store._encode_state(loaded) == Store._encode_state(last),
+                  "the reopened state store does not hold the last state")
+            bs = BlockStore(reopened["blocks"])
+            check(bs.height() >= CONS_HEIGHTS and all(
+                bs.load_block(h).hash() == b.hash()
+                for h, b in blocks.items()),
+                "the reopened block store lost a block")
+            info = kvstore.KVStoreApplication(reopened["app"]).info(
+                abci.RequestInfo())
+            check(info.last_block_app_hash == last.app_hash
+                  and info.last_block_height == last.last_block_height,
+                  f"the reopened app: {info} against {last.app_hash.hex()}")
+        finally:
+            for d in reopened.values():
+                d.close()
+        reopen_ms = 1e3 * (time.perf_counter() - t)
+        pool.close()
+        pool.join()
+    shutil.rmtree(root, ignore_errors=True)
+
+    # every K2/X1 launch of the path against its plain version, and every
+    # X4 launch: the phase's lane counts and shapes are its own
+    err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
+    mismatches = dict(err)
+    compared = compare_windows(torch, recorder.records, err, mismatches)
+    check(not any(mismatches.values()),
+          f"consensus windows != plain: {mismatches}")
+    lanes = check_lanes(cuda_verify, "consensus", compared)
+    check(launches["verify_kernel_cached"] > 0
+          and launches["build_pubkey_tables"] > 0,
+          f"consensus: K2 and X1 must both launch: {launches}")
+    check(lanes["verify_kernel_cached"].get(CONS_ATTACK_SIGNERS, 0) >= 1,
+          f"the light attack's trusting check did not run K2 at "
+          f"{CONS_ATTACK_SIGNERS} lanes: {lanes['verify_kernel_cached']}")
+    for name in ("verify_kernel", "verify_kernel8", "verify_kernel8_cached"):
+        check(launches[name] == 0, f"{name} launched on the consensus path")
+    x4_err, x4_mismatches, x4_compared = compare_x4(
+        torch, x4_recorder.records)
+    check(x4_mismatches == 0,
+          f"consensus X4 != plain: {x4_mismatches} words")
+    check(x4_all > 0 and len(x4_recorder.records) == x4_all
+          and set(x4_shapes) <= x4_compared,
+          f"consensus: X4 ran at {sorted(x4_shapes)}, compared at "
+          f"{sorted(x4_compared)} only")
+
+    # the card's busy and idle share of one warm height, in a process of
+    # its own
+    with get_context("spawn").Pool(1) as tracer:
+        host_ms, busy_ms, ev = tracer.apply(_traced_consensus, (pubs,))
+        tracer.close()
+        tracer.join()
+    check(ev > 0, "the traced warm height ran nothing on the card")
+    emit({"phase": "consensus.trace", "step": f"height {CONS_TRACE_HEIGHT}, "
+          "warm, profiled (proposal fed to block stored)",
+          "host_ms": host_ms, "device_busy_ms": busy_ms,
+          "device_events": ev, "idle_share": 1 - busy_ms / host_ms,
+          "card": card})
+    emit({"phase": "consensus", "validators": CONS_VALIDATORS,
+          "heights": CONS_HEIGHTS, "launches": launches, "lanes": lanes,
+          "x4_launches": x4_all, "x4_by_shape": {
+              f"{bb}x{lb}": n for (bb, lb), n in x4_shapes.items()},
+          "x4_mismatches": x4_mismatches, "x4_max_abs_err": x4_err,
+          "windows_compared": len(recorder.records),
+          "mismatches": dict(mismatches), "max_abs_err": dict(err),
+          "evidence": {"duplicate_vote": len(dup),
+                       "light_client_attack": len(light),
+                       "light_add_ms": evidence["light_ms"]},
           "app_hash": last.app_hash.hex(), "reopen_ms": reopen_ms,
           "keys_seconds": keys_s,
           "seconds": time.perf_counter() - t_phase, "card": card})
@@ -5076,6 +6088,8 @@ def main() -> int:
     devstats.release()
     (chain_launches, chain_lanes, (chain_err, chain_mismatches), chain_x4,
      chain_x4_shapes, chain_x4_diff) = phase_chain(torch, smi)
+    (cons_launches, cons_lanes, (cons_err, cons_mismatches), cons_x4,
+     cons_x4_shapes, cons_x4_diff) = phase_consensus(torch, smi)
 
     replaces = {
         "verify_kernel": "cometbft_tpu/ops/pallas_verify.py:922",
@@ -5096,16 +6110,18 @@ def main() -> int:
                            + collections.Counter(rlc_lanes[name])
                            + collections.Counter(mesh_lanes[name])
                            + collections.Counter(ledger_lanes[name])
-                           + collections.Counter(chain_lanes[name]))
+                           + collections.Counter(chain_lanes[name])
+                           + collections.Counter(cons_lanes[name]))
                 for name in cuda_verify.LAUNCHES}
-    # the vote, mixed, ledger and chain paths' launches were compared too:
-    # their differences join the kernels phase's
+    # the vote, mixed, ledger, chain and consensus paths' launches were
+    # compared too: their differences join the kernels phase's
     for name in ("verify_kernel", "verify_kernel_cached",
                  "build_pubkey_tables"):
         for path_err, path_mismatches in ((vote_err, vote_mismatches),
                                           (mixed_err, mixed_mismatches),
                                           (ledger_err, ledger_mismatches),
-                                          (chain_err, chain_mismatches)):
+                                          (chain_err, chain_mismatches),
+                                          (cons_err, cons_mismatches)):
             timed[name]["max_abs_err"] = max(timed[name]["max_abs_err"],
                                              path_err[name])
             timed[name]["mismatches"] += path_mismatches[name]
@@ -5116,7 +6132,8 @@ def main() -> int:
          "launches": (slice_launches[name] + light_launches[name]
                       + vote_launches[name] + mixed_launches[name]
                       + rlc_launches[name] + mesh_launches[name]
-                      + ledger_launches[name] + chain_launches[name]),
+                      + ledger_launches[name] + chain_launches[name]
+                      + cons_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
                               "light": light_launches[name],
                               "vote": vote_launches[name],
@@ -5124,7 +6141,8 @@ def main() -> int:
                               "rlc": rlc_launches[name],
                               "mesh": mesh_launches[name],
                               "ledger": ledger_launches[name],
-                              "chain": chain_launches[name]},
+                              "chain": chain_launches[name],
+                              "consensus": cons_launches[name]},
          "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",
@@ -5141,17 +6159,20 @@ def main() -> int:
         {"name": "sha256", "route": "cuda",
          "source": "cometbft_tpu_torch/ops/csrc/sha256.cu",
          "replaces": "cometbft_tpu/ops/sha256.py:178",
-         "launches": hash_launches + ledger_x4 + chain_x4,
+         "launches": hash_launches + ledger_x4 + chain_x4 + cons_x4,
          "launches_by_path": {"hash": hash_launches, "ledger": ledger_x4,
-                              "chain": chain_x4},
+                              "chain": chain_x4, "consensus": cons_x4},
          **x4_row, "launches_by_shape": {
              f"{bb}x{lb}": n for (bb, lb), n in sorted((collections.Counter(
                  {tuple(map(int, k.split("x"))): v for k, v in
                   x4_row["launches_by_shape"].items()})
                  + collections.Counter(ledger_x4_shapes)
-                 + collections.Counter(chain_x4_shapes)).items())},
-         "max_abs_err": max(x4_row["max_abs_err"], chain_x4_diff[0]),
-         "mismatches": x4_row["mismatches"] + chain_x4_diff[1],
+                 + collections.Counter(chain_x4_shapes)
+                 + collections.Counter(cons_x4_shapes)).items())},
+         "max_abs_err": max(x4_row["max_abs_err"], chain_x4_diff[0],
+                            cons_x4_diff[0]),
+         "mismatches": (x4_row["mismatches"] + chain_x4_diff[1]
+                        + cons_x4_diff[1]),
          "library_ms": None},
     ]}), flush=True)
     print(smi, flush=True)

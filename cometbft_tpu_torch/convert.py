@@ -31,6 +31,14 @@ this package makes of ``ser.dumps`` of the JAX package's object (the
 codec tags by class name and both packages' classes have the same
 fields): the tests hold the converters to that round trip.
 
+A consensus run comes across the same way: a proposal
+(:func:`proposal_from`), each message the consensus loop consumes and its
+WAL records (:func:`message_from`: ``ProposalMessage``,
+``BlockPartMessage``, ``VoteMessage``, ``MsgInfo``, ``TimeoutInfo``,
+``EndHeightMessage``) and the consensus and mempool sections of a node's
+config (:func:`config_from`). A WAL file needs no converter: its frames
+carry the codec's tagged JSON, which this package's WAL decodes as it is.
+
 The RLC batch equation (ops/rlc.py and its kernel X5) keeps no weights
 and no state between calls: its inputs are a batch's bytes and fresh
 random scalars, so nothing of it is carried across. Its plans, encodings
@@ -45,7 +53,10 @@ import torch
 
 import json
 
+from . import config as node_config
 from .abci import types as abci
+from .consensus import messages as cmsg
+from .consensus import wal as cwal
 from .crypto import merkle
 from .crypto.keys import Ed25519PubKey, pubkey_from_type_and_bytes
 from .ops.verify import PubkeyTableCache
@@ -55,7 +66,7 @@ from .types.genesis import GenesisDoc, GenesisValidator
 from .types.light_block import LightBlock, SignedHeader
 from .types.part_set import Part, PartSet
 from .types.validator_set import Validator, ValidatorSet
-from .types.vote import Vote
+from .types.vote import Proposal, Vote
 from .types.vote_set import VoteSet, _BlockVotes
 
 
@@ -376,3 +387,48 @@ def abci_response_from(r) -> abci.ResponseFinalizeBlock:
             else params_from(r.consensus_param_updates)),
         app_hash=bytes(r.app_hash),
     )
+
+
+def proposal_from(p) -> Proposal:
+    """This package's Proposal with the fields of ``p``."""
+    return Proposal(
+        height=int(p.height), round=int(p.round),
+        pol_round=int(p.pol_round), block_id=_block_id(p.block_id),
+        timestamp_ns=int(p.timestamp_ns), signature=bytes(p.signature),
+    )
+
+
+def message_from(m):
+    """This package's consensus message or WAL record with the fields of
+    ``m``, by its class name: ProposalMessage, BlockPartMessage,
+    VoteMessage, MsgInfo (its message converted the same way),
+    TimeoutInfo and EndHeightMessage."""
+    kind = type(m).__name__
+    if kind == "ProposalMessage":
+        return cmsg.ProposalMessage(proposal_from(m.proposal))
+    if kind == "BlockPartMessage":
+        return cmsg.BlockPartMessage(int(m.height), int(m.round),
+                                     part_from(m.part))
+    if kind == "VoteMessage":
+        return cmsg.VoteMessage(vote_from(m.vote))
+    if kind == "MsgInfo":
+        return cwal.MsgInfo(message_from(m.msg), str(m.peer_id))
+    if kind == "TimeoutInfo":
+        return cwal.TimeoutInfo(float(m.duration_s), int(m.height),
+                                int(m.round), int(m.step))
+    if kind == "EndHeightMessage":
+        return cwal.EndHeightMessage(int(m.height))
+    raise TypeError(f"no converter for a {kind}")
+
+
+def config_from(c) -> node_config.Config:
+    """This package's Config (its defaults) with the consensus and
+    mempool sections of ``c``, the two the port reads."""
+    out = node_config.default_config()
+    out.consensus = node_config.ConsensusConfig(**{
+        f: getattr(c.consensus, f)
+        for f in node_config.ConsensusConfig.__dataclass_fields__})
+    out.mempool = node_config.MempoolConfig(**{
+        f: getattr(c.mempool, f)
+        for f in node_config.MempoolConfig.__dataclass_fields__})
+    return out

@@ -9,7 +9,10 @@ verifies in one device pass (ops/verify.verify_batch); a smaller one goes
 to the pushed verify coalescer (crypto/coalesce.verify_bytes), where
 concurrent small callers share windows, or with none pushed to the native
 RLC host batch (crypto/host_batch.verify_many). That is routing, not a
-rescue: a routed batch whose coalescer or kernel fails raises.
+rescue: a routed batch whose coalescer or kernel fails raises. What a
+verifier's ``verify`` or :func:`prestage_validators` raises is marked as
+the device path's fault (libs/devicefault): their inputs were checked at
+``add``, and a malformed lane verifies False rather than raising.
 
 sr25519 rides the same kernels: :class:`MixedBatchVerifier` verifies a
 set of ed25519 and sr25519 keys as one batch, the sr25519 lanes' merlin
@@ -39,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from ..libs import devicefault
 from ..libs import metrics as libmetrics
 from ..libs import sync as libsync
 from . import ed25519_ref, keys
@@ -123,6 +127,7 @@ class Ed25519BatchVerifier(BatchVerifier):
     def __len__(self) -> int:
         return len(self._pubkeys)
 
+    @devicefault.boundary("ed25519 batch verify")
     def verify(self) -> tuple[bool, list[bool]]:
         n = len(self._pubkeys)
         if n < host_batch_threshold(self.device):
@@ -241,6 +246,7 @@ class MixedBatchVerifier(BatchVerifier):
                           (L - kneg) % L))
         return quads
 
+    @devicefault.boundary("mixed batch verify")
     def verify(self) -> tuple[bool, list[bool]]:
         from . import host_batch
 
@@ -290,6 +296,7 @@ _BATCH_BACKENDS: dict[str, type] = {
 }
 
 
+@devicefault.boundary("prestage")
 def prestage_validators(validator_set, device="cuda") -> int:
     """Warm the process-wide pubkey arena of ``device`` with a validator
     set's ed25519 keys (ops.verify.prestage_pubkeys: COMETBFT_TPU_PRESTAGE

@@ -11,7 +11,10 @@ a stream of its own.
 
 No fallback: a fault at launch or at readback fails the tickets of its
 window and the callers raise. Stopping drains the pending windows through
-the plane and fails what a dead or wedged executor left.
+the plane and fails what a dead or wedged executor left. Each of these
+faults, a stopped plane's refusal and a timed-out wait are marked as the
+device path's (libs/devicefault); a lane that does not coerce to bytes
+fails its own ticket unmarked, as its caller's error.
 
 Request deadlines: a caller that wraps its work in
 :func:`request_deadline` bounds every ticket wait of its thread by the
@@ -44,6 +47,7 @@ from collections import deque
 
 import torch
 
+from ..libs import devicefault
 from ..libs import devledger as libdevledger
 from ..libs import sync as libsync
 from ..libs.service import BaseService, ServiceError
@@ -127,10 +131,10 @@ class Ticket:
         """Block for this submit's values; raises the window's fault, or
         TimeoutError after ``timeout`` seconds."""
         if not self._done.wait(timeout):
-            raise TimeoutError(
+            raise devicefault.mark(TimeoutError(
                 f"coalesced window not resolved within {timeout}s "
                 f"({self.n} lanes)"
-            )
+            ), "plane")
         if self._exc is not None:
             raise self._exc
         return list(self._values)
@@ -240,8 +244,8 @@ class WindowPlane(BaseService):
             self._pending_lanes = self._pending_weight = 0
         with self._rb_mtx:
             flights, self._readback = list(self._readback), deque()
-        exc = self.STOPPED_ERROR(
-            f"{self._name} stopped before this window ran")
+        exc = devicefault.mark(self.STOPPED_ERROR(
+            f"{self._name} stopped before this window ran"), self._name)
         tickets = [t for t, _ in leftovers]
         tickets += [t for t, _ in self._staging or ()]
         tickets += [t for fl in flights for t, _ in fl.staged]
@@ -272,7 +276,8 @@ class WindowPlane(BaseService):
             return tickets
         with self._mtx:
             if self._draining or not self._accepting:
-                raise self.STOPPED_ERROR(self._name)
+                raise devicefault.mark(self.STOPPED_ERROR(self._name),
+                                       self._name)
             for g in staged:
                 self._pending.append(g)
                 self._pending_lanes += g[0].n
@@ -288,8 +293,9 @@ class WindowPlane(BaseService):
         has passed, and TimeoutError when a wait runs out."""
         rem = deadline_remaining()
         if rem is not None and rem <= 0:
-            raise TimeoutError(
-                f"{self._name}: the request deadline passed before submit")
+            raise devicefault.mark(TimeoutError(
+                f"{self._name}: the request deadline passed before submit"),
+                self._name)
         values: list = []
         for ticket in self.submit_many(groups):
             wait_s = bound_s
@@ -330,6 +336,7 @@ class WindowPlane(BaseService):
                     try:
                         fl = self._launch(groups, reason, t_pop)
                     except Exception as e:  # a dispatch fault: its window fails
+                        devicefault.mark(e, self._name)
                         for ticket, _ in groups:
                             ticket.fail(e)
                         fl = None
@@ -431,6 +438,7 @@ class WindowPlane(BaseService):
         try:
             self._finish(fl)
         except Exception as e:  # a readback fault: its window fails
+            devicefault.mark(e, self._name)
             for ticket, _ in fl.staged:
                 ticket.fail(e)
 

@@ -3,8 +3,9 @@
 ``Group`` appends to ``<path>`` (the "head") and rotates it to
 ``<path>.000``, ``<path>.001``, … when it exceeds ``head_size_limit``;
 oldest files are dropped once the group exceeds ``group_size_limit``.
-libs/trace's file sink sits on top of this (the JAX package's consensus
-WAL does too, with a reader over the group that comes here with the WAL).
+libs/trace's file sink and the consensus WAL sit on top of this.
+``GroupReader`` reads the whole group in order (rotated files first, head
+last), which WAL replay and ``search_for_end_height`` use.
 """
 
 from __future__ import annotations
@@ -42,6 +43,11 @@ class Group:
     def flush(self) -> None:
         with self._mtx:
             self._head.flush()
+
+    def flush_and_sync(self) -> None:
+        with self._mtx:  # the WAL's durability point: write, then fsync
+            self._head.flush()
+            os.fsync(self._head.fileno())
 
     def check_head_size_limit(self) -> None:
         """Rotate the head if over its limit and drop the oldest files past
@@ -86,7 +92,55 @@ class Group:
             return -1
         return int(_INDEX_RE.search(paths[-1]).group(1))
 
+    def min_index(self) -> int:
+        paths = self._rotated_paths()
+        if not paths:
+            return 0
+        return int(_INDEX_RE.search(paths[0]).group(1))
+
+    def all_paths(self) -> list[str]:
+        """Rotated files in order, then the head."""
+        return self._rotated_paths() + [self.head_path]
+
     def close(self) -> None:
         with self._mtx:
             self._head.flush()
             self._head.close()
+
+
+class GroupReader:
+    """Sequential reader over a whole group (rotated files, then head)."""
+
+    def __init__(self, group: Group):
+        group.flush()
+        self._paths = group.all_paths()
+        self._i = 0
+        self._f = None
+        self._advance()
+
+    def _advance(self) -> None:
+        if self._f:
+            self._f.close()
+            self._f = None
+        while self._i < len(self._paths):
+            p = self._paths[self._i]
+            self._i += 1
+            if os.path.exists(p):
+                self._f = open(p, "rb")
+                return
+
+    def read(self, n: int) -> bytes:
+        out = b""
+        while n > 0 and self._f is not None:
+            chunk = self._f.read(n)
+            if chunk:
+                out += chunk
+                n -= len(chunk)
+            else:
+                self._advance()
+        return out
+
+    def close(self) -> None:
+        if self._f:
+            self._f.close()
+            self._f = None

@@ -265,6 +265,13 @@ def _env_mode() -> str:
     return "auto"
 
 
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, ""))
+    except ValueError:
+        return default
+
+
 def _ring_size_from_env() -> int:
     try:
         n = int(os.environ.get(_ENV_RING, ""))

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 from functools import lru_cache
 
 import torch
@@ -150,13 +151,34 @@ def _cuda_device(device: torch.device) -> None:
         raise ValueError(f"unsupported device {device}: cpu or cuda only")
 
 
-@lru_cache(maxsize=None)
+# The kernels read their constants by pointer after the wrapper returns, so
+# each device's copy is made once, under a lock, and kept. (A copy made by
+# a racing first call and then dropped would free memory that another
+# thread's next tensor on the same stream may take and overwrite before
+# the queued kernel reads it.)
+_CONST_LOCK = threading.Lock()
+_CONSTS: dict = {}
+
+
+def _kept(kind: str, device: torch.device, make) -> torch.Tensor:
+    with _CONST_LOCK:
+        t = _CONSTS.get((kind, device))
+        if t is None:
+            t = _CONSTS[(kind, device)] = make(device)
+        return t
+
+
 def _consts(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(curve.kernel_consts()).to(device)
+    """The field constants (ops.curve.kernel_consts) on ``device``."""
+    return _kept("consts", device,
+                 lambda d: torch.from_numpy(curve.kernel_consts()).to(d))
 
 
-@lru_cache(maxsize=None)
 def _base_table8_26(device: torch.device) -> torch.Tensor:
+    return _kept("base_table8_26", device, _make_base_table8_26)
+
+
+def _make_base_table8_26(device: torch.device) -> torch.Tensor:
     """K3's and K4's fixed-base table: ops.curve.base_table8 with each pair
     of 13-bit limbs joined into one 26-bit limb, ``l[2i] + (l[2i+1] <<
     13)``, as (32, 256, 32) int32: (y+x, y-x, 2dxy) in words 0-29 of an

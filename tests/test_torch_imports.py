@@ -500,3 +500,116 @@ def test_remote_abci_creators_raise_until_ported():
         proxy.socket_client_creator("tcp://127.0.0.1:26658")
     with pytest.raises(NotImplementedError, match="gRPC"):
         proxy.grpc_client_creator("tcp://127.0.0.1:26658")
+
+
+ENGINE_LAYER = ("config.py", "libs/clist.py", "libs/events.py",
+                "libs/autofile.py", "mempool/__init__.py", "mempool/cache.py",
+                "mempool/clist_mempool.py", "evidence/__init__.py",
+                "evidence/verify.py", "evidence/pool.py", "state/rollback.py",
+                "consensus/__init__.py", "consensus/round_state.py",
+                "consensus/messages.py", "consensus/height_vote_set.py",
+                "consensus/ticker.py", "consensus/wal.py",
+                "consensus/replay.py", "consensus/state.py",
+                "consensus/pipeline.py")
+
+
+@pytest.mark.parametrize("rel", ENGINE_LAYER)
+def test_engine_layer_module_is_scanned_and_clean(rel):
+    """Each module of the consensus engine, its mempool and evidence pool
+    sits at its reference path, is in the scan, imports no jax and nothing
+    of the JAX package, and reaches for none of the sensors that come with
+    a later slice (libs/txtrace, libs/netstats)."""
+    path = ROOT / "cometbft_tpu_torch" / rel
+    assert (ROOT / "cometbft_tpu" / rel).exists(), rel
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & FORBIDDEN, rel
+    assert not list(_path_literals(path)), rel
+    tree = ast.parse(path.read_text())
+    names = {a.name for n in ast.walk(tree)
+             if isinstance(n, (ast.Import, ast.ImportFrom)) for a in n.names}
+    assert not names & {"txtrace", "netstats"}, rel
+
+
+def test_env_knobs_list_exactly_the_knobs_the_port_reads():
+    """config.ENV_KNOBS names each COMETBFT_TPU_* variable that the port's
+    code names as a constant (each env read), and no other."""
+    import re
+
+    from cometbft_tpu_torch import config as tconfig
+
+    read = set()
+    for f in _port_files():
+        if f == ROOT / "cometbft_tpu_torch" / "config.py" or \
+                f.name == "chip_smoke.py":
+            continue
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Constant) and isinstance(
+                    node.value, str) and re.fullmatch(
+                        r"COMETBFT_TPU_[A-Z0-9_]+", node.value):
+                read.add(node.value)
+    assert read == set(tconfig.ENV_KNOBS)
+    assert "COMETBFT_TPU_SR_HOST" not in tconfig.ENV_KNOBS
+
+
+def test_engine_entry_points_default_to_cuda():
+    """ConsensusState, CListMempool, EvidencePool and CommitPipeline
+    default to the GPU and raise without one before doing anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from cometbft_tpu_torch.consensus import ConsensusState
+    from cometbft_tpu_torch.consensus.pipeline import CommitPipeline
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.mempool import CListMempool
+
+    for make in (lambda: ConsensusState(None, None, None, None),
+                 lambda: CListMempool(None, None),
+                 lambda: EvidencePool(None, None, None),
+                 lambda: CommitPipeline(None, None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+@pytest.mark.parametrize("name", ["_consts", "_base_table8_26"])
+def test_kernel_constants_are_one_kept_copy_under_racing_first_calls(
+        monkeypatch, name):
+    """The wrappers hand K1-K4, X1 and X5 their constants by pointer, so
+    each device's copy must be one tensor kept for the process, also when
+    the first calls race: a racing call's own copy, dropped after the
+    launch was queued, freed memory that another thread's next tensor on
+    the same stream could take and overwrite before the kernel read it
+    (on the H100, X1's tables then differed from its plain version's in
+    4,721 words when four nodes' prestage threads first built their sets
+    at once)."""
+    import threading
+    import time as _time
+
+    from cometbft_tpu_torch.ops import cuda_verify, curve
+
+    if name == "_consts":
+        real = curve.kernel_consts
+
+        def slow():
+            _time.sleep(0.05)
+            return real()
+        monkeypatch.setattr(curve, "kernel_consts", slow)
+    else:
+        def slow(device):
+            _time.sleep(0.05)
+            return torch.zeros(4, dtype=torch.int32, device=device)
+        monkeypatch.setattr(cuda_verify, "_make_base_table8_26", slow)
+    monkeypatch.setattr(cuda_verify, "_CONSTS", {})
+    dev = torch.device("cpu")
+    fn = getattr(cuda_verify, name)
+    barrier = threading.Barrier(8)
+    got = []
+
+    def first():
+        barrier.wait()
+        got.append(fn(dev))
+    threads = [threading.Thread(target=first) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(got) == 8 and len({id(t) for t in got}) == 1
+    assert fn(dev) is got[0]

@@ -58,6 +58,45 @@ def test_x4_check_covers_every_shape_the_hash_path_launches():
     assert sha256.lane_bucket(cs.INGRESS_THREADS) == 8
 
 
+def test_plain_x4_step_loop_equals_sha256_plain_and_hashlib():
+    """The per-block loop that the card replays from a CUDA graph, run
+    step by step on the CPU: equal to sha256_plain and to hashlib on the
+    padding edges and on ragged lanes (1 to 5 blocks), and to
+    sha256_plain on a wire whose block counts run past the bucket in
+    front of random words. check_plain_x4 refuses a state that differs."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.ops import cuda_sha256
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(5)
+    msgs = [rng.bytes(n) for n in cs.PADDING_EDGES] + [
+        rng.bytes(int(n)) for n in rng.integers(0, 300, 19)]
+    blocks, nblocks = sha256.pack_messages(msgs)
+    b, nb = torch.from_numpy(blocks), torch.from_numpy(nblocks)
+    state = cs.check_plain_x4(torch, b, nb, "the CPU wire")
+    assert sha256._digests_from_state(state.numpy(), len(msgs)) == [
+        hashlib.sha256(m).digest() for m in msgs]
+
+    bb, lanes = blocks.shape[0], blocks.shape[2]
+    room = rng.integers(0, 2**32, (bb + 8, 16, lanes), dtype=np.uint32)
+    room[:bb] = blocks
+    over = nblocks.copy()
+    over[::3] = bb + 1 + np.arange(len(over[::3])) % 8
+    cs.check_plain_x4(torch, torch.from_numpy(room)[:bb],
+                      torch.from_numpy(over), "the over-bucket wire")
+
+    real = cs.plain_x4
+    cs.plain_x4 = lambda torch_, bl, n: torch.zeros_like(real(torch_, bl, n))
+    with pytest.raises(RuntimeError, match="plain_x4 != sha256_plain"):
+        cs.check_plain_x4(torch, b, nb, "a broken helper",
+                          sha256.sha256_plain(b, nb))
+    assert cuda_sha256.as_int64(state).shape == (8, lanes)
+
+
 # cuobjdump -sass lines of X4 as the H100's toolkit prints them (register
 # numbers and encodings abridged), and a loop closed by a backward branch
 SASS = """
@@ -753,7 +792,6 @@ def test_chain_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
 
     import torch
 
-    from cometbft_tpu_torch.crypto import plane
     from cometbft_tpu_torch.ops import cuda_sha256
     from cometbft_tpu_torch.ops import cuda_verify as cv
     from cometbft_tpu_torch.ops import verify as ov
@@ -778,30 +816,7 @@ def test_chain_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
                         SimpleNamespace(Pool=lambda n: _InlinePool()))
     monkeypatch.setattr(cs, "_traced_chain", lambda pubs: (10.0, 1.0, 3))
     monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
-    real_resolve = ov.resolve_device
-
-    def to_cpu(d):
-        return real_resolve("cpu" if torch.device(d).type == "cuda" else d)
-    for mod in (ov, plane, hashplane, sha256):
-        monkeypatch.setattr(mod, "resolve_device", to_cpu)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    for name in ("verify_kernel", "verify_kernel_cached",
-                 "build_pubkey_tables"):
-        def counted(*a, _real=getattr(cv, name), _name=name, **k):
-            lanes = (k["y_r"] if "y_r" in k else k["y_a"] if "y_a" in k
-                     else a[0]).shape[-1]
-            cv.LAUNCHES[_name] += 1
-            cv.LAUNCH_LANES[_name][lanes] += 1
-            return _real(*a, **k)
-        monkeypatch.setattr(cv, name, counted)
-
-    def counted_x4(blocks, nblocks, _real=cuda_sha256.sha256):
-        cuda_sha256.LAUNCHES["sha256"] += 1
-        shape = (blocks.shape[0], blocks.shape[-1])
-        shapes = cuda_sha256.LAUNCH_SHAPES["sha256"]
-        shapes[shape] = shapes.get(shape, 0) + 1
-        return _real(blocks, nblocks)
-    monkeypatch.setattr(cuda_sha256, "sha256", counted_x4)
+    _cuda_on_the_cpu(monkeypatch)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -828,3 +843,126 @@ def test_chain_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
     assert steps["total"] >= steps["verify_commit"] > 0
     assert steps["hashing"] > 0
     assert [x for x in lines if x["phase"] == "chain.trace"]
+
+
+def _cuda_on_the_cpu(monkeypatch):
+    """Map "cuda" to the CPU for a phase rehearsal: resolve_device in the
+    modules that resolve, a no-op synchronize, and the plain versions of
+    K1, K2, X1 and X4 counted as launches."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import plane
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import verify as ov
+
+    real_resolve = ov.resolve_device
+
+    def to_cpu(d):
+        return real_resolve("cpu" if torch.device(d).type == "cuda" else d)
+    for mod in (ov, plane, hashplane, sha256):
+        monkeypatch.setattr(mod, "resolve_device", to_cpu)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for name in ("verify_kernel", "verify_kernel_cached",
+                 "build_pubkey_tables"):
+        def counted(*a, _real=getattr(cv, name), _name=name, **k):
+            lanes = (k["y_r"] if "y_r" in k else k["y_a"] if "y_a" in k
+                     else a[0]).shape[-1]
+            cv.LAUNCHES[_name] += 1
+            cv.LAUNCH_LANES[_name][lanes] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(cv, name, counted)
+
+    def counted_x4(blocks, nblocks, _real=cuda_sha256.sha256):
+        cuda_sha256.LAUNCHES["sha256"] += 1
+        shape = (blocks.shape[0], blocks.shape[-1])
+        shapes = cuda_sha256.LAUNCH_SHAPES["sha256"]
+        shapes[shape] = shapes.get(shape, 0) + 1
+        return _real(blocks, nblocks)
+    monkeypatch.setattr(cuda_sha256, "sha256", counted_x4)
+
+
+def test_consensus_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
+    """chip_smoke.phase_consensus end to end at 12 validators and 3
+    heights: "cuda" mapped to the CPU, the plain versions counted as
+    launches. The burst's four nodes agree on five blocks; the node of
+    run (2) commits every height in round 0 with the spoiled votes left
+    out, the duplicate precommit's evidence in block 3 and the forged
+    header's (K2 at its 5 signers) committed; every K2/X1/X4 launch held
+    against its plain version; the traced height (a spawned process) is
+    stubbed."""
+    import types
+
+    import torch
+
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    n = 12
+    for name, value in (("CHAIN_VALIDATORS", n), ("CONS_VALIDATORS", n),
+                        ("CONS_HEIGHTS", 3), ("CONS_TAMPERED", (4, 5)),
+                        ("CONS_DUP_VALIDATOR", 7),
+                        ("CONS_ATTACK_SIGNERS", n // 3 + 1),
+                        ("CONS_PEER_THREADS", 4), ("CHAIN_TXS", 64),
+                        ("CONS_BURST_TXS", 8)):
+        monkeypatch.setattr(cs, name, value)
+    from cometbft_tpu_torch.types import part_set
+
+    monkeypatch.setattr(part_set.PartSet.from_data.__func__, "__defaults__",
+                        (1_024,))
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    monkeypatch.setattr(cs, "get_context", lambda method: types.
+                        SimpleNamespace(Pool=lambda n: _InlinePool()))
+    monkeypatch.setattr(cs, "_traced_consensus", lambda pubs: (10.0, 1.0, 3))
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    _cuda_on_the_cpu(monkeypatch)
+    # the plain versions share this CPU with the node's threads: a window
+    # may take longer than the card's 5 s bound
+    from cometbft_tpu_torch.crypto import coalesce
+
+    for mod in (coalesce, hashplane):
+        monkeypatch.setattr(mod, "_RESULT_TIMEOUT_S", 120.0)
+    # the forged header's 5 signers go to the card as its 3,334 do there
+    from cometbft_tpu_torch.crypto import batch
+
+    monkeypatch.setattr(batch, "HOST_BATCH_THRESHOLD", n // 3 + 1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        (launches, lanes, (err, mismatches), x4, x4_shapes,
+         (x4_err, x4_mismatches)) = cs.phase_consensus(torch, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+        cv.reset_launches()
+        cuda_sha256.reset_launches()
+        monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    assert lanes["verify_kernel_cached"].get(n // 3 + 1, 0) >= 1
+    # the burst's set and run (2)'s (the plain X1 is slow on a CPU: the
+    # burst's four nodes may each build their set before one finishes)
+    assert lanes["build_pubkey_tables"].get(4, 0) >= 1
+    assert lanes["build_pubkey_tables"].get(n, 0) >= 1
+    assert launches["verify_kernel"] == launches["verify_kernel8"] == 0
+    assert not any(mismatches.values()) and not any(err.values())
+    assert x4 == sum(x4_shapes.values()) > 0
+    assert x4_err == x4_mismatches == 0
+    burst = [x for x in lines if x["phase"] == "consensus.burst"][0]
+    assert min(burst["heights"]) >= 5 and len(burst["app_hashes"]) == 1
+    rows = [x for x in lines if x["phase"] == "consensus.height"]
+    assert [r["height"] for r in rows] == [1, 2, 3]
+    assert [r["round"] for r in rows] == [0, 0, 0]
+    assert rows[0]["own_proposal"] and not rows[1]["own_proposal"]
+    assert rows[1]["evidence"] == ["LightClientAttackEvidence"]
+    assert rows[2]["evidence"] == ["DuplicateVoteEvidence"]
+    assert [r["txs"] for r in rows] == [64, 64, 64]
+    steps = rows[1]["host_ms"]
+    assert steps["proposal_to_durable"] >= steps["proposal_to_stored"] > 0
+    assert steps["admission"] > 0 and steps["state_save"] > 0
+    assert steps["preverify"] > 0 and steps["validate_block"] > 0
+    assert sum(rows[1]["preverify_lanes"]) >= 2 * (n - 2)
+    out = [x for x in lines if x["phase"] == "consensus"][0]
+    assert out["evidence"]["duplicate_vote"] == 1
+    assert out["evidence"]["light_client_attack"] == 1
+    assert [x for x in lines if x["phase"] == "consensus.trace"]

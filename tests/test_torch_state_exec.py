@@ -27,6 +27,15 @@ from cometbft_tpu.types import serialization as rser
 from cometbft_tpu_torch import convert
 from cometbft_tpu_torch.types import serialization as tser
 
+# Both packages' consensus messages and WAL records register with the
+# codec on import (the port's through convert): import both here, so the
+# registries this file's codec cases are drawn from do not depend on what
+# else the worker imported first.
+importlib.import_module("cometbft_tpu.consensus.messages")
+importlib.import_module("cometbft_tpu.consensus.wal")
+importlib.import_module("cometbft_tpu_torch.consensus.messages")
+importlib.import_module("cometbft_tpu_torch.consensus.wal")
+
 CHAIN = "exec-chain"
 T0 = 1_760_000_000_000_000_000
 N = 4
@@ -400,6 +409,8 @@ def test_pinned_cut_runs_plain_k2_and_x1_as_the_reference_host_route(
 def _samples(ref_chain):
     """One reference object of each type the codec registers, from the
     chain and built beside it."""
+    from cometbft_tpu.consensus import messages as rmsg, wal as rwal
+    from cometbft_tpu.libs.bits import BitArray
     from cometbft_tpu.types import block as rb, evidence as rev, params
     from cometbft_tpu.types.light_block import LightBlock, SignedHeader
     from cometbft_tpu.types.vote import Proposal, Vote
@@ -422,6 +433,8 @@ def _samples(ref_chain):
     lca = rev.LightClientAttackEvidence(lb, 3, [state.validators.validators[
         1]], 40, T0 + 5)
     event = resp.tx_results[0].events[0]
+    prop = Proposal(4, 1, -1, meta.block_id, T0, b"\x04" * 64)
+    bits = BitArray.from_indices(7, [0, 3, 6])
     return {
         "Proof": part.proof, "PartSetHeader": meta.block_id.part_set_header,
         "BlockID": meta.block_id, "Version": b.header.version,
@@ -429,7 +442,7 @@ def _samples(ref_chain):
         "Commit": commit, "Data": b.data, "Block": b, "BlockMeta": meta,
         "ExtendedCommitSig": ext.extended_signatures[0],
         "ExtendedCommit": ext, "Part": part, "Vote": vote,
-        "Proposal": Proposal(4, 1, -1, meta.block_id, T0, b"\x04" * 64),
+        "Proposal": prop,
         "Validator": state.validators.validators[0],
         "BlockParams": params.BlockParams(1000, 7),
         "EvidenceParams": params.EvidenceParams(5, 6, 7),
@@ -442,6 +455,21 @@ def _samples(ref_chain):
         "Event": event, "EventAttribute": event.attributes[0],
         "ExecTxResult": resp.tx_results[0],
         "valset": state.next_validators,
+        "ProposalMessage": rmsg.ProposalMessage(prop),
+        "BlockPartMessage": rmsg.BlockPartMessage(4, 0, part),
+        "VoteMessage": rmsg.VoteMessage(vote),
+        "NewRoundStepMessage": rmsg.NewRoundStepMessage(4, 1, 3, 2, 0),
+        "NewValidBlockMessage": rmsg.NewValidBlockMessage(
+            4, 1, meta.block_id.part_set_header, bits, True),
+        "ProposalPOLMessage": rmsg.ProposalPOLMessage(4, 0, bits),
+        "HasVoteMessage": rmsg.HasVoteMessage(4, 1, 2, 5),
+        "VoteSetMaj23Message": rmsg.VoteSetMaj23Message(4, 1, 2,
+                                                        meta.block_id),
+        "VoteSetBitsMessage": rmsg.VoteSetBitsMessage(4, 1, 2,
+                                                      meta.block_id, bits),
+        "EndHeightMessage": rwal.EndHeightMessage(4),
+        "MsgInfo": rwal.MsgInfo(rmsg.VoteMessage(vote), "peer"),
+        "TimeoutInfo": rwal.TimeoutInfo(0.5, 4, 1, 3),
     }
 
 
@@ -449,9 +477,10 @@ def _samples(ref_chain):
 def test_codec_round_trip_of_each_registered_type(chains, name):
     """The reference's bytes of each registered type load into the port's
     type and dump back to the same bytes; the port's own object loads into
-    the reference's equal to the original. (The reference's registry may
-    hold more: its consensus, blocksync, statesync, pex and indexer
-    modules register their messages when imported.)"""
+    the reference's equal to the original; the consensus messages and WAL
+    records too, with the BitArray adapter. (The reference's registry may
+    hold more: its blocksync, statesync, pex and indexer modules register
+    their messages when imported.)"""
     if name == "valset":
         assert set(tser.codec._adapters_by_tag) <= set(
             rser.codec._adapters_by_tag)
