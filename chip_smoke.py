@@ -310,6 +310,33 @@ Ed25519PubKey.verify_signature calls, in us a verify.
              Last, in a process of its own, run (2)'s warm height 2 from
              its proposal to its block under torch.profiler
              (consensus.trace).
+14. net   — p2p and the reactors (p2p/, blocksync/, the consensus,
+             mempool and evidence reactors), every node a NetNode wired
+             as cometbft_tpu/node/node.py wires one, each connection's
+             frames sealed by the native ChaCha20-Poly1305 tier (the
+             wheel's tier switched off: wheel_off). net.frame: µs to seal
+             and open a 1,028 B frame, native, plain and the wheel's.
+             Run (1), net.burst: four validators of power 10 over
+             localhost TCP on a star around node 0 commit five heights
+             with identical blocks; txs checked at node 3 must commit and
+             be queried at node 1's kvstore; X1 at 4 keys, no K2. Run
+             (2), net.catchup: a 4,096-validator chain (BASELINE config
+             5's width; ed25519 keys, as no block can carry an sr25519
+             validator's key) of five heights with 64 txs of 1 KiB each,
+             applied by an honest server, proposed and signed here, on
+             FileDBs; a byzantine server holds the same blocks but block
+             3, whose LastCommit has one lane spoiled. A fresh follower with
+             blocksync on dials the byzantine server (heights 2 and 3
+             must be redone, the server stopped), then the honest one,
+             and catches up heights 1-4 (verify_commit_light on K2 at
+             2,731 lanes, validate_block at 4,096, its arena cold) and
+             switches to consensus; its block IDs and app hashes must be
+             the honest server's. Per height (net.catchup.height) the
+             host ms from the block's last request to its arrival, of
+             verify_commit_light and of apply_block; the MConnection
+             bytes each way; launches by lane count, each K2/X1 launch
+             held against its plain version; in a process of its own one
+             warm catch-up height under torch.profiler (net.trace).
 
 In the slice and light phases K1-K4 and X1 must run only at lane counts
 the kernels phase compared (6,667 and 3,334 lanes are the +2/3 and 1/3
@@ -324,7 +351,7 @@ their launches on each path (ops.cuda_verify.OP_LAUNCHES, read with
 K1-K4's).
 
 Then one line {"kernels": [...]} (K1-K4, X1, X5 and X4; launches by
-path, the chain's and the consensus phase's included), the card's
+path, the chain's, the consensus and the net phase's included), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
 raises: the script exits nonzero and prints no last line. Without CUDA
 it exits 2.
@@ -4455,19 +4482,20 @@ class ChainRig:
             db.close()
 
 
-def chain_commit(sign, seed_of, vals, height: int, bid):
+def chain_commit(sign, seed_of, vals, height: int, bid,
+                 chain_id=CHAIN_EXEC_ID, t0_ns=CHAIN_T0_NS):
     """The precommits of ``vals`` for ``bid`` at ``height`` as a Commit,
-    every validator's sign bytes signed by ``sign`` ([(seed, msg)] ->
-    [signature]), as make_commit does."""
+    every validator's sign bytes on ``chain_id`` signed by ``sign``
+    ([(seed, msg)] -> [signature]), as make_commit does."""
     from cometbft_tpu_torch.types import block
 
-    t_ns = CHAIN_T0_NS + height * 10**9 + 500_000_000
+    t_ns = t0_ns + height * 10**9 + 500_000_000
     unsigned = [block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, v.address,
                                 t_ns + 7919 * i)
                 for i, v in enumerate(vals.validators)]
     commit = block.Commit(height, 0, bid, unsigned)
     sigs = sign([(seed_of[cs.validator_address],
-                  commit.vote_sign_bytes(CHAIN_EXEC_ID, i))
+                  commit.vote_sign_bytes(chain_id, i))
                  for i, cs in enumerate(unsigned)])
     commit.signatures = [block.CommitSig(cs.block_id_flag,
                                          cs.validator_address,
@@ -5070,7 +5098,8 @@ class ConsensusNode:
         pipe.note_base(state.last_block_height)
         self.exe.prune_gate = pipe.durable_height
         self.cs.pipeline = pipe
-        self.address = bytes(pv.get_pub_key().address())
+        self.address = (bytes(pv.get_pub_key().address()) if pv is not None
+                        else None)
 
     def stop(self) -> None:
         """Stop consensus (draining the pipeline; a kept prestage error
@@ -5835,6 +5864,654 @@ def phase_consensus(torch, card):
         x4_err, x4_mismatches)
 
 
+NET_CHAIN_ID = "chip-smoke-net"
+NET_BURST_NODES = CONS_BURST_NODES  # run (1): four validators over TCP
+NET_BURST_HEIGHTS = 5
+NET_BURST_TXS = 8  # checked at node 3, queried at node 1
+NET_HEIGHTS = 5  # the servers' chain: the follower applies 1 to 4
+NET_TXS = 64  # a height's kvstore txs, ...
+NET_TX_BYTES = 1_024  # ... of 1 KiB each
+# BASELINE config 5's width: 4,096 signatures a commit, 2,731 lanes in the
+# light check. Its keys are ed25519: a validator set holding an sr25519
+# key has no hash (types/validator_set.pubkey_proto_encode raises, as the
+# reference's does: CometBFT's PublicKey proto has no sr25519 field), so no
+# block can carry one; the mixed phase runs config 5's mixed batches.
+NET_VALIDATORS = MIXED_VALIDATORS
+NET_LIGHT = 2 * NET_VALIDATORS // 3 + 1
+NET_POWER = 100  # every validator's
+NET_BAD_HEIGHT = 3  # the byzantine server's block with a spoiled LastCommit
+NET_TAMPERED = 1_234  # its spoiled lane: under NET_LIGHT, so the light
+# check reaches it
+NET_TRACE_HEIGHT = 3  # the catch-up height profiled in a process of its own
+NET_T0_NS = 1_780_000_000_000_000_000
+NET_WAIT_S = 120.0  # the most one step of the phase may take
+NET_FRAME_BYTES = 1_028  # a sealed frame's plaintext: length + 1,024 B
+NET_FRAME_REPS = 2_000  # native frames timed ...
+NET_PLAIN_REPS = 10  # ... and plain ones
+NET_SEED = b"net"
+
+
+class NetNode(ConsensusNode):
+    """A ConsensusNode with the p2p wiring of cometbft_tpu/node/node.py,
+    which the port has no Node to do (:270-353, :689, :722-726,
+    :797-804): a NodeKey from ``key_seed``, a NodeInfo on the genesis chain
+    id advertising the netstamp capability (libs/netstats), a
+    MultiplexTransport and a Switch with MConnConfig from the config's p2p
+    section, and the four reactors in add_reactor order MEMPOOL,
+    BLOCKSYNC, EVIDENCE, CONSENSUS. Blocksync runs when ``block_sync`` and
+    the node is not the only validator, and consensus then waits for it;
+    ``consensus=False`` keeps the engine from starting at all (a server
+    that only serves its store). start() listens on 127.0.0.1 at a free
+    port, starts the switch (and with it consensus, unless it waits) and
+    dials ``persistent`` peers. A device fault, a failed block or a fatal
+    consensus error lands in ``fatal``."""
+
+    def __init__(self, genesis, pv, cfg, key_seed, root=None, device="cuda",
+                 block_sync=False, consensus=True):
+        from cometbft_tpu_torch.blocksync import BlocksyncReactor
+        from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
+        from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+        from cometbft_tpu_torch.evidence import EvidenceReactor
+        from cometbft_tpu_torch.libs import netstats
+        from cometbft_tpu_torch.mempool.reactor import MempoolReactor
+        from cometbft_tpu_torch.p2p import (MultiplexTransport, NodeInfo,
+                                            NodeKey, Switch)
+        from cometbft_tpu_torch.p2p.conn.connection import MConnConfig
+
+        super().__init__(genesis, pv, cfg, root, device)
+        state = self.cs.state
+        only_us = (pv is not None and len(state.validators) == 1
+                   and state.validators.has_address(self.address))
+        run_blocksync = block_sync and not only_us
+        self.consensus_reactor = ConsensusReactor(
+            self.cs, wait_sync=run_blocksync or not consensus)
+        self.blocksync_reactor = BlocksyncReactor(
+            state, self.exe, self.block_store, run_blocksync,
+            consensus_reactor=self.consensus_reactor,
+            min_recv_rate=cfg.blocksync.min_recv_rate, device=device)
+        self.mempool_reactor = MempoolReactor(cfg.mempool, self.mempool)
+        self.node_key = NodeKey(Ed25519PrivKey.from_seed(key_seed))
+        self.node_info = NodeInfo(
+            node_id=self.node_key.node_id, listen_addr="",
+            network=genesis.chain_id, moniker=cfg.base.moniker,
+            other=({netstats.NODEINFO_STAMP_KEY: 1}
+                   if netstats.stamping_wanted() else {}))
+        self.transport = MultiplexTransport(
+            self.node_key, self.node_info,
+            handshake_timeout=cfg.p2p.handshake_timeout_ns / 1e9,
+            dial_timeout=cfg.p2p.dial_timeout_ns / 1e9)
+        self.switch = Switch(
+            self.transport, mconn_config=MConnConfig(
+                send_rate=cfg.p2p.send_rate, recv_rate=cfg.p2p.recv_rate,
+                flush_throttle=cfg.p2p.flush_throttle_timeout_ns / 1e9),
+            max_inbound=cfg.p2p.max_num_inbound_peers,
+            max_outbound=cfg.p2p.max_num_outbound_peers)
+        self.evidence_reactor = EvidenceReactor(self.evidence)
+        for name, reactor in (("MEMPOOL", self.mempool_reactor),
+                              ("BLOCKSYNC", self.blocksync_reactor),
+                              ("EVIDENCE", self.evidence_reactor),
+                              ("CONSENSUS", self.consensus_reactor)):
+            self.switch.add_reactor(name, reactor)
+        self.switch.on_fatal = self.fatal.append
+        self.blocksync_reactor.on_fatal = self.fatal.append
+        self._acquired = False
+
+    def start(self, persistent=()) -> None:
+        from cometbft_tpu_torch.libs import netstats
+
+        netstats.acquire()
+        self._acquired = True
+        self.transport.listen("tcp://127.0.0.1:0")
+        self.node_info.listen_addr = self.transport.listen_addr
+        self.switch.start()
+        if persistent:
+            self.switch.set_persistent_peers(list(persistent))
+            self.switch.dial_peers_async(list(persistent))
+
+    @property
+    def addr(self) -> str:
+        """``id@host:port`` of the node's listener."""
+        return (f"{self.node_key.node_id}@"
+                f"{self.transport.listen_addr[len('tcp://'):]}")
+
+    def stop(self) -> None:
+        """Stop the switch (its reactors, consensus with them, and every
+        peer connection), then what ConsensusNode.stop stops."""
+        from cometbft_tpu_torch.libs import netstats
+
+        try:
+            if self.switch.is_running():
+                self.switch.stop()
+        finally:
+            if self._acquired:
+                netstats.release()
+                self._acquired = False
+            super().stop()
+
+
+def net_burst(root, device="cuda") -> dict:
+    """Run (1) of the net phase: NET_BURST_NODES port validators of power
+    CONS_BURST_POWER, each a NetNode under ``root`` on a star around node 0
+    (the others dial it as a persistent peer), NET_BURST_TXS kvstore txs
+    checked at node 3 only; until every node stores NET_BURST_HEIGHTS
+    blocks and node 1's kvstore answers every tx. All must agree on each
+    block and app hash, and commit every tx once."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.types import GenesisDoc, GenesisValidator, MockPV
+
+    pvs = [MockPV(Ed25519PrivKey.from_seed(_seed(NET_SEED + b"-burst", i)))
+           for i in range(NET_BURST_NODES)]
+    genesis = GenesisDoc(
+        chain_id=NET_CHAIN_ID + "-burst", genesis_time_ns=time.time_ns(),
+        validators=[GenesisValidator(pv.get_pub_key(), CONS_BURST_POWER)
+                    for pv in pvs])
+    cfg = consensus_config(burst=True)
+    nodes = [NetNode(genesis, pv, cfg, _seed(NET_SEED + b"-key", i),
+                     Path(root) / f"node{i}", device)
+             for i, pv in enumerate(pvs)]
+    txs = {b"net-%02d" % i: hashlib.sha256(b"net %d" % i).hexdigest().encode()
+           for i in range(NET_BURST_TXS)}
+
+    def queried():
+        return all(nodes[1].conns.query.query(abci.RequestQuery(data=k))
+                   .value == v for k, v in txs.items())
+    try:
+        for k, v in txs.items():
+            nodes[3].mempool.check_tx(k + b"=" + v)
+        t = time.perf_counter()
+        nodes[0].start()
+        for n in nodes[1:]:
+            n.start(persistent=[nodes[0].addr])
+        wait_for(lambda: min(n.block_store.height() for n in nodes)
+                 >= NET_BURST_HEIGHTS and queried(),
+                 f"{NET_BURST_NODES} nodes over TCP to commit "
+                 f"{NET_BURST_HEIGHTS} heights and node 1 to hold node 3's "
+                 "txs", timeout=NET_WAIT_S, nodes=nodes,
+                 state=lambda: [(n.block_store.height(), n.mempool.size(),
+                                 len(n.switch.peers())) for n in nodes])
+        seconds = time.perf_counter() - t
+        heights = [n.block_store.height() for n in nodes]
+        committed = collections.Counter()
+        for h in range(1, min(heights) + 1):
+            hashes = {n.block_store.load_block(h).hash() for n in nodes}
+            check(len(hashes) == 1, f"net burst: the nodes disagree on "
+                  f"block {h}")
+            apps = {n.state_store.load_finalize_block_response(h).app_hash
+                    for n in nodes}
+            check(len(apps) == 1, f"net burst: the nodes disagree on the "
+                  f"app hash after block {h}")
+            committed.update(nodes[0].block_store.load_block(h).data.txs)
+        check(committed == collections.Counter(k + b"=" + v
+                                               for k, v in txs.items()),
+              f"net burst: {sum(committed.values())} txs committed, "
+              f"{len(committed)} distinct, against {len(txs)} once each")
+        peers = [len(n.switch.peers()) for n in nodes]
+        wire = [sum(p.mconn.send_monitor.total() for p in n.switch.peers())
+                for n in nodes]
+    finally:
+        for n in nodes:
+            n.stop()
+    for n in nodes:
+        check(not n.fatal, f"a net burst node fail-stopped: {n.fatal}")
+    check(peers == [NET_BURST_NODES - 1] + [1] * (NET_BURST_NODES - 1),
+          f"net burst: peers {peers}, want a star around node 0")
+    return {"nodes": NET_BURST_NODES, "heights": heights, "peers": peers,
+            "txs": len(txs), "tx_checked_at": 3, "tx_queried_at": 1,
+            "mconn_bytes_sent": wire, "seconds": seconds}
+
+
+def net_key_set(pool):
+    """The catch-up chain's NET_VALIDATORS ed25519 keys, the first
+    MIXED_ED of them the mixed phase's: ([public keys], {address: seed},
+    sign), ``sign`` signing [(seed, msg)] through the pool's workers (in
+    this process without a pool)."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+
+    seeds = [_seed(b"mixed-ed", i) for i in range(NET_VALIDATORS)]
+    if pool is None:
+        pubs = _fast_pubkey_chunk(seeds)
+    else:
+        pubs = _pool_map(pool, _fast_pubkey_chunk, seeds)
+    keys = [Ed25519PubKey(p) for p in pubs]
+    secret = {k.address(): s for k, s in zip(keys, seeds)}
+
+    def sign(items):
+        if pool is None:
+            return _fast_sign_chunk(items)
+        return _pool_map(pool, _fast_sign_chunk, items)
+    return keys, secret, sign
+
+
+def net_genesis(keys):
+    from cometbft_tpu_torch.types import GenesisDoc, GenesisValidator
+
+    return GenesisDoc(chain_id=NET_CHAIN_ID, genesis_time_ns=NET_T0_NS,
+                      validators=[GenesisValidator(k, NET_POWER)
+                                  for k in keys])
+
+
+def net_txs(height: int) -> list[bytes]:
+    """Height ``height``'s NET_TXS kvstore txs of NET_TX_BYTES."""
+    txs = []
+    for i in range(NET_TXS):
+        key = b"n%02d-k%04d" % (height, i)
+        fill = NET_TX_BYTES - len(key) - 1
+        value = hashlib.sha256(NET_SEED + key).hexdigest().encode()
+        txs.append(key + b"=" + (value * (fill // len(value) + 1))[:fill])
+    return txs
+
+
+def net_chain(node, sign, secret):
+    """Heights 1 to NET_HEIGHTS on ``node``'s executor, proposed and
+    signed here as chain_height builds the chain cell's: NET_TXS txs
+    through check_tx, create_proposal_block, apply_block, the commit
+    signed by every validator, save_block. ({height: (block, part set,
+    commit)}, {height: the state after it})."""
+    from cometbft_tpu_torch.types import block, part_set
+    from cometbft_tpu_torch.types import serialization as ser
+
+    state = node.state_store.load()
+    last_ext = None
+    chain, states = {}, {}
+    for h in range(1, NET_HEIGHTS + 1):
+        check_txs(node.mempool, net_txs(h))
+        blk = node.exe.create_proposal_block(
+            h, state, last_ext, state.validators.get_proposer().address,
+            time_ns=NET_T0_NS + h * 10**9)
+        ps = part_set.PartSet.from_data(ser.dumps(blk))
+        bid = block.BlockID(blk.hash(), ps.header)
+        state = node.exe.apply_block(state, bid, blk)
+        commit = chain_commit(sign, secret, state.last_validators, h, bid,
+                              chain_id=NET_CHAIN_ID, t0_ns=NET_T0_NS)
+        node.block_store.save_block(blk, ps, commit)
+        last_ext = chain_extended(commit)
+        chain[h], states[h] = (blk, ps, commit), state
+    return chain, states
+
+
+def byzantine_store(node, chain):
+    """``chain`` saved into ``node``'s block store as it is, but for block
+    NET_BAD_HEIGHT, whose LastCommit has lane NET_TAMPERED spoiled (its
+    header, and so its hash, unchanged)."""
+    from cometbft_tpu_torch.types import part_set
+    from cometbft_tpu_torch.types import serialization as ser
+
+    for h, (blk, ps, commit) in sorted(chain.items()):
+        if h == NET_BAD_HEIGHT:
+            blk = dataclasses.replace(blk, last_commit=_tampered_commit(
+                blk.last_commit, NET_TAMPERED))
+            ps = part_set.PartSet.from_data(ser.dumps(blk))
+        node.block_store.save_block(blk, ps, commit)
+
+
+class CatchupProbe:
+    """What the net phase reads of the follower while it syncs: the pool's
+    redone heights, the peers the switch stopped (with the reason and
+    the wire bytes each way), the last request and the arrival of each
+    height (host clock), and the host ms of each height's
+    verify_commit_light and apply_block. Wraps the follower's objects and
+    the blocksync reactor module's verify_commit_light; restore() puts
+    them back."""
+
+    def __init__(self, node):
+        from cometbft_tpu_torch.blocksync import reactor as bs_reactor
+
+        self.redone, self.stopped = [], []
+        self.requested, self.arrived = {}, {}
+        self.verify_ms, self.apply_ms = {}, {}
+        self._saved = []
+        bsr = node.blocksync_reactor
+        pool = bsr.pool
+
+        def wrap(owner, name, make):
+            real = getattr(owner, name)
+            self._saved.append((owner, name, real, name in vars(owner)))
+            setattr(owner, name, make(real))
+
+        def redo(real):
+            def redo_request(height):
+                self.redone.append(height)
+                return real(height)
+            return redo_request
+
+        def stop(real):
+            def stop_and_remove_peer(peer, reason):
+                if node.switch.get_peer(peer.id) is not None:
+                    self.stopped.append({
+                        "peer": peer.id[:10], "reason": str(reason),
+                        "mconn_bytes_sent": peer.mconn.send_monitor.total(),
+                        "mconn_bytes_received":
+                            peer.mconn.recv_monitor.total()})
+                return real(peer, reason)
+            return stop_and_remove_peer
+
+        def request(real):
+            def send_block_request(height, peer_id):
+                self.requested[height] = time.perf_counter()
+                return real(height, peer_id)
+            return send_block_request
+
+        def add(real):
+            def add_block(peer_id, blk, ext_commit=None, size=0):
+                ok = real(peer_id, blk, ext_commit, size)
+                h = blk.header.height
+                if ok and h in self.requested:
+                    self.arrived[h] = 1e3 * (time.perf_counter()
+                                             - self.requested[h])
+                return ok
+            return add_block
+
+        def verify(real):
+            def verify_commit_light(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return real(*args, **kwargs)
+                finally:
+                    self.verify_ms.setdefault(args[3], []).append(
+                        1e3 * (time.perf_counter() - t))
+            return verify_commit_light
+
+        def apply(real):
+            def apply_block(state, bid, blk, *args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return real(state, bid, blk, *args, **kwargs)
+                finally:
+                    self.apply_ms[blk.header.height] = 1e3 * (
+                        time.perf_counter() - t)
+            return apply_block
+
+        wrap(pool, "redo_request", redo)
+        wrap(pool, "add_block", add)
+        wrap(pool, "send_request", request)
+        wrap(node.switch, "stop_and_remove_peer", stop)
+        wrap(bs_reactor, "verify_commit_light", verify)
+        wrap(node.exe, "apply_block", apply)
+
+    def restore(self) -> None:
+        for owner, name, real, own in reversed(self._saved):
+            if own:
+                setattr(owner, name, real)
+            else:
+                delattr(owner, name)  # back to the class's method
+
+
+@contextlib.contextmanager
+def wheel_off():
+    """The secret connection as a node without the ``cryptography`` wheel
+    runs it, whether or not the wheel is installed here: X25519 and HKDF
+    in Python, every frame sealed and opened by the native tier
+    (crypto/aead.ChaCha20Poly1305Native)."""
+    from cometbft_tpu_torch.crypto import aead
+    from cometbft_tpu_torch.p2p.conn import secret_connection as sc
+
+    saved = aead._HAVE_CRYPTOGRAPHY, sc._HAVE_CRYPTOGRAPHY
+    aead._HAVE_CRYPTOGRAPHY = sc._HAVE_CRYPTOGRAPHY = False
+    try:
+        yield
+    finally:
+        aead._HAVE_CRYPTOGRAPHY, sc._HAVE_CRYPTOGRAPHY = saved
+
+
+def frame_us() -> dict:
+    """µs to seal and to open one NET_FRAME_BYTES frame (the secret
+    connection's 1,024 B payload and its length) on the host through the
+    native tier, the plain pure-Python construction and, where it is
+    installed, the wheel's OpenSSL; all must give the same bytes."""
+    from cometbft_tpu_torch.crypto import aead
+
+    key, nonce = _seed(NET_SEED, 0), bytes(12)
+    frame = _seed(NET_SEED, 1) * (NET_FRAME_BYTES // 32) + bytes(
+        NET_FRAME_BYTES % 32)
+    tiers = [("native", aead.ChaCha20Poly1305Native(key), NET_FRAME_REPS),
+             ("plain", aead.ChaCha20Poly1305Fallback(key), NET_PLAIN_REPS)]
+    if aead._HAVE_CRYPTOGRAPHY:
+        tiers.append(("wheel", aead.new_chacha20poly1305(key),
+                      NET_FRAME_REPS))
+    out = {"frame_bytes": NET_FRAME_BYTES,
+           "wheel_installed": aead._HAVE_CRYPTOGRAPHY}
+    sealed = {}
+    for name, cipher, reps in tiers:
+        t = time.perf_counter()
+        for _ in range(reps):
+            sealed[name] = cipher.encrypt(nonce, frame, None)
+        out[f"{name}_seal_us"] = 1e6 * (time.perf_counter() - t) / reps
+        t = time.perf_counter()
+        for _ in range(reps):
+            opened = cipher.decrypt(nonce, sealed[name], None)
+        out[f"{name}_open_us"] = 1e6 * (time.perf_counter() - t) / reps
+        check(opened == frame, f"the {name} tier did not open its frame")
+    check(len(set(sealed.values())) == 1,
+          f"the frame ciphers differ: {sorted(sealed)}")
+    return out
+
+
+def _traced_net(key_specs, blocks):
+    """Worker: a follower on MemDBs with blocksync on and no network: the
+    net chain's blocks (codec bytes) handed to its pool as one peer's,
+    heights 1 to NET_TRACE_HEIGHT - 1 applied (the arena builds at the
+    first), then catch-up height NET_TRACE_HEIGHT (verify_commit_light,
+    then apply_block) under torch.profiler: (host ms, card-busy ms,
+    device events)."""
+    import torch
+
+    from cometbft_tpu_torch.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.crypto import keys as tkeys
+    from cometbft_tpu_torch.types import serialization as ser
+
+    tkeys.register_extra_key_types()
+    keys = [tkeys.pubkey_from_type_and_bytes(t, b) for t, b in key_specs]
+    node = ConsensusNode(net_genesis(keys), None, consensus_config(True))
+    try:
+        bsr = BlocksyncReactor(node.cs.state, node.exe, node.block_store,
+                               True, device="cuda")
+        pool = bsr.pool
+        pool.set_peer_range("server", 1, len(blocks))
+        pool.make_requests()
+        for raw in blocks:
+            check(pool.add_block("server", ser.loads(raw)),
+                  "the traced pool refused a block")
+        while pool.height < NET_TRACE_HEIGHT:
+            check(bsr._pool_step(0.0) == bsr.STEP_APPLIED,
+                  "a traced height did not apply")
+        out = {}
+
+        def height():
+            out["step"] = bsr._pool_step(0.0)
+        host_ms, busy_ms, events = device_busy_ms(torch, height)
+        check(out["step"] == bsr.STEP_APPLIED
+              and bsr._n_synced == NET_TRACE_HEIGHT,
+              "the traced catch-up height did not apply")
+        return host_ms, busy_ms, events
+    finally:
+        node.stop()
+
+
+def phase_net(torch, card):
+    """The net phase (see the module docstring, phase 14). Returns
+    ({kernel: launches}, {kernel: {lanes: launches}}, the window
+    comparisons' (err, mismatches))."""
+    import shutil
+
+    from cometbft_tpu_torch.blocksync import pool as bs_pool
+    from cometbft_tpu_torch.crypto import aead
+    from cometbft_tpu_torch.ops import cuda_verify
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.p2p.conn import secret_connection
+    from cometbft_tpu_torch.types import serialization as ser
+
+    t_phase = time.perf_counter()
+    check((bs_pool.REQUEST_WINDOW, bs_pool.REQUEST_TIMEOUT,
+           bs_pool.MIN_RECV_RATE, secret_connection.DATA_MAX_SIZE)
+          == (20, 15.0, 7680, 1024),
+          "the pool's constants or the frame size are not the reference's")
+    emit({"phase": "net.frame", **frame_us()})
+    root = Path(__file__).resolve().parent / "build" / "net"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ov._PUBKEY_CACHE = {}
+    with get_context("spawn").Pool(WORKERS) as pool, wheel_off():
+        tier = type(aead.new_chacha20poly1305(bytes(32))).__name__
+        check(tier == "ChaCha20Poly1305Native",
+              f"the secret connection's frames would use {tier}")
+        t = time.perf_counter()
+        keys, secret, sign = net_key_set(pool)
+        keys_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        cuda_verify.reset_launches()  # the net path starts here
+        with WindowRecorder(ov, cuda_verify) as recorder, \
+                env("COMETBFT_TPU_ADAPTIVE_THRESHOLD", "0"):
+            burst = net_burst(root / "burst")
+            emit({"phase": "net.burst", **burst, "card": card})
+            burst_lanes = {k: dict(v) for k, v in
+                           cuda_verify.LAUNCH_LANES.items() if v}
+
+            genesis = net_genesis(keys)
+            cfg = consensus_config(burst=True)
+            honest = NetNode(genesis, None, cfg, _seed(NET_SEED, 10),
+                             root / "honest", consensus=False)
+            byz = NetNode(genesis, None, cfg, _seed(NET_SEED, 11),
+                          root / "byzantine", consensus=False)
+            fol = NetNode(genesis, None, cfg, _seed(NET_SEED, 12),
+                          root / "follower", block_sync=True)
+            probe = None
+            try:
+                t = time.perf_counter()
+                chain, states = net_chain(honest, sign, secret)
+                chain_s = time.perf_counter() - t
+                byzantine_store(byz, chain)
+                block_bytes = {h: sum(len(p.bytes_) for p in ps.parts)
+                               for h, (_, ps, _) in chain.items()}
+                honest.start()
+                byz.start()
+                torch.cuda.synchronize()
+                ov._PUBKEY_CACHE = {}  # the follower's arena starts cold
+                probe = CatchupProbe(fol)
+                t = time.perf_counter()
+                fol.start()
+                fol.switch.dial_peers_async([byz.addr])
+                bsr = fol.blocksync_reactor
+                wait_for(lambda: probe.stopped, "the follower to stop the "
+                         "byzantine server", timeout=NET_WAIT_S,
+                         nodes=(fol,), state=lambda: (
+                             bsr.pool.height, probe.redone))
+                reject_s = time.perf_counter() - t
+                fol.switch.dial_peers_async([honest.addr])
+                wait_for(bsr.synced.is_set, "the follower to catch up and "
+                         "switch to consensus", timeout=NET_WAIT_S,
+                         nodes=(fol,), state=lambda: (
+                             bsr.pool.height, bsr._n_synced, probe.redone,
+                             len(fol.switch.peers())))
+                wait_for(fol.cs.is_running, "the follower's consensus to "
+                         "start", timeout=NET_WAIT_S, nodes=(fol,))
+                catchup_s = time.perf_counter() - t
+                torch.cuda.synchronize()
+                honest_peer = fol.switch.get_peer(honest.node_key.node_id)
+                wire_honest = {
+                    "mconn_bytes_sent": honest_peer.mconn.send_monitor.total(),
+                    "mconn_bytes_received":
+                        honest_peer.mconn.recv_monitor.total()}
+                synced = bsr._n_synced
+                skip_wal = not fol.cs.do_wal_catchup
+                top = fol.block_store.height()
+                ids = {h: (fol.block_store.load_block_meta(h).block_id,
+                           honest.block_store.load_block_meta(h).block_id)
+                       for h in range(1, NET_HEIGHTS)}
+                apps = {h: (fol.state_store.load_finalize_block_response(h)
+                            .app_hash, states[h].app_hash)
+                        for h in range(1, NET_HEIGHTS)}
+                fol_app = bsr.state.app_hash
+            finally:
+                if probe is not None:
+                    probe.restore()
+                for n in (fol, byz, honest):
+                    n.stop()
+            torch.cuda.synchronize()
+            launches = dict(cuda_verify.LAUNCHES)  # read just after the path
+        for n in (fol, byz, honest):
+            check(not n.fatal, f"a net node fail-stopped: {n.fatal}")
+        check(probe.redone[:2] == [2, 3],
+              f"the byzantine block was not redone at heights 2 and 3: "
+              f"{probe.redone}")
+        check(len(probe.stopped) >= 1 and probe.stopped[0]["peer"]
+              == byz.node_key.node_id[:10]
+              and "bad block" in probe.stopped[0]["reason"],
+              f"the byzantine server was not stopped: {probe.stopped}")
+        check(synced >= NET_HEIGHTS - 1 and top >= NET_HEIGHTS - 1,
+              f"the follower applied {synced} heights (store {top})")
+        check(skip_wal, "the follower switched to consensus with its WAL "
+              "catch-up on")
+        for h in range(1, NET_HEIGHTS):
+            check(ids[h][0] == ids[h][1], f"the follower's block ID at "
+                  f"height {h} is not the honest server's")
+            check(apps[h][0] == apps[h][1], f"the follower's app hash after "
+                  f"height {h} is not the honest server's")
+        check(fol_app == states[NET_HEIGHTS - 1].app_hash,
+              "the follower's state is not the honest server's")
+        for h in range(1, NET_HEIGHTS):
+            emit({"phase": "net.catchup.height", "height": h,
+                  "validators": len(keys), "block_bytes": block_bytes[h],
+                  "host_ms": {"arrival_after_request": probe.arrived.get(h),
+                              "verify_commit_light": probe.verify_ms.get(h),
+                              "apply_block": probe.apply_ms.get(h)},
+                  "card": card})
+        pool.close()
+        pool.join()
+    shutil.rmtree(root, ignore_errors=True)
+
+    # every K2/X1 launch of the phase against its plain version
+    err = dict.fromkeys(cuda_verify.LAUNCHES, 0)
+    mismatches = dict(err)
+    compared = compare_windows(torch, recorder.records, err, mismatches)
+    check(not any(mismatches.values()), f"net windows != plain: {mismatches}")
+    lanes = check_lanes(cuda_verify, "net", compared)
+    k2 = lanes["verify_kernel_cached"]
+    check(k2.get(NET_LIGHT, 0) >= NET_HEIGHTS
+          and k2.get(NET_VALIDATORS, 0) >= 1,
+          f"K2 did not run the light checks at {NET_LIGHT} lanes and the "
+          f"commits at {NET_VALIDATORS}: {k2}")
+    check(burst_lanes.get("build_pubkey_tables", {}).get(NET_BURST_NODES, 0)
+          >= 1 and "verify_kernel_cached" not in burst_lanes,
+          f"the burst's launches: {burst_lanes}, want X1 at "
+          f"{NET_BURST_NODES} keys and no K2")
+    for name in ("verify_kernel", "verify_kernel8", "verify_kernel8_cached"):
+        check(launches[name] == 0, f"{name} launched on the net path")
+
+    # the card's busy and idle share of one catch-up height, in a process
+    # of its own
+    specs = [(k.type, k.bytes()) for k in keys]
+    raw = [ser.dumps(chain[h][0]) for h in range(1, NET_TRACE_HEIGHT + 2)]
+    with get_context("spawn").Pool(1) as tracer:
+        host_ms, busy_ms, ev = tracer.apply(_traced_net, (specs, raw))
+        tracer.close()
+        tracer.join()
+    check(ev > 0, "the traced catch-up height ran nothing on the card")
+    emit({"phase": "net.trace", "step": f"catch-up height "
+          f"{NET_TRACE_HEIGHT}, warm, profiled (verify_commit_light, "
+          "apply_block)", "host_ms": host_ms, "device_busy_ms": busy_ms,
+          "device_events": ev, "idle_share": 1 - busy_ms / host_ms,
+          "card": card})
+    emit({"phase": "net.catchup", "validators": len(keys),
+          "key_type": "ed25519", "heights": NET_HEIGHTS,
+          "secret_connection_tier": tier,
+          "synced": synced, "redone": probe.redone,
+          "stopped": probe.stopped, "honest_peer": wire_honest,
+          "light_lanes": NET_LIGHT, "launches": launches, "lanes": lanes,
+          "burst_lanes": burst_lanes,
+          "windows_compared": len(recorder.records),
+          "mismatches": dict(mismatches), "max_abs_err": dict(err),
+          "pool": {"request_window": bs_pool.REQUEST_WINDOW,
+                   "request_timeout_s": bs_pool.REQUEST_TIMEOUT,
+                   "min_recv_rate": bs_pool.MIN_RECV_RATE,
+                   "frame_bytes": secret_connection.DATA_MAX_SIZE},
+          "app_hash": fol_app.hex(), "keys_seconds": keys_s,
+          "chain_seconds": chain_s, "reject_seconds": reject_s,
+          "catchup_seconds": catchup_s,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return launches, lanes, (err, mismatches)
+
+
 def _lanes_since(cuda_verify, name, before) -> dict:
     """{lanes: launches} of ``name`` since the snapshot ``before``."""
     return {n: c - before.get(n, 0) for n, c in sorted(
@@ -6090,6 +6767,8 @@ def main() -> int:
      chain_x4_shapes, chain_x4_diff) = phase_chain(torch, smi)
     (cons_launches, cons_lanes, (cons_err, cons_mismatches), cons_x4,
      cons_x4_shapes, cons_x4_diff) = phase_consensus(torch, smi)
+    net_launches, net_lanes, (net_err, net_mismatches) = phase_net(torch,
+                                                                   smi)
 
     replaces = {
         "verify_kernel": "cometbft_tpu/ops/pallas_verify.py:922",
@@ -6111,17 +6790,19 @@ def main() -> int:
                            + collections.Counter(mesh_lanes[name])
                            + collections.Counter(ledger_lanes[name])
                            + collections.Counter(chain_lanes[name])
-                           + collections.Counter(cons_lanes[name]))
+                           + collections.Counter(cons_lanes[name])
+                           + collections.Counter(net_lanes[name]))
                 for name in cuda_verify.LAUNCHES}
-    # the vote, mixed, ledger, chain and consensus paths' launches were
-    # compared too: their differences join the kernels phase's
+    # the vote, mixed, ledger, chain, consensus and net paths' launches
+    # were compared too: their differences join the kernels phase's
     for name in ("verify_kernel", "verify_kernel_cached",
                  "build_pubkey_tables"):
         for path_err, path_mismatches in ((vote_err, vote_mismatches),
                                           (mixed_err, mixed_mismatches),
                                           (ledger_err, ledger_mismatches),
                                           (chain_err, chain_mismatches),
-                                          (cons_err, cons_mismatches)):
+                                          (cons_err, cons_mismatches),
+                                          (net_err, net_mismatches)):
             timed[name]["max_abs_err"] = max(timed[name]["max_abs_err"],
                                              path_err[name])
             timed[name]["mismatches"] += path_mismatches[name]
@@ -6133,7 +6814,7 @@ def main() -> int:
                       + vote_launches[name] + mixed_launches[name]
                       + rlc_launches[name] + mesh_launches[name]
                       + ledger_launches[name] + chain_launches[name]
-                      + cons_launches[name]),
+                      + cons_launches[name] + net_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
                               "light": light_launches[name],
                               "vote": vote_launches[name],
@@ -6142,7 +6823,8 @@ def main() -> int:
                               "mesh": mesh_launches[name],
                               "ledger": ledger_launches[name],
                               "chain": chain_launches[name],
-                              "consensus": cons_launches[name]},
+                              "consensus": cons_launches[name],
+                              "net": net_launches[name]},
          "launches_by_lanes": by_lanes[name],
          **timed[name], "library_ms": None}
         for name in ("verify_kernel_cached", "verify_kernel",

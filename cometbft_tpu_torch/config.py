@@ -1,7 +1,9 @@
 """Node configuration (reference: config/config.go:73-1135).
 
 The port reads the consensus and mempool sections (consensus/,
-mempool/); the rest waits for the node (config_file.py's TOML with it).
+mempool/), and the p2p and blocksync sections where a node is wired by
+hand (p2p/, blocksync/); the rest waits for the node (config_file.py's
+TOML with it).
 
 The master ``Config`` has the reference's 9 sections; consensus timeouts
 follow config.go:908-945. ``test_config()`` mirrors ``TestConfig()``
@@ -129,6 +131,26 @@ ENV_KNOBS: dict[str, str] = {
         ":port); when set (or instrumentation.prometheus in config) "
         "the node serves the metrics registry at GET /metrics on a "
         "dedicated libs/devstats.PrometheusServer"
+    ),
+    "COMETBFT_TPU_NET": (
+        "network-plane telemetry (libs/netstats): auto (default — on "
+        "while a node runs, refcounted like devstats/health) | 1 "
+        "force-on process-wide | 0 off (per-peer/per-channel stats, "
+        "queue gauges, gossip-lag SLI all dark; the disabled path is "
+        "allocation-free)"
+    ),
+    "COMETBFT_TPU_NET_STAMP": (
+        "provenance stamping of p2p messages (libs/netstats): 1 "
+        "(default — the node advertises the netstamp capability and "
+        "stamps toward peers that advertise it back) | 0 withdraws "
+        "the advertisement; wire compat with unstamped peers is "
+        "negotiated, never sniffed"
+    ),
+    "COMETBFT_TPU_NET_TOPK": (
+        "peers exported with their own p2p_peer_rate_bytes{peer} "
+        "label value, ranked by traffic, before aggregating into "
+        "'other' (default 8 — bounds scrape cardinality; "
+        "libs/netstats.py)"
     ),
     "COMETBFT_TPU_COALESCE": (
         "cross-caller verify coalescer: auto (default, node starts it "

@@ -613,3 +613,61 @@ def test_kernel_constants_are_one_kept_copy_under_racing_first_calls(
         t.join()
     assert len(got) == 8 and len({id(t) for t in got}) == 1
     assert fn(dev) is got[0]
+
+
+NETWORK_LAYER = ("libs/flowrate.py", "libs/netstats.py", "crypto/x25519.py",
+                 "crypto/aead.py", "p2p/__init__.py", "p2p/key.py",
+                 "p2p/node_info.py", "p2p/base_reactor.py", "p2p/peer.py",
+                 "p2p/switch.py", "p2p/transport.py",
+                 "p2p/conn/__init__.py", "p2p/conn/connection.py",
+                 "p2p/conn/secret_connection.py", "mempool/reactor.py",
+                 "evidence/reactor.py", "consensus/reactor.py",
+                 "blocksync/__init__.py", "blocksync/messages.py",
+                 "blocksync/pool.py", "blocksync/reactor.py")
+
+
+@pytest.mark.parametrize("rel", NETWORK_LAYER)
+def test_network_layer_module_is_scanned_and_clean(rel):
+    """Each module of p2p/ and the reactors sits at its reference path,
+    is in the scan, imports no jax and nothing of the JAX package, and
+    reaches for no libs/txtrace (its hooks come with that module)."""
+    path = ROOT / "cometbft_tpu_torch" / rel
+    assert (ROOT / "cometbft_tpu" / rel).exists(), rel
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & FORBIDDEN, rel
+    assert not list(_path_literals(path)), rel
+    tree = ast.parse(path.read_text())
+    names = {a.name for n in ast.walk(tree)
+             if isinstance(n, (ast.Import, ast.ImportFrom)) for a in n.names}
+    assert "txtrace" not in names, rel
+
+
+def test_network_layer_knobs_are_registered_and_pex_waits():
+    """libs/netstats' three knobs are in config.ENV_KNOBS; pex/, fuzz.py
+    and suspicion.py come with the node; the native frame cipher builds
+    from the port's own source."""
+    from cometbft_tpu_torch import config as tconfig
+    from cometbft_tpu_torch.crypto import aead
+
+    assert {"COMETBFT_TPU_NET", "COMETBFT_TPU_NET_STAMP",
+            "COMETBFT_TPU_NET_TOPK"} <= set(tconfig.ENV_KNOBS)
+    p2p = ROOT / "cometbft_tpu_torch" / "p2p"
+    assert not (p2p / "pex").exists()
+    assert not (p2p / "fuzz.py").exists()
+    assert not (p2p / "suspicion.py").exists()
+    assert aead.NATIVE_SRC == ROOT / "cometbft_tpu_torch" / "native" / (
+        "chacha20poly1305.cpp")
+
+
+def test_blocksync_reactor_defaults_to_cuda():
+    """BlocksyncReactor resolves its device at construction: without a GPU
+    the default raises before anything is built."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from cometbft_tpu_torch.blocksync import BlocksyncReactor
+
+    store = type("S", (), {"height": lambda self: 0})()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlocksyncReactor(None, None, store, True)
+    assert BlocksyncReactor(None, None, store, True,
+                            device="cpu").device == "cpu"

@@ -966,3 +966,62 @@ def test_consensus_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
     assert out["evidence"]["duplicate_vote"] == 1
     assert out["evidence"]["light_client_attack"] == 1
     assert [x for x in lines if x["phase"] == "consensus.trace"]
+
+
+def test_net_phase_runs_on_the_cpu_at_a_tiny_size(monkeypatch):
+    """chip_smoke.phase_net end to end on the CPU: the burst's four port
+    validators over localhost TCP commit five heights with node 3's txs
+    queried at node 1; then 12 validators through a three-height chain, a
+    byzantine server whose block 3 carries a spoiled
+    LastCommit lane (heights 2 and 3 redone, the server stopped) and the
+    honest one, from which the follower catches up two heights by
+    blocksync and switches to consensus. "cuda" mapped to the CPU, the
+    plain versions counted as launches and every K2/X1 launch held
+    against its plain version; the traced height (a spawned process) is
+    stubbed."""
+    import types
+
+    import torch
+
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import verify as ov
+
+    cs = _chip_smoke()
+    for name, value in (("NET_VALIDATORS", 12), ("NET_LIGHT", 9),
+                        ("NET_HEIGHTS", 3), ("NET_TAMPERED", 4),
+                        ("NET_TRACE_HEIGHT", 2), ("NET_FRAME_REPS", 20),
+                        ("NET_PLAIN_REPS", 2), ("NET_TXS", 8)):
+        monkeypatch.setattr(cs, name, value)
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    monkeypatch.setattr(cs, "get_context", lambda method: types.
+                        SimpleNamespace(Pool=lambda n: _InlinePool()))
+    monkeypatch.setattr(cs, "_traced_net", lambda specs, raw: (10.0, 1.0, 3))
+    monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    _cuda_on_the_cpu(monkeypatch)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, lanes, (err, mismatches) = cs.phase_net(torch, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+        cv.reset_launches()
+        cuda_sha256.reset_launches()
+        monkeypatch.setattr(ov, "_PUBKEY_CACHE", {})
+    assert lanes["verify_kernel_cached"][9] >= 3
+    assert lanes["verify_kernel_cached"][12] >= 1
+    assert launches["verify_kernel"] == launches["verify_kernel8"] == 0
+    assert not any(mismatches.values()) and not any(err.values())
+    frame = [x for x in lines if x["phase"] == "net.frame"][0]
+    assert frame["native_seal_us"] < frame["plain_seal_us"]
+    burst = [x for x in lines if x["phase"] == "net.burst"][0]
+    assert min(burst["heights"]) >= 5 and burst["peers"] == [3, 1, 1, 1]
+    rows = [x for x in lines if x["phase"] == "net.catchup.height"]
+    assert [r["height"] for r in rows] == [1, 2]
+    assert all(r["host_ms"]["apply_block"] > 0 for r in rows)
+    out = [x for x in lines if x["phase"] == "net.catchup"][0]
+    assert out["redone"][:2] == [2, 3] and out["synced"] >= 2
+    assert "bad block" in out["stopped"][0]["reason"]
+    assert out["burst_lanes"]["build_pubkey_tables"].get(4, 0) >= 1
+    assert [x for x in lines if x["phase"] == "net.trace"]

@@ -27,14 +27,17 @@ from cometbft_tpu.types import serialization as rser
 from cometbft_tpu_torch import convert
 from cometbft_tpu_torch.types import serialization as tser
 
-# Both packages' consensus messages and WAL records register with the
-# codec on import (the port's through convert): import both here, so the
+# Both packages' consensus messages, WAL records and blocksync messages
+# register with the codec on import (the port's consensus ones through
+# convert): import both here, so the
 # registries this file's codec cases are drawn from do not depend on what
 # else the worker imported first.
 importlib.import_module("cometbft_tpu.consensus.messages")
 importlib.import_module("cometbft_tpu.consensus.wal")
 importlib.import_module("cometbft_tpu_torch.consensus.messages")
 importlib.import_module("cometbft_tpu_torch.consensus.wal")
+importlib.import_module("cometbft_tpu.blocksync.messages")
+importlib.import_module("cometbft_tpu_torch.blocksync.messages")
 
 CHAIN = "exec-chain"
 T0 = 1_760_000_000_000_000_000
@@ -409,6 +412,7 @@ def test_pinned_cut_runs_plain_k2_and_x1_as_the_reference_host_route(
 def _samples(ref_chain):
     """One reference object of each type the codec registers, from the
     chain and built beside it."""
+    from cometbft_tpu.blocksync import messages as rbs
     from cometbft_tpu.consensus import messages as rmsg, wal as rwal
     from cometbft_tpu.libs.bits import BitArray
     from cometbft_tpu.types import block as rb, evidence as rev, params
@@ -470,6 +474,11 @@ def _samples(ref_chain):
         "EndHeightMessage": rwal.EndHeightMessage(4),
         "MsgInfo": rwal.MsgInfo(rmsg.VoteMessage(vote), "peer"),
         "TimeoutInfo": rwal.TimeoutInfo(0.5, 4, 1, 3),
+        "StatusRequestMessage": rbs.StatusRequestMessage(),
+        "StatusResponseMessage": rbs.StatusResponseMessage(9, 2),
+        "BlockRequestMessage": rbs.BlockRequestMessage(7),
+        "BlockResponseMessage": rbs.BlockResponseMessage(b, ext),
+        "NoBlockResponseMessage": rbs.NoBlockResponseMessage(11),
     }
 
 
@@ -479,7 +488,7 @@ def test_codec_round_trip_of_each_registered_type(chains, name):
     type and dump back to the same bytes; the port's own object loads into
     the reference's equal to the original; the consensus messages and WAL
     records too, with the BitArray adapter. (The reference's registry may
-    hold more: its blocksync, statesync, pex and indexer modules register
+    hold more: its statesync, pex and indexer modules register
     their messages when imported.)"""
     if name == "valset":
         assert set(tser.codec._adapters_by_tag) <= set(
